@@ -1,0 +1,227 @@
+"""TileBackend registry: one ``block_step`` contract, four implementations.
+
+A backend pairs a *layout* (uniform block-ELL "sparse" or K-bucketed
+"bucketed") with a *kernel*.  Its ``block_step(meta, data, state,
+blk_ids, eta_t, row_batches)`` runs all ``row_batches`` sequential tile
+steps of every processor's active block ``blk_ids[q]`` and updates
+``state`` IN PLACE (the w_grid/gw_grid rows ``blk_ids`` and all of
+alpha/ga).
+
+The registry keeps the reference's names, which snapshot configs record:
+``*_jnp`` is the plain PyTorch twin and ``*_pallas`` the hand-written CUDA
+kernel (``csrc/dso_sparse.cu`` through ``kernels/ops.py``; on CPU tensors
+the wrapper runs the kernel's plain version).
+
+  sparse_jnp             — gather/scatter tile steps (engine/update.py)
+                           on block-ELL tiles, all processors batched
+  sparse_pallas          — the sparse block-step CUDA kernel
+  sparse_bucketed_jnp    — the flat-chunk staging + staged math in plain
+                           PyTorch (kernels/dso_sparse.py)
+  sparse_bucketed_pallas — the bucketed block-step CUDA kernel
+
+``auto`` keeps the reference's layout rules (``SPARSE_DENSITY_THRESHOLD``,
+``BUCKET_SKEW_THRESHOLD``) and then, unlike the reference (which always
+picks jnp), picks the layout's kernel backend when the data lives on a
+CUDA device and the plain twin on the CPU.  The dense backends and the
+``*_switch`` bucket dispatch are not ported yet: asking for them raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.engine.update import sparse_tile_step
+from repro_torch.kernels import dso_sparse, ops
+from repro_torch.sparse.format import (BUCKET_SKEW_THRESHOLD,
+                                       SPARSE_DENSITY_THRESHOLD)
+
+
+class TileBackend(NamedTuple):
+    name: str
+    layout: str             # "sparse" | "bucketed"
+    block_step: Callable    # see module docstring
+
+
+def _needs_adagrad(meta, name):
+    if not meta[4]:
+        raise NotImplementedError(
+            f"{name} implements the AdaGrad step; use sparse_jnp for "
+            f"use_adagrad=False")
+
+
+def _stats_args(data, state):
+    return (data.yg, state.w_grid, state.alpha, state.gw_grid, state.ga,
+            data.tile_row_nnz_g, data.tile_col_nnz_g, data.row_nnz_g,
+            data.col_nnz)
+
+
+def _sparse_jnp_block_step(meta, data, state, blk_ids, eta_t, row_batches):
+    lam, m, loss_name, reg_name, use_adagrad, w_lo, w_hi = meta
+    cols_g, vals_g = data.arrays
+    p, mb = data.yg.shape
+    rb = mb // row_batches
+    b = blk_ids.long()
+    qi = torch.arange(p, device=b.device)
+    cols, vals = cols_g[qi, b], vals_g[qi, b]
+    cn, trn, tcn = dso_sparse.active_block_stats(
+        data.tile_row_nnz_g, data.tile_col_nnz_g, data.col_nnz, b)
+    w, gw = state.w_grid[b], state.gw_grid[b]
+    for s in range(row_batches):
+        sl = slice(s * rb, (s + 1) * rb)
+        w, a_s, gw, ga_s = sparse_tile_step(
+            cols=cols[:, sl], vals=vals[:, sl], y_tile=data.yg[:, sl],
+            w_blk=w, alpha_blk=state.alpha[:, sl], gw_blk=gw,
+            ga_blk=state.ga[:, sl], row_nnz_tile=data.row_nnz_g[:, sl],
+            col_nnz_blk=cn, eta_t=eta_t, lam=lam, m=m, loss_name=loss_name,
+            reg_name=reg_name, use_adagrad=use_adagrad, w_lo=w_lo,
+            w_hi=w_hi, tile_row_nnz=trn[:, sl], tile_col_nnz=tcn[:, s])
+        state.alpha[:, sl] = a_s
+        state.ga[:, sl] = ga_s
+    state.w_grid[b] = w
+    state.gw_grid[b] = gw
+
+
+def _sparse_pallas_block_step(meta, data, state, blk_ids, eta_t,
+                              row_batches):
+    lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
+    _needs_adagrad(meta, "the sparse CUDA kernel")
+    cols_g, vals_g = data.arrays
+    ops.dso_sparse_block_step(
+        cols_g, vals_g, blk_ids, *_stats_args(data, state),
+        (eta_t, lam, m, w_lo, w_hi), row_batches=row_batches,
+        loss_name=loss_name, reg_name=reg_name)
+
+
+def _make_bucketed_block_step(step, name):
+    def block_step(meta, data, state, blk_ids, eta_t, row_batches):
+        lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
+        _needs_adagrad(meta, name)
+        step(*data.arrays, blk_ids, *_stats_args(data, state),
+             (eta_t, lam, m, w_lo, w_hi), row_batches=row_batches,
+             loss_name=loss_name, reg_name=reg_name)
+    return block_step
+
+
+_BACKENDS: dict[str, TileBackend] = {}
+
+#: legacy ``impl`` selectors -> canonical backends
+LEGACY_IMPLS = {"sparse": "sparse_jnp", "sparse_pallas": "sparse_pallas"}
+
+#: registered in the reference, ported by a later slice
+NOT_YET_PORTED = {
+    "dense_jnp": "the dense slice (ROADMAP queue 1, dense layout)",
+    "dense_pallas_fused": "the dense slice (ROADMAP queue 2, kernel rows 4-5)",
+    "dense_pallas_block": "the dense slice (ROADMAP queue 2, kernel row 4)",
+    "sparse_bucketed_jnp_switch": "a later slice (the legacy bucket switch)",
+    "sparse_bucketed_pallas_switch": "a later slice (the legacy bucket "
+                                     "switch)",
+    "jnp": "the dense slice (legacy impl 'jnp' = dense_jnp)",
+    "pallas": "the dense slice (legacy impl 'pallas' = dense_pallas_block)",
+}
+
+
+def register_backend(backend: TileBackend) -> TileBackend:
+    if backend.layout not in ("sparse", "bucketed"):
+        raise ValueError(f"backend layout must be sparse|bucketed, got "
+                         f"{backend.layout!r}")
+    _BACKENDS[backend.name] = backend
+    return backend
+
+
+def registered_backends() -> tuple[str, ...]:
+    return tuple(_BACKENDS)
+
+
+def get_backend(name) -> TileBackend:
+    """Canonical-name lookup; pass-through for ``TileBackend`` instances."""
+    if isinstance(name, TileBackend):
+        return name
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"backend {name!r} is not ported yet; it comes with "
+            f"{NOT_YET_PORTED[name]}")
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend/impl {name!r}: registered backends are "
+            f"{sorted(_BACKENDS)} (legacy impl selectors: "
+            f"{sorted(LEGACY_IMPLS)} and 'auto')") from None
+
+
+_LAYOUT_KERNELS = {
+    "jnp": {"sparse": "sparse_jnp", "bucketed": "sparse_bucketed_jnp"},
+    "pallas": {"sparse": "sparse_pallas",
+               "bucketed": "sparse_bucketed_pallas"},
+}
+
+
+def auto_kernel(device_type: str) -> str:
+    """``auto``'s kernel choice from the data's device type alone: the
+    CUDA kernel for data on the card, the plain twin on the CPU."""
+    return "pallas" if device_type == "cuda" else "jnp"
+
+
+def resolve_backend(impl, density: float | None = None, *,
+                    k_skew: float | None = None,
+                    device_type: str = "cpu") -> TileBackend:
+    """``impl`` selector (canonical or legacy) + problem stats -> backend.
+
+    ``auto``: density at or above ``SPARSE_DENSITY_THRESHOLD`` is the
+    dense regime (not ported: ``NotImplementedError``); below it a tile-K
+    skew at or above ``BUCKET_SKEW_THRESHOLD`` picks the bucketed layout,
+    else block-ELL (``k_skew=None``: not probed, block-ELL).  The kernel
+    then follows ``device_type`` (``auto_kernel``).
+    """
+    if isinstance(impl, TileBackend):
+        return impl
+    if impl == "auto":
+        if density is None:
+            raise ValueError("impl='auto' needs the problem density to pick "
+                             "a layout; pass density= or a concrete backend")
+        if density >= SPARSE_DENSITY_THRESHOLD:
+            raise NotImplementedError(
+                f"density {density:.3g} >= {SPARSE_DENSITY_THRESHOLD} is the "
+                f"dense regime; the dense layout and its kernels come with "
+                f"the dense slice (ROADMAP queue 1)")
+        layout = ("bucketed" if k_skew is not None
+                  and k_skew >= BUCKET_SKEW_THRESHOLD else "sparse")
+        return _BACKENDS[_LAYOUT_KERNELS[auto_kernel(device_type)][layout]]
+    if impl in LEGACY_IMPLS:
+        return _BACKENDS[LEGACY_IMPLS[impl]]
+    return get_backend(impl)
+
+
+def resolve_backend_for_layout(impl, layout: str, *,
+                               device_type: str = "cpu") -> TileBackend:
+    """Backend for pre-built grid data whose layout is already fixed:
+    ``auto`` picks the layout's backend of ``auto_kernel(device_type)``,
+    ``jnp``/``pallas`` that kernel; canonical names must match the
+    layout."""
+    if not isinstance(impl, TileBackend) and impl in ("auto", "jnp",
+                                                      "pallas"):
+        kernel = auto_kernel(device_type) if impl == "auto" else impl
+        return _BACKENDS[_LAYOUT_KERNELS[kernel][layout]]
+    backend = resolve_backend(impl)
+    if backend.layout != layout:
+        raise ValueError(
+            f"backend {backend.name!r} has layout {backend.layout!r} but the "
+            f"grid data is {layout!r}; pass a {layout} backend or the kernel "
+            f"selector 'jnp'/'pallas'")
+    return backend
+
+
+register_backend(TileBackend("sparse_jnp", "sparse", _sparse_jnp_block_step))
+register_backend(TileBackend("sparse_pallas", "sparse",
+                             _sparse_pallas_block_step))
+register_backend(TileBackend(
+    "sparse_bucketed_jnp", "bucketed",
+    _make_bucketed_block_step(dso_sparse.dso_bucketed_block_step_plain,
+                              "sparse_bucketed_jnp")))
+register_backend(TileBackend(
+    "sparse_bucketed_pallas", "bucketed",
+    _make_bucketed_block_step(ops.dso_bucketed_block_step,
+                              "the bucketed CUDA kernel")))
