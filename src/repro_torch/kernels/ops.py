@@ -178,12 +178,36 @@ def dso_primal_update(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz, s: int,
         dso_sparse.primal_update_plain(blk_ids, w_grid, gw_grid, acc, tcn_g,
                                        col_nnz, s, scal, reg_name)
         return
+    _launch_primal(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz, s, scal,
+                   reg_name)
+
+
+dso_primal_update.launches = 0
+
+
+def _launch_primal(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz, s, scal,
+                   reg_name):
+    """Launch B on tensors already checked, counted on
+    ``dso_primal_update``."""
     dso_sparse.launch_primal_update(blk_ids, w_grid, gw_grid, acc, tcn_g,
                                     col_nnz, s, scal, reg_name)
     dso_primal_update.launches += 1
 
 
-dso_primal_update.launches = 0
+# Launch B leaves ``acc`` zeroed, so one (p, db) accumulator per device and
+# shape serves every block step on the current stream.  A step takes it out
+# while it runs and puts it back when it is done, so a step that raises
+# leaves no half-summed buffer behind.
+_ACC: dict = {}
+
+
+def _take_acc(w_grid):
+    acc = _ACC.pop((w_grid.device, w_grid.shape), None)
+    return torch.zeros_like(w_grid) if acc is None else acc
+
+
+def _give_acc(acc):
+    _ACC[(acc.device, acc.shape)] = acc
 
 
 def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
@@ -217,14 +241,15 @@ def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
         return
     _require_probe(yg.device, "sparse_jnp")
     rb = mb // row_batches
-    acc = torch.zeros_like(w_grid)
+    acc = _take_acc(w_grid)
     for s in range(row_batches):
         dso_sparse.launch_sparse_dual_scatter(
             cols_g, vals_g, blk_ids, yg, w_grid, alpha, ga, tile_row_nnz_g,
             row_nnz_g, acc, s * rb, rb, scal[0], scal[2], loss_name)
         dso_sparse_block_step.launches += 1
-        dso_primal_update(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
-                          col_nnz, s, scal, reg_name=reg_name)
+        _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
+                       col_nnz, s, scal, reg_name)
+    _give_acc(acc)
 
 
 dso_sparse_block_step.launches = 0
@@ -264,15 +289,16 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
         return
     _require_probe(yg.device, "sparse_bucketed_jnp")
     rb = mb // row_batches
-    acc = torch.zeros_like(w_grid)
+    acc = _take_acc(w_grid)
     for s in range(row_batches):
         dso_sparse.launch_bucketed_dual_scatter(
             cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg, w_grid,
             alpha, ga, tile_row_nnz_g, row_nnz_g, acc, s * rb, rb, scal[0],
             scal[2], loss_name)
         dso_bucketed_block_step.launches += 1
-        dso_primal_update(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
-                          col_nnz, s, scal, reg_name=reg_name)
+        _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
+                       col_nnz, s, scal, reg_name)
+    _give_acc(acc)
 
 
 dso_bucketed_block_step.launches = 0
