@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 Phases, one line per result:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. build: nvcc builds ``src/repro_torch/csrc/dso_sparse.cu`` into
-   ``build/`` (seconds, ptxas registers / shared memory).
-3. kernels vs plain versions on the card: the probe, then both block-step
-   kernels against their plain PyTorch versions on the same inputs for
-   six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5 (rtol and atol;
-   atomics reorder the scatter's sum).
+2. build: nvcc builds every ``src/repro_torch/csrc/*.cu`` (one nvcc per
+   source, started together) into one library in ``build/`` (seconds,
+   ptxas registers / shared memory).
+3. sparse kernels vs plain versions on the card: the probe, then both
+   sparse block-step kernels against their plain PyTorch versions on the
+   same inputs for six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5
+   (rtol and atol; atomics reorder the scatter's sum).
+3d. dense kernel vs plain versions on the card: the dense launch A + B
+   through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
+   pairs on a narrow grid (db 289, rows and columns padded, a trailing row
+   at row_batches 2 and 3) and a wide one (db 12,375: the column partial
+   no longer fits in shared memory), and through ``ops.dso_tile_step`` at
+   M 999, D 1,155 (contiguous and a row-strided view); bound 1e-5.
 4. main path, block-ELL: ``solve(grid, backend="auto")`` on the
    svm-real-sim configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at
    LIBSVM real-sim's size (m 72,309, d 20,958, ~51 nnz per row), 10
@@ -24,9 +31,18 @@ Phases, one line per result:
 5. main path, K-bucketed: the logistic-real-sim configuration (logistic,
    l2, lam 1e-4, alpha0 5e-4) on power-law columns (alpha 1.3); same
    checks.
-6. times at the phase-4/5 shapes with CUDA events: each kernel's ms per
+5d. main path, dense: ``solve(problem, backend="auto")`` on the svm-ocr
+   configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at ocr's width
+   (d 1,156) with m 1,000,000 rows drawn on the card; ``auto`` must pick
+   ``dense_pallas_block``; then the same run on ``dense_pallas_fused``
+   (the per-tile path, ``ops.dso_tile_step``), each in its own launch
+   count window; same checks against ``dense_jnp``, plus the peak device
+   memory.
+6. times at the phase-4/5/5d shapes with CUDA events: each kernel's ms per
    call beside its bound (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s float32) and its plain version's ms.
+   TFLOP/s float32), its plain version's ms and, for the dense kernel,
+   the cuBLAS mat-vecs computing the same two products (``torch.mv``,
+   never called by the port).
 
 Prints the kernel table as one JSON line, the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -51,6 +67,7 @@ P = 4
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
 REALSIM_M, REALSIM_D, REALSIM_K = 72309, 20958, 51
+OCR_M, OCR_D = 1_000_000, 1156   # ocr's published width; rows cut
 EPOCHS, EVAL_EVERY = 10, 2
 EPOCH_REPS = 5             # timed repeats of run_epochs(EPOCHS) per backend
 
@@ -199,6 +216,31 @@ def realsim_csr(m, d, k, alpha, seed):
     return csr, y
 
 
+def ocr_problem(m, d, lam, seed, dev):
+    """svm-ocr-shaped dense ``Problem`` by the ``make_dense_classification``
+    recipe (features N(0, 1/sqrt(d)), labels from a planted w* with noise
+    0.1), drawn on the card with a CUDA ``torch.Generator`` in chunks of
+    rows; X never exists on the host."""
+    import torch
+    from repro_torch.core.saddle import Problem
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.empty((m, d), dtype=torch.float32, device=dev)
+    for r in range(0, m, 1 << 16):
+        X[r:r + (1 << 16)].normal_(0.0, 1.0 / d ** 0.5, generator=g)
+    w_star = torch.randn(d, generator=g, device=dev)
+    noise = torch.randn(m, generator=g, device=dev)
+    y = torch.where(X @ w_star + 0.1 * noise >= 0, 1.0, -1.0)
+    row_nnz = torch.zeros(m, dtype=torch.float32, device=dev)
+    col_nnz = torch.zeros(d, dtype=torch.float32, device=dev)
+    for r in range(0, m, 1 << 16):
+        nz = X[r:r + (1 << 16)] != 0
+        row_nnz[r:r + (1 << 16)] = nz.sum(dim=1).float()
+        col_nnz += nz.sum(dim=0).float()
+    return Problem(X=X, y=y, lam=lam, row_nnz=row_nnz.clamp(min=1.0),
+                   col_nnz=col_nnz.clamp(min=1.0), nnz=float(row_nnz.sum()),
+                   loss_name="hinge", reg_name="l2")
+
+
 def random_state(grid, loss, seed):
     import numpy as np
     import torch
@@ -231,8 +273,12 @@ def scalars(loss, lam, m):
 def run_step(kind, grid, st, blk, scal, rb, loss, reg, plain):
     """One block step of every processor, in place on ``st``: the kernel
     wrapper, or (``plain``) the kernel's plain version."""
-    from repro_torch.kernels import dso_sparse, ops
-    if kind == "sparse":
+    from repro_torch.kernels import dso_sparse, dso_update, ops
+    if kind == "dense":
+        fn = dso_update.dso_block_step_plain if plain else ops.dso_block_step
+        fn(grid.Xg, blk, *step_args(grid, st), scal, row_batches=rb,
+           loss_name=loss, reg_name=reg)
+    elif kind == "sparse":
         fn = dso_sparse.dso_sparse_block_step_plain if plain \
             else ops.dso_sparse_block_step
         fn(grid.cols_g, grid.vals_g, blk, *step_args(grid, st), scal,
@@ -355,7 +401,8 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
     want = {"sparse_probe": 1, "dso_primal_update": n_step,
             "dso_sparse_block_step": n_step if be.layout == "sparse" else 0,
             "dso_bucketed_block_step":
-                n_step if be.layout == "bucketed" else 0}
+                n_step if be.layout == "bucketed" else 0,
+            "dso_block_step": 0, "dso_tile_step": 0}
     say(phase, f"launch counts {counts} (design: {want})")
     check(counts == want, f"launch counts {counts} != design {want}")
     primal = [h["primal"] for h in res.history]
@@ -395,6 +442,243 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
                + ", ".join(f"{k[:48]}={us:.1f}" for k, us in kernels[:6]))
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
                 lam=lam, m=csr.m, state=res.state)
+
+
+def phase_dense_kernels(dev):
+    """Phase 3d: the dense launch A + B against the plain versions at
+    small shapes: ``ops.dso_block_step`` for row_batches {1, 2, 3} on a
+    narrow grid (m 999, d 1,155: rows and a column padded, db 289) and
+    {1, 3} on a wide one (m 64, d 49,500: db 12,375, past the kernel's
+    shared-memory partial), x six pairs; ``ops.dso_tile_step`` at M 999,
+    D 1,155 and on a row-strided view of one processor's block."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.engine import make_grid_data
+    from repro_torch.kernels import dso_update, ops
+    worst = 0.0
+    blk = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=dev)
+    cases = [(999, 1155, 0.7, (1, 2, 3)), (64, 49500, 0.5, (1, 3))]
+    for m, d, density, rbs in cases:
+        prob = make_classification(m=m, d=d, density=density, seed=m,
+                                   device=dev)
+        for rb in rbs:
+            grid = make_grid_data(prob, P, rb)
+            for loss, reg in LOSS_REG_PAIRS:
+                st = random_state(grid, loss, seed=rb)
+                e, ok = compare_step("dense", grid, st, blk,
+                                     scalars(loss, 1e-3, m), rb, loss, reg)
+                worst = max(worst, e)
+                say("3d", f"dense block step {loss}/{reg} row_batches={rb} "
+                          f"mb={grid.mb} db={grid.db} max|d|={e:.3e} "
+                          f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"dense {loss}/{reg} rb={rb} db={grid.db}: "
+                          f"kernel disagrees with its plain version "
+                          f"(max|d| {e:.3e})")
+    prob = make_classification(m=999, d=1155, density=0.7, seed=3,
+                               device=dev)
+    grid = make_grid_data(prob, P, 1)
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa
+    for name, X in (("contiguous", prob.X),
+                    ("strided", grid.Xg[2, :, grid.db:2 * grid.db])):
+        M, D = X.shape
+        for loss, reg in LOSS_REG_PAIRS:
+            y = prob.y[:M] if name == "contiguous" else grid.yg[2]
+            alpha = y * t(rng.uniform(0.05, 0.95, M))
+            if loss == "square":
+                alpha = t(rng.normal(0, 0.5, M))
+            args = (y, t(rng.normal(0, 0.1, D)), alpha,
+                    t(np.abs(rng.normal(0, 0.01, D))),
+                    t(np.abs(rng.normal(0, 0.01, M))),
+                    t(rng.integers(1, 50, M)), t(rng.integers(1, 50, D)),
+                    scalars(loss, 1e-3, M))
+            kw = dict(loss_name=loss, reg_name=reg,
+                      tile_row_nnz=(X != 0).sum(1).float(),
+                      tile_col_nnz=(X != 0).sum(0).float())
+            got = ops.dso_tile_step(X, *args, **kw)
+            want = dso_update.dso_tile_step_plain(X, *args, **kw)
+            torch.cuda.synchronize()
+            errs = [max_rel_err(g, w) for g, w in zip(got, want)]
+            e = max(x for x, _ in errs)
+            worst = max(worst, e)
+            say("3d", f"dense tile step {name} {loss}/{reg} M={M} D={D} "
+                      f"max|d|={e:.3e}")
+            check(all(ok for _, ok in errs),
+                  f"dense tile step {name} {loss}/{reg}: kernel disagrees "
+                  f"with its plain version (max|d| {e:.3e})")
+    return worst
+
+
+def phase_dense_main(dev):
+    """Phase 5d: svm-ocr through ``solve`` on a Problem drawn on the card:
+    ``auto`` (must be ``dense_pallas_block``), then ``dense_pallas_fused``,
+    each in its own launch-count window, both against ``dense_jnp``."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import make_grid_data, resolve_backend, solve
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import density
+    t0 = time.perf_counter()
+    lam = 1e-4
+    prob = ocr_problem(OCR_M, OCR_D, lam, seed=13, dev=dev)
+    be = resolve_backend("auto", density(prob), device_type=dev.type)
+    torch.cuda.synchronize()
+    say("5d", f"data m={prob.m} d={prob.d} nnz={prob.nnz:.0f} density="
+              f"{density(prob):.4f} X={prob.X.numel() * 4} B on the card "
+              f"-> auto resolves {be.name}; set-up "
+              f"{time.perf_counter() - t0:.1f} s")
+    check(be.name == "dense_pallas_block",
+          f"auto picked {be.name}, expected dense_pallas_block")
+    kw = dict(p=P, epochs=EPOCHS, eta0=0.5, eval_every=EVAL_EVERY,
+              device=dev)
+    n_step = EPOCHS * P * 1          # epochs x inner iterations x row tiles
+    zero = {k: 0 for k in ops.launch_counts()}
+    runs = {}
+    for backend, want in (
+            ("auto", dict(zero, dso_block_step=n_step,
+                          dso_primal_update=n_step)),
+            ("dense_pallas_fused", dict(zero, dso_tile_step=n_step * P,
+                                        dso_primal_update=n_step * P))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res = solve(prob, backend=backend, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        say("5d", f"{backend}: launch counts {counts} (design: {want})")
+        check(counts == want, f"launch counts {counts} != design {want}")
+        primal = [h["primal"] for h in res.history]
+        say("5d", f"{backend}: primal per eval " + " ".join(
+            f"e{h['epoch']}={h['primal']:.6f}" for h in res.history)
+            + f"; gap at the end {res.history[-1]['gap']:.6f}")
+        check(all(np.isfinite(primal)), "non-finite primal")
+        check(all(b < a for a, b in zip(primal, primal[1:])),
+              f"primal did not fall at every evaluation: {primal}")
+        say("5d", f"{backend}: primal falls at every evaluation; "
+                  f"max_memory_allocated={peak} B")
+        runs[backend] = (res, counts)
+    twin = solve(prob, backend="dense_jnp", **kw)
+    for backend, (res, _) in runs.items():
+        rel = [abs(a["primal"] - b["primal"]) / abs(b["primal"])
+               for a, b in zip(res.history, twin.history)]
+        say("5d", f"{backend} vs plain twin dense_jnp on the card: max rel "
+                  f"primal diff {max(rel):.3e} over {len(rel)} evals")
+        check(len(rel) == len(res.history) and max(rel) <= TOL,
+              f"{backend} and the plain twin disagree: {rel}")
+
+    grid = make_grid_data(prob, P, 1)
+    runners = {name: epoch_runner(grid, name, loss="hinge", lam=lam,
+                                  m=prob.m, alpha0=0.0)
+               for name in ("dense_pallas_block", "dense_jnp")}
+    for name, (fresh, run) in runners.items():
+        ts = epoch_seconds(fresh, run)
+        med = ts[len(ts) // 2]
+        say("5d", f"run_epochs s/epoch {name}: median {med:.6f} min "
+                  f"{ts[0]:.6f} max {ts[-1]:.6f} over {len(ts)} x {EPOCHS} "
+                  f"epochs; X bytes/s at the median "
+                  f"{prob.X.numel() * 4 / med:.4e}")
+    fresh, run = runners["dense_pallas_block"]
+    st = fresh()
+    wall, busy, kernels = device_split(lambda: run(st, 2))
+    say("5d", f"profiled run_epochs(2) of dense_pallas_block: wall "
+              f"{wall:.6f} s, device busy {busy:.6f} s, idle share "
+              f"{1 - busy / wall:.3f}; top kernels (us): "
+              + ", ".join(f"{k[:48]}={us:.1f}" for k, us in kernels[:6]))
+    return dict(grid=grid, layout="dense", loss="hinge", lam=lam, m=prob.m,
+                state=runs["auto"][0].state,
+                counts={k: runs["auto"][1][k] + runs["dense_pallas_fused"][1]
+                        [k] for k in zero})
+
+
+def dense_bound(rows, cols, procs):
+    """(bound ms, bound_by) of a dense tile step: X read once, the row and
+    column vectors read and written once, 4 flops per element."""
+    nbytes = 4 * procs * rows * cols + 28 * procs * rows + 24 * procs * cols
+    ops_n = 4 * procs * rows * cols + 20 * procs * rows + 12 * procs * cols
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops_n / F32_OPS_S \
+        else "operations"
+    return max(nbytes / HBM_BYTES_S, ops_n / F32_OPS_S) * 1e3, by
+
+
+def phase_dense_times(ctx):
+    """Phase 6 at the svm-ocr shape: the dense block step (row 4, p = 4
+    active blocks) and the tile step on one processor's block (row 5),
+    each beside its bound, its plain version and the cuBLAS mat-vecs of
+    the same two products."""
+    import torch
+    from repro_torch.kernels import dso_update, ops
+    grid, loss = ctx["grid"], ctx["loss"]
+    dev = grid.yg.device
+    p, mb, db = grid.p, grid.mb, grid.db
+    st0 = {k: getattr(ctx["state"], k).clone()
+           for k in ("w_grid", "gw_grid", "alpha", "ga")}
+    blk_list = [1, 2, 3, 0]
+    blk = torch.tensor(blk_list, dtype=torch.int32, device=dev)
+    scal = scalars(loss, ctx["lam"], ctx["m"])
+    slabs = [grid.Xg[q, :, b * db:(b + 1) * db]
+             for q, b in enumerate(blk_list)]
+    rows = {}
+
+    err, ok = compare_step("dense", grid, st0, blk, scal, 1, loss, "l2")
+    check(ok, f"dense block step disagrees at the svm-ocr shape: {err}")
+    st = {k: v.clone() for k, v in st0.items()}
+    ms = cuda_ms(lambda: run_step("dense", grid, st, blk, scal, 1, loss,
+                                  "l2", plain=False), 50)
+    n_prof = 20
+    _, busy, kern = device_split(lambda: [run_step(
+        "dense", grid, st, blk, scal, 1, loss, "l2", plain=False)
+        for _ in range(n_prof)])
+    st = {k: v.clone() for k, v in st0.items()}
+    plain_ms = cuda_ms(lambda: run_step("dense", grid, st, blk, scal, 1,
+                                        loss, "l2", plain=True), 5, warm=1)
+    lib_ms = cuda_ms(lambda: [(torch.mv(x, st0["w_grid"][b]),
+                               torch.mv(x.t(), st0["alpha"][q]))
+                              for q, (x, b) in enumerate(zip(slabs,
+                                                             blk_list))], 50)
+    bound, by = dense_bound(mb, db, p)
+    rows["block"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=lib_ms, max_abs_err=err,
+                         device_ms=busy / n_prof * 1e3)
+    say(6, f"dso_block_step: {ms:.4f} ms per call (A+B, {p} processors, "
+           f"{p * mb * db * 4} B of X; device time {busy / n_prof * 1e3:.4f}"
+           f" ms per call under the profiler: "
+           + ", ".join(f"{k[:40]}={us / n_prof:.1f}us" for k, us in kern[:3])
+           + f") bound {bound:.4f} ms ({by}) plain {plain_ms:.4f} ms "
+             f"cuBLAS mv pair {lib_ms:.4f} ms max|d| {err:.3e}")
+
+    q, b = 0, blk_list[0]
+    X = slabs[q]
+    cols = slice(b * db, (b + 1) * db)
+    vec = (grid.yg[q], st0["w_grid"][b], st0["alpha"][q], st0["gw_grid"][b],
+           st0["ga"][q], grid.row_nnz_g[q], grid.col_nnz[cols], scal)
+    kw = dict(loss_name=loss, reg_name="l2",
+              tile_row_nnz=grid.tile_row_nnz_g[q, b],
+              tile_col_nnz=grid.tile_col_nnz_g[q, 0, cols])
+    got = ops.dso_tile_step(X, *vec, **kw)
+    want = dso_update.dso_tile_step_plain(X, *vec, **kw)
+    torch.cuda.synchronize()
+    errs = [max_rel_err(g, w) for g, w in zip(got, want)]
+    t_err = max(e for e, _ in errs)
+    check(all(ok for _, ok in errs),
+          f"dense tile step disagrees at the svm-ocr shape: {t_err}")
+    t_ms = cuda_ms(lambda: ops.dso_tile_step(X, *vec, **kw), 50)
+    _, t_busy, _ = device_split(lambda: [ops.dso_tile_step(X, *vec, **kw)
+                                         for _ in range(n_prof)])
+    t_plain = cuda_ms(lambda: dso_update.dso_tile_step_plain(X, *vec, **kw),
+                      20)
+    t_lib = cuda_ms(lambda: (torch.mv(X, vec[1]), torch.mv(X.t(), vec[2])),
+                    50)
+    t_bound, t_by = dense_bound(mb, db, 1)
+    rows["tile"] = dict(ms=t_ms, plain_ms=t_plain, bound_ms=t_bound,
+                        bound_by=t_by, library_ms=t_lib, max_abs_err=t_err,
+                        device_ms=t_busy / n_prof * 1e3)
+    say(6, f"dso_tile_step: {t_ms:.4f} ms per call (A+B, one processor, "
+           f"{mb}x{db} row-strided block; device time "
+           f"{t_busy / n_prof * 1e3:.4f} ms per call) bound {t_bound:.4f} ms "
+           f"({t_by}) plain {t_plain:.4f} ms cuBLAS mv pair {t_lib:.4f} ms "
+           f"max|d| {t_err:.3e}")
+    return rows
 
 
 def packed_bytes(ctx, blk):
@@ -506,7 +790,7 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import dso_sparse
+    from repro_torch.kernels import build
 
     dev = resolve_device("cuda")
     smi = smi_line()
@@ -518,28 +802,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    lib = dso_sparse.library()
-    say(2, f"built {lib.path} in {lib.build_s:.2f} s")
+    lib = build.library()
+    say(2, f"built {lib.path} from {[f.name for f in build.sources()]} in "
+           f"{lib.build_s:.2f} s")
     for line in lib.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "smem" in line:
             say(2, line.strip())
 
     worst = phase_kernels(dev)
     say(3, f"all block-step cases within {TOL}: worst max|d| {worst:.3e}")
+    worst_d = phase_dense_kernels(dev)
+    say("3d", f"all dense cases within {TOL}: worst max|d| {worst_d:.3e}")
 
     uni = phase_main(4, dev, loss="hinge", lam=1e-4, alpha0=0.0,
                      powerlaw=None, expect="sparse_pallas")
     buck = phase_main(5, dev, loss="logistic", lam=1e-4, alpha0=0.0005,
                       powerlaw=1.3, expect="sparse_bucketed_pallas")
+    dense = phase_dense_main(dev)
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
+    d_rows = phase_dense_times(dense)
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
                   replaces="src/repro/kernels/dso_sparse.py:116",
-                  launches=uni["counts"]["dso_primal_update"]
-                  + buck["counts"]["dso_primal_update"],
+                  launches=sum(ctx["counts"]["dso_primal_update"]
+                               for ctx in (uni, buck, dense)),
                   max_abs_err=max(s_primal["max_abs_err"],
                                   b_primal["max_abs_err"]),
                   ms=s_primal["ms"], plain_ms=s_primal["plain_ms"],
@@ -552,7 +841,18 @@ def main() -> int:
                      launches=uni["counts"]["sparse_probe"]
                      + buck["counts"]["sparse_probe"],
                      bound_by="bytes", library_ms=None, **probe)
-    print(json.dumps({"kernels": [s_step, b_step, primal, probe_row]}))
+    dense_rows = []
+    for key, name, line in (("block", "dso_block_step", 354),
+                            ("tile", "dso_tile_step", 314)):
+        r = dict(d_rows[key])
+        r.pop("device_ms")
+        dense_rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/dso_update.cu",
+            replaces=f"src/repro/kernels/dso_update.py:{line}",
+            launches=dense["counts"][name], **r))
+    print(json.dumps({"kernels": [s_step, b_step, primal, probe_row]
+                      + dense_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,69 +33,20 @@
 // stream coalesced (lanes of a warp read consecutive slots of one row) and
 // skips atomics on padding slots (val == 0 adds an exact zero).
 //
-// Arithmetic follows the reference's order of operations.  AdaGrad's rsqrt
-// is computed as 1.0f / sqrtf(x) (both IEEE-rounded without fast-math), so
-// it is within 1 ulp of the correctly rounded rsqrt.  Atomics reorder the
-// scatter's sum from run to run: results agree with the plain PyTorch
-// version to 1e-5, not bitwise.
+// Arithmetic (dso_common.cuh) follows the reference's order of operations.
+// Atomics reorder the scatter's sum from run to run: results agree with the
+// plain PyTorch version to 1e-5, not bitwise.
 //
 // Every entry point has a plain C interface for ctypes and returns
 // cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dso_common.cuh"
 
 namespace {
 
-enum Loss { HINGE = 0, LOGISTIC = 1, SQUARE = 2 };
-enum Reg { L2 = 0, L1 = 1 };
+using namespace dso;
 
-constexpr float ADA_EPS = 1e-8f;
-constexpr float LOG_LO = 1e-6f;
-constexpr float LOG_HI = 0.999999f;   // float32(1 - 1e-6)
 constexpr int WARPS_PER_BLOCK = 8;
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float dual_grad(int loss, float a, float y) {
-  if (loss == HINGE) return -y;
-  if (loss == LOGISTIC) {
-    float b = clampf(y * a, LOG_LO, LOG_HI);
-    return y * (logf(b) - log1pf(-b));
-  }
-  return a - y;
-}
-
-__device__ __forceinline__ float project_alpha(int loss, float a, float y) {
-  if (loss == HINGE) return y * clampf(y * a, 0.0f, 1.0f);
-  if (loss == LOGISTIC) return y * clampf(y * a, LOG_LO, LOG_HI);
-  return a;
-}
-
-__device__ __forceinline__ float reg_grad(int reg, float w) {
-  if (reg == L2) return 2.0f * w;
-  return (w > 0.0f) ? 1.0f : ((w < 0.0f) ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  return s;
-}
-
-// Dual half of the Eq.-8 step for one row, done by lane 0 of its warp.
-__device__ __forceinline__ void dual_step(int loss, float xw, float a_old,
-                                          float* alpha, float* ga,
-                                          long long r, float y, float trn,
-                                          float rn, float eta, float m) {
-  float g_a = -dual_grad(loss, a_old, y) * trn / (m * rn) - xw / m;
-  float ga_new = ga[r] + g_a * g_a;
-  float da = eta * g_a * (1.0f / sqrtf(ga_new + ADA_EPS));
-  alpha[r] = project_alpha(loss, a_old + da, y);
-  ga[r] = ga_new;
-}
 
 // Launch A on the uniform block-ELL grid: one warp per (processor q, row i)
 // of row tile [r0, r0 + rb).  cols_g/vals_g (p, p, mb, K); the active tile
@@ -211,10 +162,6 @@ __global__ void probe_kernel(const int* __restrict__ cols,
     atomicAdd(out + cols[t], w[cols[t]]);
 }
 
-inline unsigned blocks_for(long long n, int per_block) {
-  return (unsigned)((n + per_block - 1) / per_block);
-}
-
 }  // namespace
 
 extern "C" {
@@ -227,7 +174,7 @@ int dso_sparse_dual_scatter(const int* cols_g, const float* vals_g,
                             float eta, float m, int loss, void* stream) {
   long long warps = (long long)p * rb;
   if (warps > 0)
-    sparse_dual_scatter_kernel<<<blocks_for(warps, WARPS_PER_BLOCK),
+    sparse_dual_scatter_kernel<<<dso::blocks_for(warps, WARPS_PER_BLOCK),
                                  32 * WARPS_PER_BLOCK, 0,
                                  (cudaStream_t)stream>>>(
         cols_g, vals_g, blk_ids, yg, w_grid, alpha, ga, trn_g, rn_g, acc, p,
@@ -245,7 +192,7 @@ int dso_bucketed_dual_scatter(const int* cols_fl, const float* vals_fl,
                               float m, int loss, void* stream) {
   long long warps = (long long)p * rb;
   if (warps > 0)
-    bucketed_dual_scatter_kernel<<<blocks_for(warps, WARPS_PER_BLOCK),
+    bucketed_dual_scatter_kernel<<<dso::blocks_for(warps, WARPS_PER_BLOCK),
                                    32 * WARPS_PER_BLOCK, 0,
                                    (cudaStream_t)stream>>>(
         cols_fl, vals_fl, lut, cnt_g, blk_ids, yg, w_grid, alpha, ga, trn_g,
@@ -260,7 +207,7 @@ int dso_primal_update(const int* blk_ids, float* w_grid, float* gw_grid,
                       void* stream) {
   long long n = (long long)p * db;
   if (n > 0)
-    primal_update_kernel<<<blocks_for(n, 256), 256, 0,
+    primal_update_kernel<<<dso::blocks_for(n, 256), 256, 0,
                            (cudaStream_t)stream>>>(
         blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz, p, db, n_rb, s, eta,
         lam, m, w_lo, w_hi, reg);

@@ -1,19 +1,27 @@
-"""TileBackend registry: one ``block_step`` contract, four implementations.
+"""TileBackend registry: one ``block_step`` contract, seven implementations.
 
-A backend pairs a *layout* (uniform block-ELL "sparse" or K-bucketed
-"bucketed") with a *kernel*.  Its ``block_step(meta, data, state,
-blk_ids, eta_t, row_batches)`` runs all ``row_batches`` sequential tile
-steps of every processor's active block ``blk_ids[q]`` and updates
-``state`` IN PLACE (the w_grid/gw_grid rows ``blk_ids`` and all of
+A backend pairs a *layout* (dense row shards "dense", uniform block-ELL
+"sparse" or K-bucketed "bucketed") with a *kernel*.  Its ``block_step(meta,
+data, state, blk_ids, eta_t, row_batches)`` runs all ``row_batches``
+sequential tile steps of every processor's active block ``blk_ids[q]`` and
+updates ``state`` IN PLACE (the w_grid/gw_grid rows ``blk_ids`` and all of
 alpha/ga).
 
 The registry keeps the reference's names, which snapshot configs record:
-``*_jnp`` is the plain PyTorch twin and ``*_pallas`` the hand-written CUDA
-kernel (``csrc/dso_sparse.cu`` through ``kernels/ops.py``; on CPU tensors
-the wrapper runs the kernel's plain version).
+``*_jnp`` is the plain PyTorch twin and ``*_pallas*`` the hand-written CUDA
+kernel (``csrc/*.cu`` through ``kernels/ops.py``; on CPU tensors the
+wrapper runs the kernel's plain version).
 
-  sparse_jnp             — gather/scatter tile steps (engine/update.py)
-                           on block-ELL tiles, all processors batched
+  dense_jnp              — mat-vec tile steps (engine/update.py
+                           ``block_tile_step``), all processors batched
+  dense_pallas_block     — the dense block-step CUDA kernel
+                           (``ops.dso_block_step``): launch A + B per row
+                           tile, all p processors in each launch
+  dense_pallas_fused     — one ``ops.dso_tile_step`` call per processor
+                           and row batch (the reference's ``force_scan``
+                           path), so 2 * p launches per row tile
+  sparse_jnp             — gather/scatter tile steps (engine/update.py
+                           ``sparse_tile_step``) on block-ELL tiles
   sparse_pallas          — the sparse block-step CUDA kernel
   sparse_bucketed_jnp    — the flat-chunk staging + staged math in plain
                            PyTorch (kernels/dso_sparse.py)
@@ -22,9 +30,8 @@ the wrapper runs the kernel's plain version).
 ``auto`` keeps the reference's layout rules (``SPARSE_DENSITY_THRESHOLD``,
 ``BUCKET_SKEW_THRESHOLD``) and then, unlike the reference (which always
 picks jnp), picks the layout's kernel backend when the data lives on a
-CUDA device and the plain twin on the CPU.  The dense backends and the
-``*_switch`` bucket dispatch are not ported yet: asking for them raises
-``NotImplementedError``.
+CUDA device and the plain twin on the CPU.  The ``*_switch`` bucket
+dispatch is not ported yet: asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,15 +40,16 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.engine.update import sparse_tile_step
+from repro_torch.engine.update import block_tile_step, sparse_tile_step
 from repro_torch.kernels import dso_sparse, ops
+from repro_torch.kernels.dso_update import active_block_stats, active_slab
 from repro_torch.sparse.format import (BUCKET_SKEW_THRESHOLD,
                                        SPARSE_DENSITY_THRESHOLD)
 
 
 class TileBackend(NamedTuple):
     name: str
-    layout: str             # "sparse" | "bucketed"
+    layout: str             # "dense" | "sparse" | "bucketed"
     block_step: Callable    # see module docstring
 
 
@@ -58,30 +66,84 @@ def _stats_args(data, state):
             data.col_nnz)
 
 
-def _sparse_jnp_block_step(meta, data, state, blk_ids, eta_t, row_batches):
-    lam, m, loss_name, reg_name, use_adagrad, w_lo, w_hi = meta
-    cols_g, vals_g = data.arrays
+def _dense_tile(arrays, b, sl):
+    (Xg,) = arrays
+    return dict(X_tile=active_slab(Xg, b, sl))
+
+
+def _sparse_tile(arrays, b, sl):
+    cols_g, vals_g = arrays
+    qi = torch.arange(b.numel(), device=b.device)
+    return dict(cols=cols_g[qi, b, sl], vals=vals_g[qi, b, sl])
+
+
+def _make_jnp_block_step(slice_tile, tile_step):
+    """The plain backends' shared row-batch loop: slice every processor's
+    active tile of each row batch (``slice_tile`` yields the layout's
+    payload kwargs), run the layout's batched tile step, write alpha/ga
+    back in place, then the w/gw blocks."""
+
+    def block_step(meta, data, state, blk_ids, eta_t, row_batches):
+        lam, m, loss_name, reg_name, use_adagrad, w_lo, w_hi = meta
+        rb = data.yg.shape[1] // row_batches
+        b = blk_ids.long()
+        cn, trn, tcn = active_block_stats(
+            data.tile_row_nnz_g, data.tile_col_nnz_g, data.col_nnz, b)
+        w, gw = state.w_grid[b], state.gw_grid[b]
+        for s in range(row_batches):
+            sl = slice(s * rb, (s + 1) * rb)
+            w, a_s, gw, ga_s = tile_step(
+                **slice_tile(data.arrays, b, sl), y_tile=data.yg[:, sl],
+                w_blk=w, alpha_blk=state.alpha[:, sl], gw_blk=gw,
+                ga_blk=state.ga[:, sl], row_nnz_tile=data.row_nnz_g[:, sl],
+                col_nnz_blk=cn, eta_t=eta_t, lam=lam, m=m,
+                loss_name=loss_name, reg_name=reg_name,
+                use_adagrad=use_adagrad, w_lo=w_lo, w_hi=w_hi,
+                tile_row_nnz=trn[:, sl], tile_col_nnz=tcn[:, s])
+            state.alpha[:, sl] = a_s
+            state.ga[:, sl] = ga_s
+        state.w_grid[b] = w
+        state.gw_grid[b] = gw
+
+    return block_step
+
+
+def _dense_pallas_block_step(meta, data, state, blk_ids, eta_t,
+                             row_batches):
+    lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
+    _needs_adagrad(meta, "the dense CUDA kernel")
+    ops.dso_block_step(
+        data.arrays[0], blk_ids, *_stats_args(data, state),
+        (eta_t, lam, m, w_lo, w_hi), row_batches=row_batches,
+        loss_name=loss_name, reg_name=reg_name)
+
+
+def _dense_pallas_fused_block_step(meta, data, state, blk_ids, eta_t,
+                                   row_batches):
+    """One ``ops.dso_tile_step`` per processor and row batch, on views of
+    the grid (the block ids come to the host once per inner iteration)."""
+    lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
+    _needs_adagrad(meta, "the dense CUDA kernel")
+    (Xg,) = data.arrays
     p, mb = data.yg.shape
+    db = data.col_nnz.shape[0] // p
     rb = mb // row_batches
-    b = blk_ids.long()
-    qi = torch.arange(p, device=b.device)
-    cols, vals = cols_g[qi, b], vals_g[qi, b]
-    cn, trn, tcn = dso_sparse.active_block_stats(
-        data.tile_row_nnz_g, data.tile_col_nnz_g, data.col_nnz, b)
-    w, gw = state.w_grid[b], state.gw_grid[b]
-    for s in range(row_batches):
-        sl = slice(s * rb, (s + 1) * rb)
-        w, a_s, gw, ga_s = sparse_tile_step(
-            cols=cols[:, sl], vals=vals[:, sl], y_tile=data.yg[:, sl],
-            w_blk=w, alpha_blk=state.alpha[:, sl], gw_blk=gw,
-            ga_blk=state.ga[:, sl], row_nnz_tile=data.row_nnz_g[:, sl],
-            col_nnz_blk=cn, eta_t=eta_t, lam=lam, m=m, loss_name=loss_name,
-            reg_name=reg_name, use_adagrad=use_adagrad, w_lo=w_lo,
-            w_hi=w_hi, tile_row_nnz=trn[:, sl], tile_col_nnz=tcn[:, s])
-        state.alpha[:, sl] = a_s
-        state.ga[:, sl] = ga_s
-    state.w_grid[b] = w
-    state.gw_grid[b] = gw
+    scal = (eta_t, lam, m, w_lo, w_hi)
+    for q, b in enumerate(blk_ids.tolist()):
+        cols = slice(b * db, (b + 1) * db)
+        w, gw = state.w_grid[b], state.gw_grid[b]
+        for s in range(row_batches):
+            sl = slice(s * rb, (s + 1) * rb)
+            w, a_s, gw, ga_s = ops.dso_tile_step(
+                Xg[q, sl, cols], data.yg[q, sl], w, state.alpha[q, sl], gw,
+                state.ga[q, sl], data.row_nnz_g[q, sl], data.col_nnz[cols],
+                scal, loss_name=loss_name, reg_name=reg_name,
+                tile_row_nnz=data.tile_row_nnz_g[q, b, sl],
+                tile_col_nnz=data.tile_col_nnz_g[q, s, cols])
+            state.alpha[q, sl] = a_s
+            state.ga[q, sl] = ga_s
+        state.w_grid[b] = w
+        state.gw_grid[b] = gw
 
 
 def _sparse_pallas_block_step(meta, data, state, blk_ids, eta_t,
@@ -108,25 +170,21 @@ def _make_bucketed_block_step(step, name):
 _BACKENDS: dict[str, TileBackend] = {}
 
 #: legacy ``impl`` selectors -> canonical backends
-LEGACY_IMPLS = {"sparse": "sparse_jnp", "sparse_pallas": "sparse_pallas"}
+LEGACY_IMPLS = {"jnp": "dense_jnp", "pallas": "dense_pallas_block",
+                "sparse": "sparse_jnp", "sparse_pallas": "sparse_pallas"}
 
 #: registered in the reference, ported by a later slice
 NOT_YET_PORTED = {
-    "dense_jnp": "the dense slice (ROADMAP queue 1, dense layout)",
-    "dense_pallas_fused": "the dense slice (ROADMAP queue 2, kernel rows 4-5)",
-    "dense_pallas_block": "the dense slice (ROADMAP queue 2, kernel row 4)",
     "sparse_bucketed_jnp_switch": "a later slice (the legacy bucket switch)",
     "sparse_bucketed_pallas_switch": "a later slice (the legacy bucket "
                                      "switch)",
-    "jnp": "the dense slice (legacy impl 'jnp' = dense_jnp)",
-    "pallas": "the dense slice (legacy impl 'pallas' = dense_pallas_block)",
 }
 
 
 def register_backend(backend: TileBackend) -> TileBackend:
-    if backend.layout not in ("sparse", "bucketed"):
-        raise ValueError(f"backend layout must be sparse|bucketed, got "
-                         f"{backend.layout!r}")
+    if backend.layout not in ("dense", "sparse", "bucketed"):
+        raise ValueError(f"backend layout must be dense|sparse|bucketed, "
+                         f"got {backend.layout!r}")
     _BACKENDS[backend.name] = backend
     return backend
 
@@ -153,8 +211,9 @@ def get_backend(name) -> TileBackend:
 
 
 _LAYOUT_KERNELS = {
-    "jnp": {"sparse": "sparse_jnp", "bucketed": "sparse_bucketed_jnp"},
-    "pallas": {"sparse": "sparse_pallas",
+    "jnp": {"dense": "dense_jnp", "sparse": "sparse_jnp",
+            "bucketed": "sparse_bucketed_jnp"},
+    "pallas": {"dense": "dense_pallas_block", "sparse": "sparse_pallas",
                "bucketed": "sparse_bucketed_pallas"},
 }
 
@@ -170,11 +229,11 @@ def resolve_backend(impl, density: float | None = None, *,
                     device_type: str = "cpu") -> TileBackend:
     """``impl`` selector (canonical or legacy) + problem stats -> backend.
 
-    ``auto``: density at or above ``SPARSE_DENSITY_THRESHOLD`` is the
-    dense regime (not ported: ``NotImplementedError``); below it a tile-K
-    skew at or above ``BUCKET_SKEW_THRESHOLD`` picks the bucketed layout,
-    else block-ELL (``k_skew=None``: not probed, block-ELL).  The kernel
-    then follows ``device_type`` (``auto_kernel``).
+    ``auto``: density at or above ``SPARSE_DENSITY_THRESHOLD`` picks the
+    dense layout; below it a tile-K skew at or above
+    ``BUCKET_SKEW_THRESHOLD`` picks the bucketed layout, else block-ELL
+    (``k_skew=None``: not probed, block-ELL).  The kernel then follows
+    ``device_type`` (``auto_kernel``).
     """
     if isinstance(impl, TileBackend):
         return impl
@@ -183,12 +242,11 @@ def resolve_backend(impl, density: float | None = None, *,
             raise ValueError("impl='auto' needs the problem density to pick "
                              "a layout; pass density= or a concrete backend")
         if density >= SPARSE_DENSITY_THRESHOLD:
-            raise NotImplementedError(
-                f"density {density:.3g} >= {SPARSE_DENSITY_THRESHOLD} is the "
-                f"dense regime; the dense layout and its kernels come with "
-                f"the dense slice (ROADMAP queue 1)")
-        layout = ("bucketed" if k_skew is not None
-                  and k_skew >= BUCKET_SKEW_THRESHOLD else "sparse")
+            layout = "dense"
+        elif k_skew is not None and k_skew >= BUCKET_SKEW_THRESHOLD:
+            layout = "bucketed"
+        else:
+            layout = "sparse"
         return _BACKENDS[_LAYOUT_KERNELS[auto_kernel(device_type)][layout]]
     if impl in LEGACY_IMPLS:
         return _BACKENDS[LEGACY_IMPLS[impl]]
@@ -214,7 +272,15 @@ def resolve_backend_for_layout(impl, layout: str, *,
     return backend
 
 
-register_backend(TileBackend("sparse_jnp", "sparse", _sparse_jnp_block_step))
+register_backend(TileBackend(
+    "dense_jnp", "dense", _make_jnp_block_step(_dense_tile, block_tile_step)))
+register_backend(TileBackend("dense_pallas_fused", "dense",
+                             _dense_pallas_fused_block_step))
+register_backend(TileBackend("dense_pallas_block", "dense",
+                             _dense_pallas_block_step))
+register_backend(TileBackend(
+    "sparse_jnp", "sparse",
+    _make_jnp_block_step(_sparse_tile, sparse_tile_step)))
 register_backend(TileBackend("sparse_pallas", "sparse",
                              _sparse_pallas_block_step))
 register_backend(TileBackend(

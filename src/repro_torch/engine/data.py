@@ -1,11 +1,13 @@
 """Grid state and the common ``TileData`` view consumed by every backend.
 
-``as_tile_data`` turns a ``SparseGridData`` or a ``BucketedGridData`` into
-a ``TileData`` whose ``arrays`` field carries the layout payload —
-``(cols_g, vals_g)`` for block-ELL, the flat chunk view ``(cols_fl,
-vals_fl, chunk_lut, chunk_cnt)`` for K-bucketed — next to the labels,
-scaling statistics and padding masks.  The dense ``GridData`` and
-``make_grid_data`` come with the dense slice.
+The p x p DSO grid exists in three layouts: dense row shards
+(``GridData``, built by ``make_grid_data``), uniform block-ELL tiles
+(``SparseGridData``) and K-bucketed tiles (``BucketedGridData``).
+``as_tile_data`` turns any of them into a ``TileData`` whose ``arrays``
+field carries the layout payload — ``(Xg,)`` dense, ``(cols_g, vals_g)``
+block-ELL, the flat chunk view ``(cols_fl, vals_fl, chunk_lut,
+chunk_cnt)`` K-bucketed — next to the labels, scaling statistics and
+padding masks.
 
 ``state_from_arrays`` / ``tile_data_from_arrays`` take dicts of numpy
 arrays under the reference's field names, so a JAX run's state or grid
@@ -21,13 +23,33 @@ import torch
 
 from repro_torch.core.losses import get_loss, w_bounds
 from repro_torch.device import resolve_device
-from repro_torch.sparse.format import BucketedGridData, SparseGridData
+from repro_torch.sparse.format import (BucketedGridData, SparseGridData,
+                                       pad_to_multiple)
+
+
+class GridData(NamedTuple):
+    """Problem data laid out on the p x p DSO grid (row-major padding),
+    tensors on one device.  The ``tile_*_nnz_g`` fields are the grid's
+    static sparsity statistics, counted once by ``make_grid_data``."""
+
+    Xg: torch.Tensor         # (p, mb, d_pad)  row shard per processor
+    yg: torch.Tensor         # (p, mb)
+    row_nnz_g: torch.Tensor  # (p, mb)   |Omega_i|, >= 1
+    col_nnz: torch.Tensor    # (d_pad,)  |Omega-bar_j|, >= 1
+    row_valid: torch.Tensor  # (p, mb)   1.0 for real rows, 0.0 padding
+    p: int
+    mb: int                  # rows per processor
+    db: int                  # columns per block
+    # [q, s, j]: nnz of column j within row batch s of processor q's shard
+    tile_col_nnz_g: torch.Tensor = None   # (p, n_rb, d_pad)
+    # [q, b, i]: nnz of row i of processor q within block b's columns
+    tile_row_nnz_g: torch.Tensor = None   # (p, p, mb)
 
 
 class TileData(NamedTuple):
     """Layout-agnostic view of the grid (tensors on one device)."""
 
-    arrays: tuple                  # (cols_g, vals_g) | flat chunk view
+    arrays: tuple                  # (Xg,) | (cols_g, vals_g) | chunk view
     yg: torch.Tensor               # (p, mb)
     row_nnz_g: torch.Tensor        # (p, mb)
     col_nnz: torch.Tensor          # (d_pad,)
@@ -37,12 +59,12 @@ class TileData(NamedTuple):
 
     @property
     def layout(self) -> str:
-        if len(self.arrays) == 2:
-            return "sparse"
-        if len(self.arrays) == 4:
-            return "bucketed"
-        raise ValueError(f"no layout has a {len(self.arrays)}-array payload "
-                         f"in this slice (the dense layout comes later)")
+        layout = {1: "dense", 2: "sparse", 4: "bucketed"}.get(
+            len(self.arrays))
+        if layout is None:
+            raise ValueError(f"no layout has a {len(self.arrays)}-array "
+                             f"payload")
+        return layout
 
 
 class DSOState(NamedTuple):
@@ -58,19 +80,18 @@ class DSOState(NamedTuple):
 
 
 def as_tile_data(data) -> TileData:
-    """``SparseGridData`` | ``BucketedGridData`` | ``TileData`` ->
-    ``TileData``."""
+    """``GridData`` | ``SparseGridData`` | ``BucketedGridData`` |
+    ``TileData`` -> ``TileData``."""
     if isinstance(data, TileData):
         return data
     if isinstance(data, BucketedGridData):
         arrays = (data.cols_fl, data.vals_fl, data.chunk_lut, data.chunk_cnt)
     elif isinstance(data, SparseGridData):
         arrays = (data.cols_g, data.vals_g)
+    elif isinstance(data, GridData):
+        arrays = (data.Xg,)
     else:
-        raise NotImplementedError(
-            f"{type(data).__name__}: only the sparse and bucketed layouts "
-            f"are ported; the dense GridData comes with the dense slice "
-            f"(ROADMAP queue 1)")
+        raise TypeError(f"{type(data).__name__} is not grid data")
     return TileData(arrays=arrays, yg=data.yg, row_nnz_g=data.row_nnz_g,
                     col_nnz=data.col_nnz, row_valid=data.row_valid,
                     tile_col_nnz_g=data.tile_col_nnz_g,
@@ -83,6 +104,55 @@ def tile_dims(data) -> tuple[int, int, int]:
         p, mb = data.yg.shape
         return p, mb, data.col_nnz.shape[0] // p
     return data.p, data.mb, data.db
+
+
+#: rows per processor of one pass of ``make_grid_data``'s statistics
+_STATS_ROWS = 1 << 13
+
+
+def make_grid_data(prob, p: int, row_batches: int = 1) -> GridData:
+    """Dense-layout grid of a ``Problem``, on the Problem's own device: X
+    padded with zero rows and columns to multiples of p and cut into p row
+    shards, and the static tile statistics counted on the device (X never
+    goes through the host).  When no padding is needed ``Xg`` is a view of
+    ``prob.X``, so the grid adds no copy of X; the statistics are counted
+    ``_STATS_ROWS`` rows per processor at a time, so their scratch stays
+    small beside X."""
+    m, d = prob.m, prob.d
+    m_pad, d_pad = pad_to_multiple(m, p), pad_to_multiple(d, p)
+    mb, db = m_pad // p, d_pad // p
+    dev = prob.device
+    f32 = torch.float32
+    if (m_pad, d_pad) == (m, d):
+        Xg = prob.X.to(f32).contiguous().view(p, mb, d_pad)
+    else:
+        X = torch.zeros((m_pad, d_pad), dtype=f32, device=dev)
+        X[:m, :d] = prob.X
+        Xg = X.view(p, mb, d_pad)
+
+    def rows(v, pad: float):
+        out = torch.full((m_pad,), pad, dtype=f32, device=dev)
+        out[:m] = v
+        return out.view(p, mb)
+
+    col_nnz = torch.ones(d_pad, dtype=f32, device=dev)
+    col_nnz[:d] = prob.col_nnz
+    rb = max(1, mb // row_batches)
+    n_rb = mb // rb
+    tile_col_nnz = torch.zeros((p, n_rb, d_pad), dtype=f32, device=dev)
+    tile_row_nnz = torch.empty((p, p, mb), dtype=f32, device=dev)
+    for r0 in range(0, mb, _STATS_ROWS):
+        r1 = min(r0 + _STATS_ROWS, mb)
+        nz = Xg[:, r0:r1] != 0                        # (p, rows, d_pad)
+        tile_row_nnz[:, :, r0:r1] = \
+            nz.view(p, r1 - r0, p, db).sum(dim=3).transpose(1, 2)
+        batch = torch.arange(r0, r1, device=dev) // rb
+        keep = batch < n_rb                           # rows past the batches
+        tile_col_nnz.index_add_(1, batch[keep], nz[:, keep].to(f32))
+    return GridData(
+        Xg=Xg, yg=rows(prob.y, 0.0), row_nnz_g=rows(prob.row_nnz, 1.0),
+        col_nnz=col_nnz, row_valid=rows(1.0, 0.0), p=p, mb=mb, db=db,
+        tile_col_nnz_g=tile_col_nnz, tile_row_nnz_g=tile_row_nnz)
 
 
 def init_state_data(loss_name: str, data, alpha0: float = 0.0) -> DSOState:
@@ -115,10 +185,12 @@ def state_from_arrays(arrays: dict, device="cuda") -> DSOState:
                     epoch=int(np.asarray(arrays["epoch"])))
 
 
-def tile_data_from_arrays(arrays: dict, device="cuda") -> TileData:
-    """``TileData`` from numpy arrays under the reference's ``TileData``
-    field names; ``arrays["arrays"]`` is the layout payload tuple (int
-    payload arrays become int32, the rest float32)."""
+def tile_data_from_arrays(arrays: dict, device="cuda"):
+    """Grid data from numpy arrays under the reference's field names: a
+    ``TileData`` from its fields, ``arrays["arrays"]`` being the layout
+    payload tuple; or, from ``GridData``'s fields (``Xg``, ..., ``p``,
+    ``mb``, ``db``), a dense ``GridData``.  Int payload arrays become
+    int32, the rest float32."""
     dev = resolve_device(device)
 
     def t(a):
@@ -126,12 +198,17 @@ def tile_data_from_arrays(arrays: dict, device="cuda") -> TileData:
         dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
         return torch.tensor(a.astype(dt), device=dev)
 
+    if "Xg" in arrays:
+        return GridData(**{k: int(np.asarray(arrays[k]))
+                           if k in ("p", "mb", "db") else t(arrays[k])
+                           for k in GridData._fields})
     return TileData(arrays=tuple(t(a) for a in arrays["arrays"]),
                     **{k: t(arrays[k]) for k in TileData._fields
                        if k != "arrays"})
 
 
-_LAYOUT_BUILDERS = {"sparse": "sparse_grid_from_csr",
+_LAYOUT_BUILDERS = {"dense": "make_grid_data",
+                    "sparse": "sparse_grid_from_csr",
                     "bucketed": "bucketed_grid_from_csr"}
 
 

@@ -7,9 +7,12 @@ processors inside a donated ``lax.scan``; the port batches the processors
 inside each backend and updates the ``DSOState`` tensors in place).
 ``solve`` wraps it in the evaluation-chunk loop.
 
-With a kernel backend one inner iteration is ``2 * row_batches`` kernel
-launches (a dual/scatter launch and a primal launch per row tile, every
-processor in each), so one epoch is ``2 * p * row_batches`` launches.
+With a block-step kernel backend (``sparse_pallas``,
+``sparse_bucketed_pallas``, ``dense_pallas_block``) one inner iteration is
+``2 * row_batches`` kernel launches (a dual/scatter launch and a primal
+launch per row tile, every processor in each), so one epoch is
+``2 * p * row_batches`` launches; ``dense_pallas_fused`` launches per
+processor, ``2 * p * p * row_batches``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from repro_torch.engine.backends import (TileBackend, get_backend,
 from repro_torch.engine.data import (DSOState, as_tile_data,
                                      check_tile_stats, eta_schedule,
                                      gather_alpha, gather_w, init_state_data,
-                                     prob_meta, tile_dims)
+                                     make_grid_data, prob_meta, tile_dims)
 from repro_torch.engine.evaluate import problem_eval_hook
 from repro_torch.engine.schedules import get_schedule
 from repro_torch.sparse.format import (SPARSE_DENSITY_THRESHOLD, density,
@@ -56,6 +59,8 @@ def resolve_backend_and_build(prob: Problem, impl, p: int, row_batches: int):
               and density(prob) < SPARSE_DENSITY_THRESHOLD else None)
     be = resolve_backend(impl, density(prob), k_skew=k_skew,
                          device_type=prob.device.type)
+    if be.layout == "dense":
+        return be, make_grid_data(prob, p, row_batches)
     builders = {"sparse": make_sparse_grid_data,
                 "bucketed": make_bucketed_grid_data}
     return be, builders[be.layout](prob, p, row_batches, device=prob.device)
@@ -68,8 +73,10 @@ def stage_block(data, blk_ids) -> torch.Tensor:
     """Stage the active blocks of one inner iteration: the (p,) int32
     block ids, contiguous on the grid's device.  The reference stages the
     per-block statistic slices here; in the port the kernels read every
-    per-block slice in place by block id and the plain twins gather their
-    own, so the id vector is the whole stage."""
+    per-block slice in place by block id (the dense kernel reads columns
+    [blk_ids[q] * db, (blk_ids[q] + 1) * db) of processor q's rows of
+    ``Xg``, with no staged copy) and the plain twins gather their own, so
+    the id vector is the whole stage."""
     return blk_ids.to(device=data.yg.device, dtype=torch.int32).contiguous()
 
 
@@ -141,7 +148,7 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
     """The epoch driver.
 
     ``source`` is a ``Problem`` (the grid is built here, laid out for the
-    chosen backend) or a pre-built ``SparseGridData`` /
+    chosen backend) or a pre-built ``GridData`` / ``SparseGridData`` /
     ``BucketedGridData`` / ``TileData`` (which fixes the layout, so
     ``backend`` is a kernel choice, and needs ``loss_name``/``reg_name``/
     ``lam``/``m``/``d``).  ``device`` (default the card; ``RuntimeError``

@@ -25,97 +25,14 @@ checks shapes, types and devices before calling them.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import NamedTuple
-
 import torch
 
-from repro_torch.kernels.dso_update import _dual_update, _primal_update
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "dso_sparse.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-LOSS_IDS = {"hinge": 0, "logistic": 1, "square": 2}
-REG_IDS = {"l2": 0, "l1": 1}
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "dso_sparse_dual_scatter":
-        [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
-    "dso_bucketed_dual_scatter":
-        [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
-    "dso_primal_update":
-        [_P] * 6 + [_I] * 4 + [_F] * 5 + [_I, _P],
-    "dso_sparse_probe":
-        [_P] * 3 + [_I] * 2 + [_P],
-}
-
-
-class Library(NamedTuple):
-    """The loaded kernel library and what its build printed."""
-
-    lib: ctypes.CDLL
-    path: str
-    build_s: float      # seconds nvcc took (0.0 when loaded from build/)
-    log: str            # nvcc/ptxas output (-Xptxas -v: registers, smem)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the CUDA kernels are built "
-                       "from source on first use")
-
-
-@functools.lru_cache(maxsize=None)
-def library() -> Library:
-    """Build ``csrc/dso_sparse.cu`` with nvcc into ``build/`` (once per
-    source and flag set, named by their hash) and load it with ctypes."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libdso_sparse_{tag}.so"
-    build_s, log = 0.0, "(loaded from build/)"
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return Library(lib, str(out), build_s, log)
-
-
-def _check(name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
-                           f"{err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import library
+from repro_torch.kernels.build import stream as _stream
+from repro_torch.kernels.dso_update import (LOSS_IDS, REG_IDS, _dual_update,
+                                            _primal_update,
+                                            active_block_stats)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -197,17 +114,6 @@ def primal_update_plain(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz,
     w_grid[b] = w_new
     gw_grid[b] = gw_new
     acc.zero_()
-
-
-def active_block_stats(trn_g, tcn_g, col_nnz, b):
-    """The active blocks' statistics for processors q = 0..p-1 with
-    blocks ``b`` (int64): |Omega-bar_j| (p, db), the tile row counts
-    (p, mb) and the per-row-batch tile column counts (p, n_rb, db)."""
-    p = trn_g.shape[0]
-    db = col_nnz.shape[0] // p
-    qi = torch.arange(p, device=trn_g.device)
-    return (col_nnz.reshape(p, db)[b], trn_g[qi, b],
-            tcn_g.reshape(p, tcn_g.shape[1], p, db)[qi, :, b])
 
 
 def _block_step_plain(cols, vals, b, yg, w_grid, alpha, gw_grid, ga, trn_g,

@@ -1,25 +1,28 @@
-"""Wrappers of the sparse block-step kernels: checks, routing, truncation
-and launch counts.
+"""Wrappers of the block-step kernels: checks, routing, truncation and
+launch counts.
 
 Each wrapper routes by the device its tensors lie on: CPU tensors go to
 the kernel's plain PyTorch version, CUDA tensors launch the kernel or
 raise.  Nothing falls back from the card to the plain version; the
 tensors' device alone decides (the reference's ``REPRO_FORCE_INTERPRET``
 switch has no counterpart).  Before its first launch on a device a
-wrapper runs the capability probe (``sparse_kernel_error``); when it
-fails the wrapper raises ``ValueError`` naming the plain backend.
+sparse wrapper runs the capability probe (``sparse_kernel_error``); when
+it fails the wrapper raises ``ValueError`` naming the plain backend.
 
 Each wrapper counts its kernel launches in a plain int attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched:
 
-    dso_sparse_block_step.launches    launch A, uniform grid
+    dso_sparse_block_step.launches    launch A, uniform block-ELL grid
     dso_bucketed_block_step.launches  launch A, flat chunk view
-    dso_primal_update.launches        launch B (shared by both)
+    dso_block_step.launches           dense launch A, p processors
+    dso_tile_step.launches            dense launch A, one tile
+    dso_primal_update.launches        launch B (shared by all of them)
     sparse_probe.launches             the probe kernel
 
 One block step launches A then B once per row tile, so one inner
 iteration of the epoch is ``2 * row_batches`` launches for all p
 processors together, and one epoch ``2 * p * row_batches``.
+``dso_tile_step`` is one A and one B for one processor's tile.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import functools
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import dso_sparse
+from repro_torch.kernels import dso_sparse, dso_update
 
 
 def _route(*tensors) -> bool:
@@ -304,14 +307,142 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
 dso_bucketed_block_step.launches = 0
 
 
+# -------------------------------------------------------------- dense --
+#
+# The reference's ``dso_block_step`` picks one launch or, where the (bm, bd)
+# X block would not fit its VMEM budget, a scan of ``dso_tile_step``
+# (``force_scan``, ops.py:134-137).  The CUDA kernel takes any (mb, db), so
+# there is no such test and no fallback here; the scan survives as the
+# ``dense_pallas_fused`` backend.
+
+
+def dso_block_step(Xg, blk_ids, yg, w_grid, alpha, gw_grid, ga,
+                   tile_row_nnz_g, tile_col_nnz_g, row_nnz_g, col_nnz,
+                   scalars, *, row_batches: int, loss_name: str,
+                   reg_name: str):
+    """All ``row_batches`` sequential tile steps of every processor's
+    active block ``blk_ids[q]`` of the dense grid ``Xg`` (p, mb, p * db),
+    in place on ``w_grid``, ``gw_grid``, ``alpha`` and ``ga``; the
+    counterpart of the reference's ``ops.dso_block_step`` batched over the
+    p processors.
+
+    Shapes as in ``dso_update.dso_block_step_plain``.  Rows past
+    ``(mb // row_batches) * row_batches`` pass through unchanged (the
+    reference's truncation, ops.py:184-186).  On the card: launch A
+    (``csrc/dso_update.cu``) then launch B per row tile, each covering all
+    p processors, reading the active blocks in place from ``Xg``.
+    """
+    p, mb = yg.shape
+    _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
+                 tile_col_nnz_g, row_nnz_g, col_nnz, row_batches)
+    _expect("Xg", Xg, torch.float32, (p, mb, col_nnz.shape[0]))
+    scal = _scalars(scalars)
+    if not _route(Xg, blk_ids, yg, w_grid, alpha, gw_grid, ga,
+                  tile_row_nnz_g, tile_col_nnz_g, row_nnz_g, col_nnz):
+        dso_update.dso_block_step_plain(
+            Xg, blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
+            tile_col_nnz_g, row_nnz_g, col_nnz, scal,
+            row_batches=row_batches, loss_name=loss_name, reg_name=reg_name)
+        return
+    rb = mb // row_batches
+    d_pad = Xg.shape[2]
+    acc = _take_acc(w_grid)
+    for s in range(row_batches):
+        dso_update.launch_dense_dual_scatter(
+            Xg, d_pad, mb * d_pad, blk_ids, yg, w_grid, alpha, ga,
+            tile_row_nnz_g, row_nnz_g, acc, s * rb, rb, scal[0], scal[2],
+            loss_name)
+        dso_block_step.launches += 1
+        _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
+                       col_nnz, s, scal, reg_name)
+    _give_acc(acc)
+
+
+dso_block_step.launches = 0
+
+# blk_ids = [0] of a single-tile step, one per device
+_TILE_BLK: dict = {}
+
+
+def dso_tile_step(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scalars, *,
+                  loss_name: str, reg_name: str, tile_row_nnz=None,
+                  tile_col_nnz=None, twopass: bool = False):
+    """One dense Jacobi tile step over all of X (M, D), the reference's
+    ``ops.dso_tile_step``: y/alpha/ga/row_nnz (M,), w/gw/col_nnz (D,),
+    ``scalars`` = (eta, lam, m, w_lo, w_hi).  Returns new (w, alpha, gw,
+    ga); the inputs are not changed.
+
+    ``tile_row_nnz``/``tile_col_nnz`` are X's per-row/per-column nonzero
+    counts; when absent they are derived here, once, outside the kernel.
+    X may be a row-strided view (unit column stride), such as one
+    processor's active block of a dense grid.  The reference's block
+    shapes (``bm``, ``bd``) and ``interpret`` have no counterpart: the
+    CUDA kernel takes any (M, D).  On the card: launch A and launch B with
+    p = 1 and block 0.  ``twopass=True`` (the legacy two-pass kernel,
+    reference row 6) is not ported yet.
+    """
+    if twopass:
+        raise NotImplementedError(
+            "dso_tile_step(twopass=True): the legacy two-pass kernel "
+            "(reference kernels/dso_update.py:440) is not ported yet; it "
+            "comes with the next kernel slice (ROADMAP queue 2, kernel "
+            "row 6)")
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise TypeError(f"X must be a 2-D float32 tensor, got "
+                        f"{X.dtype} of shape {tuple(X.shape)}")
+    M, D = X.shape
+    if X.stride(1) != 1 or (M > 1 and X.stride(0) < D):
+        raise ValueError(f"X must have unit column stride and rows at "
+                         f"least D apart, got strides {X.stride()}")
+    if tile_row_nnz is None:
+        tile_row_nnz = (X != 0).sum(dim=1)
+    if tile_col_nnz is None:
+        tile_col_nnz = (X != 0).sum(dim=0)
+    trn = tile_row_nnz.to(torch.float32).contiguous()
+    tcn = tile_col_nnz.to(torch.float32).contiguous()
+    for name, t, shape in (("y", y, (M,)), ("w", w, (D,)),
+                           ("alpha", alpha, (M,)), ("gw", gw, (D,)),
+                           ("ga", ga, (M,)), ("row_nnz", row_nnz, (M,)),
+                           ("col_nnz", col_nnz, (D,)),
+                           ("tile_row_nnz", trn, (M,)),
+                           ("tile_col_nnz", tcn, (D,))):
+        _expect(name, t, torch.float32, shape)
+    scal = _scalars(scalars)
+    if not _route(X, y, w, alpha, gw, ga, row_nnz, col_nnz, trn, tcn):
+        return dso_update.dso_tile_step_plain(
+            X, y, w, alpha, gw, ga, row_nnz, col_nnz, scal,
+            loss_name=loss_name, reg_name=reg_name, tile_row_nnz=trn,
+            tile_col_nnz=tcn)
+    w2, a2, gw2, ga2 = w.clone(), alpha.clone(), gw.clone(), ga.clone()
+    blk = _TILE_BLK.get(X.device)
+    if blk is None:
+        blk = _TILE_BLK[X.device] = torch.zeros(1, dtype=torch.int32,
+                                                device=X.device)
+    w_grid, gw_grid = w2.view(1, D), gw2.view(1, D)
+    tcn_g = tcn.view(1, 1, D)
+    acc = _take_acc(w_grid)
+    dso_update.launch_dense_dual_scatter(
+        X, X.stride(0), 0, blk, y.view(1, M), w_grid, a2.view(1, M),
+        ga2.view(1, M), trn.view(1, 1, M), row_nnz.view(1, M), acc, 0, M,
+        scal[0], scal[2], loss_name)
+    dso_tile_step.launches += 1
+    _launch_primal(blk, w_grid, gw_grid, acc, tcn_g, col_nnz, 0, scal,
+                   reg_name)
+    _give_acc(acc)
+    return w2, a2, gw2, ga2
+
+
+dso_tile_step.launches = 0
+
+_COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
+            dso_bucketed_block_step, dso_block_step, dso_tile_step)
+
+
 def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
-    for fn in (sparse_probe, dso_primal_update, dso_sparse_block_step,
-               dso_bucketed_block_step):
+    for fn in _COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches
-            for fn in (sparse_probe, dso_primal_update, dso_sparse_block_step,
-                       dso_bucketed_block_step)}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

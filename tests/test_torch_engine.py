@@ -5,8 +5,9 @@ for {sparse_jnp, sparse_bucketed_jnp} x {cyclic, lpt} x six (loss, reg)
 pairs; the reference's ``random`` permutations replayed through
 ``fixed_schedule``; ``auto`` resolving to the reference's layout, and to
 the kernel backend only for data on a CUDA device (decided from the
-device type, without a card); and a JAX run's state carried across by
-``state_from_arrays`` continuing one more epoch in the port.
+device type, without a card), for the dense layout too; and a JAX run's
+state carried across by ``state_from_arrays`` continuing one more epoch
+in the port.
 """
 
 import numpy as np
@@ -123,10 +124,6 @@ def test_auto_resolves_like_reference_and_by_device_type(kind, layout):
         tp = tsyn.make_classification(**kw, device="cpu")
     j_be, _ = je.driver.resolve_backend_and_build(jp, "auto", 4, 1)
     assert j_be.layout == layout
-    if kind == "dense":
-        with pytest.raises(NotImplementedError, match="dense slice"):
-            te.resolve_backend_and_build(tp, "auto", 4, 1)
-        return
     t_be, t_grid = te.resolve_backend_and_build(tp, "auto", 4, 1)
     assert t_be.name == j_be.name          # plain twin for CPU data
     assert t_be.layout == j_be.layout
@@ -135,7 +132,8 @@ def test_auto_resolves_like_reference_and_by_device_type(kind, layout):
     on_card = te.resolve_backend("auto", dens, k_skew=skew,
                                  device_type="cuda")
     assert on_card.layout == j_be.layout
-    assert on_card.name == {"sparse": "sparse_pallas",
+    assert on_card.name == {"dense": "dense_pallas_block",
+                            "sparse": "sparse_pallas",
                             "bucketed": "sparse_bucketed_pallas"}[j_be.layout]
     for kernel in ("jnp", "pallas"):
         assert te.resolve_backend_for_layout(
@@ -203,8 +201,8 @@ def test_unported_options_and_backends_raise():
                {"telemetry": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             te.solve(tp, device="cpu", **kw)
-    for name in ("dense_jnp", "dense_pallas_block", "jnp",
-                 "sparse_bucketed_jnp_switch"):
+    for name in ("sparse_bucketed_jnp_switch",
+                 "sparse_bucketed_pallas_switch"):
         with pytest.raises(NotImplementedError):
             te.solve(tp, backend=name, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

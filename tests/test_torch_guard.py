@@ -41,9 +41,10 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
-    assert {"driver.py", "ops.py", "dso_sparse.py", "format.py",
-            "chip_smoke.py"} <= names
-    assert (REPO / "src/repro_torch/csrc/dso_sparse.cu").exists()
+    assert {"driver.py", "ops.py", "dso_sparse.py", "dso_update.py",
+            "build.py", "format.py", "chip_smoke.py"} <= names
+    for src in ("dso_sparse.cu", "dso_update.cu", "dso_common.cuh"):
+        assert (REPO / "src/repro_torch/csrc" / src).exists()
     assert "repro" != "repro_torch".split(".")[0]
 
 
