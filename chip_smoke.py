@@ -38,11 +38,34 @@ Phases, one line per result:
    (the per-tile path, ``ops.dso_tile_step``), each in its own launch
    count window; same checks against ``dense_jnp``, plus the peak device
    memory.
+3t. the two-pass tile step (``ops.dso_tile_step(twopass=True)``) against
+   its plain version and against the fused ``ops.dso_tile_step`` on the
+   same inputs, six pairs at M 999, D 1,155, contiguous and row-strided;
+   bound 1e-5.
+3l. ``ops.swa_attention`` and ``ops.ssd_scan`` against their plain
+   versions in float32 and bf16: the shapes of the reference's kernel
+   tests, a decode offset (Tq 8, Tk 4,096), ``causal=False`` (ragged Tk
+   too), ragged T, Dh 40, 112 and 128, n 128, dh 128, total decay; and
+   shapes past the kernels' limits must raise.  Bounds: float32 as the
+   reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
+   bf16 one bf16 ulp (2^-7 relative) more, since kernel and plain version
+   each round float32 sums that differ in order to bf16.
 6. times at the phase-4/5/5d shapes with CUDA events: each kernel's ms per
    call beside its bound (bytes over 3.35 TB/s, operations over 67
    TFLOP/s float32), its plain version's ms and, for the dense kernel,
    the cuBLAS mat-vecs computing the same two products (``torch.mv``,
    never called by the port).
+7. the LM kernels at zamba2-7b's widths (bf16, 32 heads of 112, SSD 112
+   heads of 64 with state 64, chunk 128), each case driven once through
+   ``ops`` with the counts set to 0 just before and read just after:
+   attention at T 16,384 with a window past T (full causal; beside
+   ``F.scaled_dot_product_attention(is_causal=True)``, never called by
+   the port) and at T 73,728 with the 8,192 sliding window; the SSD scan
+   at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
+   the order kernel, plain, plain, kernel, 5 calls each).  Then the
+   two-pass tile step at svm-ocr's tile (processor 0's active block of
+   phase 5d, 250,000 x 289) beside the fused step.  Each: ms per call
+   (CUDA events), bound, plain ms, max|d| against the plain version.
 
 Prints the kernel table as one JSON line, the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -62,6 +85,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
+BF16_ULP = 2.0 ** -7       # bf16 spacing relative to the value
 TOL = 1e-5
 P = 4
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
@@ -398,11 +423,11 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_step = EPOCHS * P * 1          # epochs x inner iterations x row tiles
-    want = {"sparse_probe": 1, "dso_primal_update": n_step,
-            "dso_sparse_block_step": n_step if be.layout == "sparse" else 0,
-            "dso_bucketed_block_step":
-                n_step if be.layout == "bucketed" else 0,
-            "dso_block_step": 0, "dso_tile_step": 0}
+    want = dict({k: 0 for k in counts}, sparse_probe=1,
+                dso_primal_update=n_step,
+                dso_sparse_block_step=n_step if be.layout == "sparse" else 0,
+                dso_bucketed_block_step=n_step
+                if be.layout == "bucketed" else 0)
     say(phase, f"launch counts {counts} (design: {want})")
     check(counts == want, f"launch counts {counts} != design {want}")
     primal = [h["primal"] for h in res.history]
@@ -444,6 +469,37 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
                 lam=lam, m=csr.m, state=res.state)
 
 
+def tile_cases(dev):
+    """The tile-step cases of phases 3d and 3t: (name, X, y) for an
+    M 999 x D 1,155 problem and a row-strided view of one processor's
+    block of its p = 4 grid."""
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.engine import make_grid_data
+    prob = make_classification(m=999, d=1155, density=0.7, seed=3,
+                               device=dev)
+    grid = make_grid_data(prob, P, 1)
+    return (("contiguous", prob.X, prob.y),
+            ("strided", grid.Xg[2, :, grid.db:2 * grid.db], grid.yg[2]))
+
+
+def tile_step_args(X, y, loss, rng):
+    """Random (y, w, alpha, gw, ga, row_nnz, col_nnz, scalars) for a tile
+    step over X, drawn from ``rng`` on X's device."""
+    import numpy as np
+    import torch
+    M, D = X.shape
+    t = lambda a: torch.tensor(np.asarray(a, np.float32),  # noqa: E731
+                               device=X.device)
+    alpha = y * t(rng.uniform(0.05, 0.95, M))
+    if loss == "square":
+        alpha = t(rng.normal(0, 0.5, M))
+    return (y, t(rng.normal(0, 0.1, D)), alpha,
+            t(np.abs(rng.normal(0, 0.01, D))),
+            t(np.abs(rng.normal(0, 0.01, M))),
+            t(rng.integers(1, 50, M)), t(rng.integers(1, 50, D)),
+            scalars(loss, 1e-3, M))
+
+
 def phase_dense_kernels(dev):
     """Phase 3d: the dense launch A + B against the plain versions at
     small shapes: ``ops.dso_block_step`` for row_batches {1, 2, 3} on a
@@ -475,24 +531,11 @@ def phase_dense_kernels(dev):
                 check(ok, f"dense {loss}/{reg} rb={rb} db={grid.db}: "
                           f"kernel disagrees with its plain version "
                           f"(max|d| {e:.3e})")
-    prob = make_classification(m=999, d=1155, density=0.7, seed=3,
-                               device=dev)
-    grid = make_grid_data(prob, P, 1)
     rng = np.random.default_rng(9)
-    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa
-    for name, X in (("contiguous", prob.X),
-                    ("strided", grid.Xg[2, :, grid.db:2 * grid.db])):
-        M, D = X.shape
+    for name, X, y in tile_cases(dev):
         for loss, reg in LOSS_REG_PAIRS:
-            y = prob.y[:M] if name == "contiguous" else grid.yg[2]
-            alpha = y * t(rng.uniform(0.05, 0.95, M))
-            if loss == "square":
-                alpha = t(rng.normal(0, 0.5, M))
-            args = (y, t(rng.normal(0, 0.1, D)), alpha,
-                    t(np.abs(rng.normal(0, 0.01, D))),
-                    t(np.abs(rng.normal(0, 0.01, M))),
-                    t(rng.integers(1, 50, M)), t(rng.integers(1, 50, D)),
-                    scalars(loss, 1e-3, M))
+            args = tile_step_args(X, y, loss, rng)
+            M, D = X.shape
             kw = dict(loss_name=loss, reg_name=reg,
                       tile_row_nnz=(X != 0).sum(1).float(),
                       tile_col_nnz=(X != 0).sum(0).float())
@@ -508,6 +551,350 @@ def phase_dense_kernels(dev):
                   f"dense tile step {name} {loss}/{reg}: kernel disagrees "
                   f"with its plain version (max|d| {e:.3e})")
     return worst
+
+
+def compare_tile_steps(got, wants):
+    """max|d| of a tile step's four outputs against each of ``wants`` and
+    whether all are within the bound."""
+    errs = [max_rel_err(g, w) for want in wants for g, w in zip(got, want)]
+    return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
+def phase_twopass_kernels(dev):
+    """Phase 3t: the two-pass tile step against its plain version and the
+    fused step on the same inputs, six pairs on the cases of phase 3d."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dso_update, ops
+    worst = 0.0
+    rng = np.random.default_rng(11)
+    for name, X, y in tile_cases(dev):
+        M, D = X.shape
+        for loss, reg in LOSS_REG_PAIRS:
+            args = tile_step_args(X, y, loss, rng)
+            kw = dict(loss_name=loss, reg_name=reg)
+            got = ops.dso_tile_step(X, *args, twopass=True, **kw)
+            plain = dso_update.dso_tile_step_twopass_plain(X, *args, **kw)
+            fused = ops.dso_tile_step(X, *args, **kw)
+            torch.cuda.synchronize()
+            e, ok = compare_tile_steps(got, (plain, fused))
+            worst = max(worst, e)
+            say("3t", f"two-pass tile step {name} {loss}/{reg} M={M} D={D} "
+                      f"max|d| vs plain and fused {e:.3e}")
+            check(ok, f"two-pass tile step {name} {loss}/{reg}: disagrees "
+                      f"with its plain version or the fused step "
+                      f"(max|d| {e:.3e})")
+    return worst
+
+
+# (B, Hq, Hkv, Tq, Tk, Dh, window, causal, q_offset)
+SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
+             (2, 4, 2, 256, 256, 64, 64, True, 0),
+             (1, 8, 1, 128, 128, 32, 1024, True, 0),
+             (1, 2, 1, 100, 100, 64, 50, True, 0),
+             (2, 4, 2, 8, 4096, 64, 256, True, 4088),     # decode offset
+             (1, 2, 2, 256, 256, 64, 100, False, 0),
+             (1, 2, 1, 100, 100, 64, 50, False, 0),       # ragged Tk
+             (1, 4, 2, 300, 300, 112, 128, True, 0),      # ragged, Dh 112
+             (1, 2, 2, 130, 130, 40, 64, True, 0),        # Dh 40: not x16
+             (1, 2, 1, 200, 200, 128, 100, True, 0)]      # Dh at the limit
+# (b, t, h, dh, n, chunk, A fill or None)
+SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
+             (2, 256, 3, 32, 16, 64, None),
+             (1, 100, 2, 16, 8, 32, None),
+             (1, 512, 1, 64, 32, 128, None),
+             (1, 1000, 4, 64, 64, 128, None),     # ragged t, zamba2 n, dh
+             (1, 300, 2, 64, 128, 128, None),     # mamba2-370m's n = 128
+             (1, 260, 2, 128, 64, 128, None),     # dh 128
+             (1, 128, 1, 16, 8, 64, -1e4)]        # total decay
+SWA_TOL = (2e-5, 2e-5)       # (rtol, atol) of the reference's swa tests
+SSD_TOL = (2e-4, 2e-5)       # ... and of its ssd tests
+
+
+def within(got, want, tol, bf16):
+    """max|d| and whether |got - want| <= atol + rtol |want| everywhere,
+    with one bf16 ulp more rtol when the outputs are bf16."""
+    import torch
+    rtol, atol = tol
+    if bf16:
+        rtol += BF16_ULP
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return float(d.max()), bool(torch.all(d <= atol + rtol * w.abs()))
+
+
+def ssd_inputs(b, t, h, dh, n, gen, dtype):
+    """x (in ``dtype``), dt, A, B, C on ``gen``'s device, drawn as the
+    reference's kernel tests draw them."""
+    import torch
+    dev = gen.device
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    x = r(b, t, h, dh).to(dtype)
+    dt = r(b, t, h).abs() * 0.1 + 0.01
+    A = -(r(h) * 0.3 + 1.0).abs()
+    return x, dt, A, r(b, t, n) / n ** 0.5, r(b, t, n) / n ** 0.5
+
+
+def phase_lm_kernels(dev):
+    """Phase 3l: ``ops.swa_attention`` and ``ops.ssd_scan`` against their
+    plain versions on the card, float32 and bf16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for B, Hq, Hkv, Tq, Tk, Dh, window, causal, off in SWA_CASES:
+            q = torch.randn(B, Hq, Tq, Dh, generator=gen, device=dev)
+            k, v = (torch.randn(B, Hkv, Tk, Dh, generator=gen, device=dev)
+                    for _ in range(2))
+            q, k, v = (a.to(dtype) for a in (q, k, v))
+            kw = dict(window=window, causal=causal, q_offset=off)
+            got = ops.swa_attention(q, k, v, **kw)
+            want = swa.swa_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e, ok = within(got, want, SWA_TOL, bf16)
+            worst["swa", bf16] = max(worst.get(("swa", bf16), 0.0), e)
+            say("3l", f"swa_attention {str(dtype)[6:]} B={B} Hq={Hq} "
+                      f"Hkv={Hkv} Tq={Tq} Tk={Tk} Dh={Dh} window={window} "
+                      f"causal={causal} q_offset={off} max|d|={e:.3e}")
+            check(ok and got.dtype == dtype,
+                  f"swa_attention disagrees with its plain version "
+                  f"(max|d| {e:.3e})")
+        for b, t, h, dh, n, chunk, fill in SSD_CASES:
+            x, dt, A, Bm, Cm = ssd_inputs(b, t, h, dh, n, gen, dtype)
+            if fill is not None:
+                A = torch.full_like(A, fill)
+            got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+            want = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+            torch.cuda.synchronize()
+            e, ok = within(got, want, SSD_TOL, bf16)
+            worst["ssd", bf16] = max(worst.get(("ssd", bf16), 0.0), e)
+            say("3l", f"ssd_scan {str(dtype)[6:]} b={b} t={t} h={h} dh={dh} "
+                      f"n={n} chunk={chunk} A={'-1e4' if fill else 'drawn'} "
+                      f"max|d|={e:.3e}")
+            check(ok and got.dtype == dtype,
+                  f"ssd_scan disagrees with its plain version "
+                  f"(max|d| {e:.3e})")
+    # shapes the kernels do not take raise on the card, with no fallback
+    q = torch.zeros(1, 1, 8, 144, device=dev)
+    refused = []
+    try:
+        ops.swa_attention(q, q, q, window=4)
+    except ValueError as e:
+        refused.append(str(e))
+    x, dt, A, Bm, Cm = ssd_inputs(1, 8, 1, 128, 128, gen, torch.float32)
+    try:            # 280,576 B of shared memory: the launch refuses it
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    except RuntimeError as e:
+        refused.append(str(e))
+    say("3l", f"refused on the card: {refused}")
+    check(len(refused) == 2, "a shape the kernels do not take was not "
+                             "refused")
+    return worst
+
+
+# zamba2-7b (configs/zamba2_7b.py): 32 attention heads of 112 over d_model
+# 3,584; SSD 112 heads of 64 (expand 2), state 64; sliding window 8,192
+# above full_attn_max 65,536; bf16.  mamba2-370m: 32 SSD heads, state 128.
+ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 112
+SWA_FULL = [("causal, window >= T", 16384, 16384),
+            ("sliding window", 73728, 8192)]
+SSD_FULL = [("zamba2-7b", 16384, 112, 64, 64),
+            ("mamba2-370m", 16384, 32, 64, 128)]
+SSD_CHUNK = 128
+
+
+def swa_bound(B, Hq, Hkv, Tq, Tk, Dh, window, q_offset, elem):
+    """(bound ms, bound_by) of causal sliding-window attention: q, k, v
+    read once and the output written once; 4 Dh operations per attended
+    (query, key) pair at the bf16 tensor-core rate (float32 for 4-byte
+    inputs)."""
+    import torch
+    pos = torch.arange(Tq, dtype=torch.float64) + q_offset
+    lo = (pos - window + 1).clamp(min=0)
+    hi = pos.clamp(max=Tk - 1)
+    pairs = float((hi - lo + 1).clamp(min=0).sum()) * B * Hq
+    nbytes = elem * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
+    ops_s = 4 * Dh * pairs / (BF16_OPS_S if elem == 2 else F32_OPS_S)
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
+    return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
+
+
+def ssd_bound(x, n):
+    """(bound ms, bound_by) of the SSD scan: x, dt, A, B, C read once and y
+    written once; ~5 n dh float32 operations per (step, head) of the exact
+    recurrence (decay, input outer product, output contraction)."""
+    b, t, h, dh = x.shape
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (b * t * h + h
+                                                       + 2 * b * t * n)
+    ops_s = 5 * n * dh * b * t * h / F32_OPS_S
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
+    return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
+
+
+def drive_once(name, fn):
+    """The main path of one LM case: the counts set to 0 just before one
+    call through ``ops``, read just after; the call must have launched
+    ``name``'s kernel exactly once."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts[name] == 1 and sum(counts.values()) == 1,
+          f"{name}: launch counts {counts}, expected one {name} launch")
+    return out, counts[name]
+
+
+def phase_lm_full(dev):
+    """Phase 7: the LM kernels at zamba2-7b's widths through ``ops``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    rows = {}
+    B, H, DH = 1, ZAMBA_HEADS, ZAMBA_HEAD_DIM
+    for label, T, window in SWA_FULL:
+        q, k, v = (torch.randn(B, H, T, DH, generator=gen, device=dev).to(bf)
+                   for _ in range(3))
+        out, n = drive_once(
+            "swa_attention",
+            lambda: ops.swa_attention(q, k, v, window=window))
+        check(out.shape == q.shape and out.dtype == bf
+              and bool(torch.isfinite(out).all()),
+              f"swa_attention {label}: bad output")
+        want = swa.swa_attention_plain(q, k, v, window=window)
+        err, ok = within(out, want, SWA_TOL, True)
+        check(ok, f"swa_attention {label}: max|d| {err:.3e} against the "
+                  f"plain version")
+        del out, want
+        ms = cuda_ms(lambda: ops.swa_attention(q, k, v, window=window), 3,
+                     warm=1)
+        _, busy, _ = device_split(
+            lambda: ops.swa_attention(q, k, v, window=window))
+        plain_ms = cuda_ms(lambda: swa.swa_attention_plain(
+            q, k, v, window=window), 2, warm=0)
+        lib_ms = None
+        if window >= T:
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 5, warm=1)
+        bound, by = swa_bound(B, H, H, T, T, DH, window, 0, 2)
+        rows["swa", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by, library_ms=lib_ms,
+                                  max_abs_err=err, launches=n,
+                                  device_ms=busy * 1e3)
+        say(7, f"swa_attention bf16 B={B} H={H} T={T} Dh={DH} "
+               f"window={window} ({label}): {ms:.4f} ms per call (device "
+               f"time {busy * 1e3:.4f} ms under the profiler), bound "
+               f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
+               f"SDPA(is_causal) "
+               + (f"{lib_ms:.4f} ms" if lib_ms is not None else "-")
+               + f", max|d| {err:.3e}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, t, h, dh, nst in SSD_FULL:
+        x, dt, A, Bm, Cm = ssd_inputs(1, t, h, dh, nst, gen, bf)
+        y, n = drive_once("ssd_scan", lambda: ops.ssd_scan(
+            x, dt, A, Bm, Cm, chunk=SSD_CHUNK))
+        check(y.shape == x.shape and y.dtype == bf
+              and bool(torch.isfinite(y).all()),
+              f"ssd_scan {label}: bad output")
+        want = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=SSD_CHUNK)
+        err, ok = within(y, want, SSD_TOL, True)
+        check(ok, f"ssd_scan {label}: max|d| {err:.3e} against the plain "
+                  f"version")
+        del y, want
+        kern = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=SSD_CHUNK)  # noqa
+        plain = lambda: ssd.ssd_scan_plain(  # noqa
+            x, dt, A, Bm, Cm, chunk=SSD_CHUNK)
+        # kernel, plain, plain, kernel: 5 calls each after one warm call
+        ms_a, plain_a = cuda_ms(kern, 5, warm=1), cuda_ms(plain, 5, warm=1)
+        plain_b, ms_b = cuda_ms(plain, 5, warm=1), cuda_ms(kern, 5, warm=1)
+        ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
+        _, busy, _ = device_split(kern)
+        bound, by = ssd_bound(x, nst)
+        rows["ssd", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by, library_ms=None,
+                                  max_abs_err=err, launches=n,
+                                  device_ms=busy * 1e3)
+        say(7, f"ssd_scan bf16 x ({label}) b=1 t={t} h={h} dh={dh} n={nst} "
+               f"chunk={SSD_CHUNK}: {ms:.4f} ms per call ({ms_a:.4f}, "
+               f"{ms_b:.4f}; device time {busy * 1e3:.4f} ms under the "
+               f"profiler), bound {bound:.4f} ms ({by}), plain "
+               f"{plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f}), no "
+               f"single PyTorch call computes it, max|d| {err:.3e}")
+        del x, dt, A, Bm, Cm
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_twopass_times(ctx):
+    """Phase 7, row 6: the two-pass tile step at svm-ocr's tile (processor
+    0's active block of phase 5d, row-strided), driven once with the
+    counts set to 0 around it, then held against its plain version and
+    the fused step and timed beside the fused step and the cuBLAS mat-vec
+    pair."""
+    import torch
+    from repro_torch.kernels import dso_update, ops
+    grid, loss = ctx["grid"], ctx["loss"]
+    st0 = ctx["state"]
+    db = grid.db
+    q, b = 0, 1
+    X = grid.Xg[q, :, b * db:(b + 1) * db]
+    cols = slice(b * db, (b + 1) * db)
+    vec = (grid.yg[q], st0.w_grid[b].clone(), st0.alpha[q].clone(),
+           st0.gw_grid[b].clone(), st0.ga[q].clone(), grid.row_nnz_g[q],
+           grid.col_nnz[cols], scalars(loss, ctx["lam"], ctx["m"]))
+    kw = dict(loss_name=loss, reg_name="l2")
+    ops.reset_launch_counts()
+    got = ops.dso_tile_step(X, *vec, twopass=True, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["dso_tile_step_twopass"] == 2
+          and counts["dso_primal_update"] == 1
+          and sum(counts.values()) == 3,
+          f"two-pass tile step: launch counts {counts}, expected 2 passes "
+          f"and one launch B")
+    # the fused step as the main path runs it: the grid's tile statistics
+    stats = dict(tile_row_nnz=grid.tile_row_nnz_g[q, b],
+                 tile_col_nnz=grid.tile_col_nnz_g[q, 0, cols])
+    plain = dso_update.dso_tile_step_twopass_plain(X, *vec, **kw)
+    fused = ops.dso_tile_step(X, *vec, **kw, **stats)
+    torch.cuda.synchronize()
+    err, ok = compare_tile_steps(got, (plain, fused))
+    check(ok, f"two-pass tile step at svm-ocr's tile: max|d| {err:.3e}")
+    two = lambda: ops.dso_tile_step(X, *vec, twopass=True, **kw)  # noqa
+    one = lambda: ops.dso_tile_step(X, *vec, **kw, **stats)       # noqa
+    ms_a, fused_a = cuda_ms(two, 50), cuda_ms(one, 50)
+    fused_b, ms_b = cuda_ms(one, 50), cuda_ms(two, 50)
+    n_prof = 20
+    _, busy, kern = device_split(lambda: [two() for _ in range(n_prof)])
+    plain_ms = cuda_ms(lambda: dso_update.dso_tile_step_twopass_plain(
+        X, *vec, **kw), 20)
+    lib_ms = cuda_ms(lambda: (torch.mv(X, vec[1]), torch.mv(X.t(), vec[2])),
+                     50)
+    bound, by = dense_bound(grid.mb, db, 1)
+    ms, fused_ms = (ms_a + ms_b) / 2, (fused_a + fused_b) / 2
+    say(7, f"dso_tile_step_twopass at svm-ocr's tile ({grid.mb}x{db}, "
+           f"row-strided): {ms:.4f} ms per call ({ms_a:.4f}, {ms_b:.4f}; "
+           f"device time {busy / n_prof * 1e3:.4f} ms per call: "
+           + ", ".join(f"{k[:40]}={us / n_prof:.1f}us" for k, us in kern[:4])
+           + ") "
+           f"beside the fused step {fused_ms:.4f} ms ({fused_a:.4f}, "
+           f"{fused_b:.4f}); bound {bound:.4f} ms ({by}, one read of X; the "
+           f"two passes read it twice), plain {plain_ms:.4f} ms, cuBLAS mv "
+           f"pair {lib_ms:.4f} ms, max|d| {err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err,
+                launches=counts["dso_tile_step_twopass"],
+                device_ms=busy / n_prof * 1e3)
 
 
 def phase_dense_main(dev):
@@ -813,6 +1200,13 @@ def main() -> int:
     say(3, f"all block-step cases within {TOL}: worst max|d| {worst:.3e}")
     worst_d = phase_dense_kernels(dev)
     say("3d", f"all dense cases within {TOL}: worst max|d| {worst_d:.3e}")
+    worst_t = phase_twopass_kernels(dev)
+    say("3t", f"all two-pass cases within {TOL}: worst max|d| "
+              f"{worst_t:.3e}")
+    worst_l = phase_lm_kernels(dev)
+    say("3l", "all LM kernel cases within their bounds: worst max|d| "
+              + ", ".join(f"{k} {'bf16' if bf else 'float32'} {e:.3e}"
+                          for (k, bf), e in worst_l.items()))
 
     uni = phase_main(4, dev, loss="hinge", lam=1e-4, alpha0=0.0,
                      powerlaw=None, expect="sparse_pallas")
@@ -823,6 +1217,8 @@ def main() -> int:
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
     d_rows = phase_dense_times(dense)
+    t_row = phase_twopass_times(dense)
+    lm = phase_lm_full(dev)
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -851,8 +1247,24 @@ def main() -> int:
             source="src/repro_torch/csrc/dso_update.cu",
             replaces=f"src/repro/kernels/dso_update.py:{line}",
             launches=dense["counts"][name], **r))
+    t_row.pop("device_ms")
+    lm_rows = [
+        dict(name="dso_tile_step_twopass", route="cuda",
+             source="src/repro_torch/csrc/dso_twopass.cu",
+             replaces="src/repro/kernels/dso_update.py:440", **t_row)]
+    for kind, name, line, label in (
+            ("swa", "swa_attention", 81, SWA_FULL[0][0]),
+            ("ssd", "ssd_scan", 70, SSD_FULL[0][0])):
+        r = dict(lm[kind, label])
+        r.pop("device_ms")
+        r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
+                            if k == kind)
+        lm_rows.append(dict(name=name, route="cuda",
+                            source=f"src/repro_torch/csrc/{name}.cu",
+                            replaces=f"src/repro/kernels/{name}.py:{line}",
+                            **r))
     print(json.dumps({"kernels": [s_step, b_step, primal, probe_row]
-                      + dense_rows}))
+                      + dense_rows + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,12 @@ the dual step, X read once) followed by the shared launch B
 (``csrc/dso_sparse.cu`` ``primal_update_kernel``) once per row tile; the
 note in ``csrc/dso_update.cu`` gives the design.
 
+Also replaces the legacy two-pass tile step ``dso_tile_step_pallas_twopass``
+(:440; pallas_calls :460 and :484): on the card a primal pass (X^T alpha and
+the column counts, ``csrc/dso_twopass.cu``), launch B fed those counts, and
+a dual pass (X w, the row counts and the dual step), each pass reading all
+of X.
+
 The plain versions:
 
   ``dso_block_step_plain`` — all ``row_batches`` sequential row tiles of
@@ -27,6 +33,8 @@ The plain versions:
       through unchanged.
   ``dso_tile_step_plain`` — one Jacobi step over a whole (M, D) X,
       returning new (w, alpha, gw, ga).
+  ``dso_tile_step_twopass_plain`` — the same step as the two passes
+      compute it: each derives its nonzero counts from X itself.
 """
 
 from __future__ import annotations
@@ -126,6 +134,28 @@ def launch_dense_dual_scatter(X, ld: int, proc_stride: int, blk_ids, yg,
         LOSS_IDS[loss_name], stream(acc)))
 
 
+def launch_twopass_primal(X, alpha, acc, cnt):
+    """The two-pass step's primal pass over X (M, D) (unit column stride,
+    row stride ``X.stride(0)``): adds X^T alpha into ``acc`` (D,) and the
+    column nonzero counts into ``cnt`` (D,), both zero on entry."""
+    M, D = X.shape
+    check("dso_twopass_primal", library().lib.dso_twopass_primal(
+        X.data_ptr(), X.stride(0), M, D, alpha.data_ptr(), acc.data_ptr(),
+        cnt.data_ptr(), stream(acc)))
+
+
+def launch_twopass_dual(X, w, alpha, alpha_out, ga, y, row_nnz, eta: float,
+                        m: float, loss_name: str):
+    """The two-pass step's dual pass: X w from the input ``w`` and the row
+    counts, then the dual step of every row from the input ``alpha`` into
+    ``alpha_out``, with ``ga`` updated in place."""
+    M, D = X.shape
+    check("dso_twopass_dual", library().lib.dso_twopass_dual(
+        X.data_ptr(), X.stride(0), M, D, w.data_ptr(), alpha.data_ptr(),
+        alpha_out.data_ptr(), ga.data_ptr(), y.data_ptr(),
+        row_nnz.data_ptr(), eta, m, LOSS_IDS[loss_name], stream(ga)))
+
+
 # ------------------------------------------------------ plain versions --
 
 
@@ -174,3 +204,15 @@ def dso_tile_step_plain(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scal, *,
     Returns new (w, alpha, gw, ga)."""
     return _tile_math(X, y, w, alpha, gw, ga, tile_row_nnz, row_nnz,
                       tile_col_nnz, col_nnz, scal, loss_name, reg_name)
+
+
+def dso_tile_step_twopass_plain(X, y, w, alpha, gw, ga, row_nnz, col_nnz,
+                                scal, *, loss_name: str, reg_name: str):
+    """Plain version of the legacy two-pass tile step over X (M, D): the
+    primal pass (X^T alpha, column counts, primal step) and the dual pass
+    (X w, row counts, dual step), both from the pre-update (w, alpha):
+    the fused step's arithmetic with the counts taken from X.  Returns new
+    (w, alpha, gw, ga)."""
+    nz = (X != 0).to(X.dtype)
+    return _tile_math(X, y, w, alpha, gw, ga, nz.sum(dim=1), row_nnz,
+                      nz.sum(dim=0), col_nnz, scal, loss_name, reg_name)

@@ -1,5 +1,5 @@
-"""Wrappers of the block-step kernels: checks, routing, truncation and
-launch counts.
+"""Wrappers of the port's kernels: checks, routing, truncation and launch
+counts.
 
 Each wrapper routes by the device its tensors lie on: CPU tensors go to
 the kernel's plain PyTorch version, CUDA tensors launch the kernel or
@@ -16,13 +16,19 @@ Each wrapper counts its kernel launches in a plain int attribute,
     dso_bucketed_block_step.launches  launch A, flat chunk view
     dso_block_step.launches           dense launch A, p processors
     dso_tile_step.launches            dense launch A, one tile
+    _dso_tile_step_twopass.launches   the two-pass step's primal pass and
+                                      its dual pass (two per step; listed
+                                      as ``dso_tile_step_twopass``)
     dso_primal_update.launches        launch B (shared by all of them)
     sparse_probe.launches             the probe kernel
+    swa_attention.launches            sliding-window attention
+    ssd_scan.launches                 the Mamba2 SSD scan
 
 One block step launches A then B once per row tile, so one inner
 iteration of the epoch is ``2 * row_batches`` launches for all p
 processors together, and one epoch ``2 * p * row_batches``.
-``dso_tile_step`` is one A and one B for one processor's tile.
+``dso_tile_step`` is one A and one B for one processor's tile; its
+two-pass form is the primal pass, B and the dual pass.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dso_sparse, dso_update
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import swa_attention as _swa
 
 
 def _route(*tensors) -> bool:
@@ -364,6 +372,14 @@ dso_block_step.launches = 0
 _TILE_BLK: dict = {}
 
 
+def _tile_blk(device):
+    blk = _TILE_BLK.get(device)
+    if blk is None:
+        blk = _TILE_BLK[device] = torch.zeros(1, dtype=torch.int32,
+                                              device=device)
+    return blk
+
+
 def dso_tile_step(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scalars, *,
                   loss_name: str, reg_name: str, tile_row_nnz=None,
                   tile_col_nnz=None, twopass: bool = False):
@@ -378,35 +394,29 @@ def dso_tile_step(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scalars, *,
     processor's active block of a dense grid.  The reference's block
     shapes (``bm``, ``bd``) and ``interpret`` have no counterpart: the
     CUDA kernel takes any (M, D).  On the card: launch A and launch B with
-    p = 1 and block 0.  ``twopass=True`` (the legacy two-pass kernel,
-    reference row 6) is not ported yet.
+    p = 1 and block 0.  ``twopass=True`` runs the legacy two-pass step
+    (``_dso_tile_step_twopass``), which derives its tile counts itself and
+    so refuses ``tile_row_nnz``/``tile_col_nnz``, as the reference does
+    (ops.py:64-67).
     """
     if twopass:
-        raise NotImplementedError(
-            "dso_tile_step(twopass=True): the legacy two-pass kernel "
-            "(reference kernels/dso_update.py:440) is not ported yet; it "
-            "comes with the next kernel slice (ROADMAP queue 2, kernel "
-            "row 6)")
-    if X.dim() != 2 or X.dtype != torch.float32:
-        raise TypeError(f"X must be a 2-D float32 tensor, got "
-                        f"{X.dtype} of shape {tuple(X.shape)}")
-    M, D = X.shape
-    if X.stride(1) != 1 or (M > 1 and X.stride(0) < D):
-        raise ValueError(f"X must have unit column stride and rows at "
-                         f"least D apart, got strides {X.stride()}")
+        if tile_row_nnz is not None or tile_col_nnz is not None:
+            raise ValueError(
+                "dso_tile_step(twopass=True) derives the tile counts in "
+                "its kernels; tile_row_nnz/tile_col_nnz would be silently "
+                "ignored")
+        return _dso_tile_step_twopass(X, y, w, alpha, gw, ga, row_nnz,
+                                      col_nnz, scalars, loss_name=loss_name,
+                                      reg_name=reg_name)
+    M, D = _check_tile(X, y, w, alpha, gw, ga, row_nnz, col_nnz)
     if tile_row_nnz is None:
         tile_row_nnz = (X != 0).sum(dim=1)
     if tile_col_nnz is None:
         tile_col_nnz = (X != 0).sum(dim=0)
     trn = tile_row_nnz.to(torch.float32).contiguous()
     tcn = tile_col_nnz.to(torch.float32).contiguous()
-    for name, t, shape in (("y", y, (M,)), ("w", w, (D,)),
-                           ("alpha", alpha, (M,)), ("gw", gw, (D,)),
-                           ("ga", ga, (M,)), ("row_nnz", row_nnz, (M,)),
-                           ("col_nnz", col_nnz, (D,)),
-                           ("tile_row_nnz", trn, (M,)),
-                           ("tile_col_nnz", tcn, (D,))):
-        _expect(name, t, torch.float32, shape)
+    _expect("tile_row_nnz", trn, torch.float32, (M,))
+    _expect("tile_col_nnz", tcn, torch.float32, (D,))
     scal = _scalars(scalars)
     if not _route(X, y, w, alpha, gw, ga, row_nnz, col_nnz, trn, tcn):
         return dso_update.dso_tile_step_plain(
@@ -414,10 +424,7 @@ def dso_tile_step(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scalars, *,
             loss_name=loss_name, reg_name=reg_name, tile_row_nnz=trn,
             tile_col_nnz=tcn)
     w2, a2, gw2, ga2 = w.clone(), alpha.clone(), gw.clone(), ga.clone()
-    blk = _TILE_BLK.get(X.device)
-    if blk is None:
-        blk = _TILE_BLK[X.device] = torch.zeros(1, dtype=torch.int32,
-                                                device=X.device)
+    blk = _tile_blk(X.device)
     w_grid, gw_grid = w2.view(1, D), gw2.view(1, D)
     tcn_g = tcn.view(1, 1, D)
     acc = _take_acc(w_grid)
@@ -434,8 +441,158 @@ def dso_tile_step(X, y, w, alpha, gw, ga, row_nnz, col_nnz, scalars, *,
 
 dso_tile_step.launches = 0
 
+
+def _check_tile(X, y, w, alpha, gw, ga, row_nnz, col_nnz):
+    """(M, D) of a tile step's X, a 2-D float32 tensor with unit column
+    stride and rows at least D apart; the vectors float32, contiguous,
+    (M,) or (D,)."""
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise TypeError(f"X must be a 2-D float32 tensor, got "
+                        f"{X.dtype} of shape {tuple(X.shape)}")
+    M, D = X.shape
+    if X.stride(1) != 1 or (M > 1 and X.stride(0) < D):
+        raise ValueError(f"X must have unit column stride and rows at "
+                         f"least D apart, got strides {X.stride()}")
+    for name, t, shape in (("y", y, (M,)), ("w", w, (D,)),
+                           ("alpha", alpha, (M,)), ("gw", gw, (D,)),
+                           ("ga", ga, (M,)), ("row_nnz", row_nnz, (M,)),
+                           ("col_nnz", col_nnz, (D,))):
+        _expect(name, t, torch.float32, shape)
+    return M, D
+
+
+def _dso_tile_step_twopass(X, y, w, alpha, gw, ga, row_nnz, col_nnz,
+                           scalars, *, loss_name: str, reg_name: str):
+    """The legacy two-pass tile step over X (M, D), the reference's
+    ``dso_tile_step_pallas_twopass`` (kernel row 6): the same contract and
+    result as ``dso_tile_step``, but X is read twice and each pass derives
+    its nonzero counts from X.  Returns new (w, alpha, gw, ga).
+
+    On the card: the primal pass (X^T alpha and the column counts into a
+    zeroed accumulator), launch B fed those counts, and the dual pass (X w,
+    the row counts and the dual step); both passes read the input w and
+    alpha.  It is the baseline the fused step is held against; no backend
+    runs it.
+    """
+    M, D = _check_tile(X, y, w, alpha, gw, ga, row_nnz, col_nnz)
+    scal = _scalars(scalars)
+    if not _route(X, y, w, alpha, gw, ga, row_nnz, col_nnz):
+        return dso_update.dso_tile_step_twopass_plain(
+            X, y, w, alpha, gw, ga, row_nnz, col_nnz, scal,
+            loss_name=loss_name, reg_name=reg_name)
+    w2, a2, gw2, ga2 = w.clone(), alpha.clone(), gw.clone(), ga.clone()
+    w_grid, gw_grid = w2.view(1, D), gw2.view(1, D)
+    cnt = torch.zeros_like(w)
+    acc = _take_acc(w_grid)
+    dso_update.launch_twopass_primal(X, alpha, acc.view(D), cnt)
+    _dso_tile_step_twopass.launches += 1
+    _launch_primal(_tile_blk(X.device), w_grid, gw_grid, acc,
+                   cnt.view(1, 1, D), col_nnz, 0, scal, reg_name)
+    _give_acc(acc)
+    dso_update.launch_twopass_dual(X, w, alpha, a2, ga2, y, row_nnz,
+                                   scal[0], scal[2], loss_name)
+    _dso_tile_step_twopass.launches += 1
+    return w2, a2, gw2, ga2
+
+
+_dso_tile_step_twopass.launches = 0
+
+
+# -------------------------------------------------------- LM kernels --
+
+
+def swa_attention(q, k, v, *, window: int, causal: bool = True,
+                  q_offset: int = 0):
+    """Sliding-window attention, the reference's ``ops.swa_attention``:
+    q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), all float32 or all bf16,
+    Hq % Hkv == 0; returns (B, Hq, Tq, Dh) in q's type.  See
+    ``kernels/swa_attention.py`` for the masking.
+
+    The reference's tile sizes (``bq``, ``bk``) and ``interpret`` have no
+    counterpart, and nothing is padded: the kernel masks the ragged ends
+    itself.  So ``causal=False`` with a Tk that 64 does not divide attends
+    to no padded key, unlike the reference's padded call.  On the card the
+    tensors must be contiguous and Dh at most 128.
+    """
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or all bf16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, Hq, Tq, Dh = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Hkv, Tk, Dh) or v.shape != k.shape \
+            or Hq % Hkv != 0:
+        raise ValueError(f"k and v must be (B, Hkv, Tk, Dh) with Hq % Hkv "
+                         f"== 0 for q {tuple(q.shape)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    window, q_offset = int(window), int(q_offset)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not _route(q, k, v):
+        return _swa.swa_attention_plain(q, k, v, window=window,
+                                        causal=causal, q_offset=q_offset)
+    if Dh > _swa.MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes Dh <= "
+                         f"{_swa.MAX_HEAD_DIM}, got {Dh}")
+    if -(-Tq // _swa.QUERY_TILE) > 65535:
+        raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
+                         f"query tiles")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the card")
+    out = torch.empty_like(q)
+    _swa.launch_swa_attention(q, k, v, out, window=window,
+                              causal=bool(causal), q_offset=q_offset,
+                              scale=1.0 / Dh ** 0.5)
+    swa_attention.launches += 1
+    return out
+
+
+swa_attention.launches = 0
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
+    """The Mamba2 SSD scan, the reference's ``ops.ssd_scan``: x (b, t, h,
+    dh) float32 or bf16; dt (b, t, h), A (h,), B and C (b, t, n) floating;
+    returns y like x.  ``chunk`` defaults to ``min(128, max(8, t))`` as in
+    the reference; the reference's ``interpret`` has no counterpart.  On
+    the card dt, A, B and C are taken as float32 (a copy when they are
+    not); a chunk whose shared memory does not fit one CTA makes the
+    launch fail with ``RuntimeError``."""
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be a 4-D float32 or bf16 tensor, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    b, t, h, dh = x.shape
+    if B.dim() != 3 or tuple(B.shape[:2]) != (b, t) or C.shape != B.shape \
+            or tuple(dt.shape) != (b, t, h) or tuple(A.shape) != (h,):
+        raise ValueError(f"for x {tuple(x.shape)}: dt must be (b, t, h), "
+                         f"A (h,), B and C (b, t, n); got {tuple(dt.shape)}"
+                         f", {tuple(A.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    for name, a in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not a.is_floating_point():
+            raise TypeError(f"{name} must be floating, got {a.dtype}")
+    chunk = int(chunk or min(_ssd.DEFAULT_CHUNK, max(8, t)))
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not _route(x, dt, A, B, C):
+        return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous on the card")
+    f32 = [a.to(torch.float32).contiguous() for a in (dt, A, B, C)]
+    y = torch.empty_like(x)
+    _ssd.launch_ssd_scan(x, *f32, y, chunk=chunk)
+    ssd_scan.launches += 1
+    return y
+
+
+ssd_scan.launches = 0
+
 _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
-            dso_bucketed_block_step, dso_block_step, dso_tile_step)
+            dso_bucketed_block_step, dso_block_step, dso_tile_step,
+            _dso_tile_step_twopass, swa_attention, ssd_scan)
 
 
 def reset_launch_counts():
@@ -445,4 +602,6 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """Each wrapper's launch count by its public name (the two-pass
+    step's under ``dso_tile_step_twopass``)."""
+    return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

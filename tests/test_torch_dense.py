@@ -15,9 +15,15 @@ Inputs are made with numpy from a seed and handed to both packages:
   at the reference's own sizes (m 120, d 60; l1's sign flips are
   sensitive at other sizes);
 - a reference ``GridData`` and ``DSOState`` carried across as numpy arrays
-  continue in the port like the reference.
+  continue in the port like the reference;
+- the legacy two-pass tile step (``ops.dso_tile_step(twopass=True)``, its
+  plain version on CPU tensors) within 1e-5 of the reference's two-pass
+  Pallas kernels in interpret mode and of the port's fused step, for the
+  six pairs;
+- the port's dense oracles ``dso_tile_step_ref`` and ``dso_block_step_ref``
+  within 1e-5 of the reference's.
 
-The dense CUDA kernel itself runs only on the card (``chip_smoke.py``).
+The dense CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 
 import functools
@@ -38,6 +44,7 @@ from repro_torch.core.losses import w_bounds
 from repro_torch.engine import schedules as tsched
 from repro_torch.engine import update as tupdate
 from repro_torch.kernels import dso_update, ops
+from repro_torch.kernels import ref as tref
 
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
@@ -260,6 +267,69 @@ def test_dso_tile_step_plain_matches_reference(loss, reg):
     assert torch.equal(vecs[1], T(v["w_grid"]))     # inputs unchanged
 
 
+def _tile_problem(loss, seed=4):
+    """A 37 x 50 tile (not multiples of the reference's (256, 512) blocks)
+    cut from a wider array, with its vectors; numpy."""
+    rng = np.random.default_rng(seed)
+    M, D = 37, 50
+    big = (rng.normal(0, 1, (M, D + 9))
+           * (rng.random((M, D + 9)) < 0.5)).astype(np.float32)
+    X = np.ascontiguousarray(big[:, 4:4 + D])
+    y = np.where(rng.random(M) < 0.5, 1.0, -1.0).astype(np.float32)
+    st = _state(1, M, D, y[None], loss)
+    v = {k: t[0].numpy() for k, t in st.items()}
+    rn = np.maximum((big != 0).sum(1), 1).astype(np.float32)
+    cn = np.maximum((X != 0).sum(0) + 2, 1).astype(np.float32)
+    return big, X, (y, v["w_grid"], v["alpha"], v["gw_grid"], v["ga"], rn,
+                    cn)
+
+
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_dso_tile_step_twopass_matches_reference(loss, reg):
+    big, X, vecs = _tile_problem(loss)
+    M, D = X.shape
+    scal = _scalars(loss, M)
+    kw = dict(loss_name=loss, reg_name=reg)
+    want = jops.dso_tile_step(X, *vecs, np.asarray(scal, np.float32), **kw,
+                              interpret=True, twopass=True)
+    T = torch.from_numpy
+    tv = tuple(map(T, vecs))
+    before = ops.launch_counts()
+    got = ops.dso_tile_step(T(X), *tv, scal, **kw, twopass=True)
+    strided = ops.dso_tile_step(T(big)[:, 4:4 + D], *tv, scal, **kw,
+                                twopass=True)
+    fused = ops.dso_tile_step(T(X), *tv, scal, **kw)
+    assert ops.launch_counts() == before
+    for name, g, s, f, w in zip("w alpha gw ga".split(), got, strided,
+                                fused, want):
+        _check(name, g, w)
+        _check(f"{name} vs fused", g, f)
+        assert torch.equal(g, s), name
+    assert torch.equal(tv[2], T(vecs[2]))           # inputs unchanged
+
+
+@pytest.mark.parametrize("row_batches", [1, 3])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_dense_oracles_match_reference(loss, reg, row_batches):
+    """``dso_block_step_ref`` over 3 row tiles (a trailing row), and
+    ``dso_tile_step_ref`` once over the whole tile."""
+    _, X, vecs = _tile_problem(loss, seed=6)
+    scal = _scalars(loss, X.shape[0])
+    kw = dict(loss_name=loss, reg_name=reg)
+    j_args = [jnp.asarray(a) for a in (X, *vecs,
+                                       np.asarray(scal, np.float32))]
+    t_args = [torch.from_numpy(a) for a in (X, *vecs)] + [scal]
+    got = tref.dso_block_step_ref(*t_args, row_batches=row_batches, **kw)
+    want = jref.dso_block_step_ref(*j_args, row_batches=row_batches, **kw)
+    if row_batches == 1:
+        tile = tref.dso_tile_step_ref(*t_args, **kw)
+        for g, t in zip(got, tile):
+            assert torch.equal(g, t)
+        want = jref.dso_tile_step_ref(*j_args, **kw)
+    for name, g, w in zip("w alpha gw ga".split(), got, want):
+        _check(name, g, w)
+
+
 def test_dense_wrappers_refuse_bad_inputs():
     grid = _grid(1)
     st = _state(grid.p, grid.mb, grid.db, grid.yg.numpy(), "hinge")
@@ -277,9 +347,10 @@ def test_dense_wrappers_refuse_bad_inputs():
     vecs = (grid.yg[0], st["w_grid"].reshape(-1), st["alpha"][0],
             st["gw_grid"].reshape(-1), st["ga"][0], grid.row_nnz_g[0],
             grid.col_nnz)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tile_row_nnz"):
         ops.dso_tile_step(X, *vecs, rest[-1], loss_name="hinge",
-                          reg_name="l2", twopass=True)
+                          reg_name="l2", twopass=True,
+                          tile_col_nnz=(X != 0).sum(0).float())
     with pytest.raises(ValueError, match="column stride"):
         ops.dso_tile_step(X.t(), *vecs, rest[-1], loss_name="hinge",
                           reg_name="l2")

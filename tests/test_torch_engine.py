@@ -5,9 +5,12 @@ for {sparse_jnp, sparse_bucketed_jnp} x {cyclic, lpt} x six (loss, reg)
 pairs; the reference's ``random`` permutations replayed through
 ``fixed_schedule``; ``auto`` resolving to the reference's layout, and to
 the kernel backend only for data on a CUDA device (decided from the
-device type, without a card), for the dense layout too; and a JAX run's
+device type, without a card), for the dense layout too; a JAX run's
 state carried across by ``state_from_arrays`` continuing one more epoch
-in the port.
+in the port; and the corners: ``use_adagrad=False`` on ``sparse_jnp`` and
+``dense_jnp`` for the six pairs, ``eval_every=2`` over 5 epochs, and the
+evaluation hooks ``make_csr_primal_eval`` and ``pd_gap_eval_hook`` against
+the reference's.
 """
 
 import numpy as np
@@ -19,7 +22,9 @@ import repro.engine as je
 import repro_torch.data.synthetic as tsyn
 import repro_torch.engine as te
 from repro.engine import schedules as jsched
+from repro.sparse import format as jformat
 from repro_torch.engine import schedules as tsched
+from repro_torch.sparse import format as tformat
 
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
@@ -207,3 +212,51 @@ def test_unported_options_and_backends_raise():
             te.solve(tp, backend=name, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         te.get_backend("no_such_backend")
+
+
+# ---------------------------------------------------------- the corners --
+
+
+@pytest.mark.parametrize("backend", ["sparse_jnp", "dense_jnp"])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_solve_without_adagrad_matches_reference(loss, reg, backend):
+    jp, tp = _pair(loss, reg)
+    kw = dict(backend=backend, p=4, epochs=3, eta0=0.5, row_batches=2,
+              use_adagrad=False)
+    _assert_same_run(je.solve(jp, **kw), te.solve(tp, device="cpu", **kw))
+
+
+def test_eval_every_two_matches_reference():
+    jp, tp = _pair("logistic", "l2", seed=4)
+    kw = dict(backend="sparse_jnp", p=4, epochs=5, eta0=0.5, eval_every=2)
+    r_j, r_t = je.solve(jp, **kw), te.solve(tp, device="cpu", **kw)
+    assert [h["epoch"] for h in r_t.history] == [2, 4, 5]
+    _assert_same_run(r_j, r_t)
+
+
+@pytest.mark.parametrize("loss,reg", [("hinge", "l2"), ("logistic", "l1"),
+                                      ("square", "l2")])
+def test_eval_hooks_match_reference(loss, reg):
+    """``make_csr_primal_eval`` (small chunks, so the nnz stream is cut
+    into several with padding) and ``pd_gap_eval_hook`` at the same
+    iterates in both packages."""
+    jp, tp = _pair(loss, reg, seed=6)
+    rng = np.random.default_rng(6)
+    w = rng.normal(0, 0.1, tp.d).astype(np.float32)
+    alpha = np.asarray(tp.y) * rng.uniform(0.05, 0.95, tp.m) \
+        .astype(np.float32)
+    X = tp.X.numpy()
+    kw = dict(loss_name=loss, reg_name=reg, chunk_nnz=97)
+    j_hook = je.make_csr_primal_eval(jformat.CSRMatrix.from_dense(X),
+                                     np.asarray(jp.y), 1e-3, **kw)
+    t_hook = te.make_csr_primal_eval(tformat.CSRMatrix.from_dense(X),
+                                     tp.y.numpy(), 1e-3, **kw, device="cpu")
+    got, want = t_hook(3, torch.from_numpy(w), None), j_hook(3, w, None)
+    assert got.keys() == want.keys() and got["epoch"] == 3
+    np.testing.assert_allclose(got["primal"], want["primal"], **TOL)
+    got = te.pd_gap_eval_hook(tp)(2, torch.from_numpy(w),
+                                  torch.from_numpy(alpha))
+    want = je.pd_gap_eval_hook(jp)(2, w, alpha)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)

@@ -42,9 +42,15 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"driver.py", "ops.py", "dso_sparse.py", "dso_update.py",
-            "build.py", "format.py", "chip_smoke.py"} <= names
-    for src in ("dso_sparse.cu", "dso_update.cu", "dso_common.cuh"):
+            "swa_attention.py", "ssd_scan.py", "build.py", "format.py",
+            "chip_smoke.py"} <= names
+    for src in ("dso_sparse.cu", "dso_update.cu", "dso_common.cuh",
+                "dso_twopass.cu", "swa_attention.cu", "ssd_scan.cu",
+                "float_io.cuh"):
         assert (REPO / "src/repro_torch/csrc" / src).exists()
+    from repro_torch.kernels import build
+    assert {"dso_twopass_primal", "dso_twopass_dual", "swa_attention_fwd",
+            "ssd_scan_fwd"} <= set(build.SIGNATURES)
     assert "repro" != "repro_torch".split(".")[0]
 
 
