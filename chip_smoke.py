@@ -8,7 +8,7 @@ Phases, one line per result:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build: nvcc builds every ``src/repro_torch/csrc/*.cu`` (one nvcc per
    source, started together) into one library in ``build/`` (seconds,
-   ptxas registers / shared memory).
+   ptxas registers / shared memory / spills per kernel).
 3. sparse kernels vs plain versions on the card: the probe, then both
    sparse block-step kernels against their plain PyTorch versions on the
    same inputs for six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5
@@ -16,9 +16,15 @@ Phases, one line per result:
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
-   at row_batches 2 and 3) and a wide one (db 12,375: the column partial
-   no longer fits in shared memory), and through ``ops.dso_tile_step`` at
-   M 999, D 1,155 (contiguous and a row-strided view); bound 1e-5.
+   group at every row_batches; the block permutation puts the four
+   processors' blocks at all four 16-byte misalignments b*289 mod 4), on
+   grids of db 1, 3 and 5, and for row_batches {1, 3} on wider ones
+   (db 1,000: several sweeps; db 12,375: past the shared column
+   partial), and
+   through ``ops.dso_tile_step`` at M 999, D 1,155 (contiguous: a row
+   stride that is not a multiple of 4, the 4-byte path; and a row-strided
+   view at misalignment 1); bound 1e-5; after every block step the pooled
+   accumulator must be zero again (launch B's contract).
 4. main path, block-ELL: ``solve(grid, backend="auto")`` on the
    svm-real-sim configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at
    LIBSVM real-sim's size (m 72,309, d 20,958, ~51 nnz per row), 10
@@ -44,9 +50,14 @@ Phases, one line per result:
    bound 1e-5.
 3l. ``ops.swa_attention`` and ``ops.ssd_scan`` against their plain
    versions in float32 and bf16: the shapes of the reference's kernel
-   tests, a decode offset (Tq 8, Tk 4,096), ``causal=False`` (ragged Tk
-   too), ragged T, Dh 40, 112 and 128, n 128, dh 128, total decay; and
-   shapes past the kernels' limits must raise.  Bounds: float32 as the
+   tests, decode offsets (Tq 8, Tk 4,096), ``causal=False`` (ragged Tq
+   and Tk too), Tq and Tk ragged to the 128-query and 64-key tiles,
+   windows 1, 63, 65, 127 and past T, GQA Hq/Hkv = 4, rows with no key in
+   their window, Dh 36, 40, 64, 112 and 128, n 128, dh 128, total decay;
+   bf16 with Dh a multiple of 8 runs the tensor-core attention kernel,
+   float32 and bf16 Dh 36 the CUDA-core one, and each route's launch
+   count must equal the cases routed to it; shapes past the kernels'
+   limits must raise.  Bounds: float32 as the
    reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
    bf16 one bf16 ulp (2^-7 relative) more, since kernel and plain version
    each round float32 sums that differ in order to bf16.
@@ -60,7 +71,9 @@ Phases, one line per result:
    ``ops`` with the counts set to 0 just before and read just after:
    attention at T 16,384 with a window past T (full causal; beside
    ``F.scaled_dot_product_attention(is_causal=True)``, never called by
-   the port) and at T 73,728 with the 8,192 sliding window; the SSD scan
+   the port) and at T 73,728 with the 8,192 sliding window, both bf16 and
+   counted on the tensor-core kernel, and at T 16,384 in float32 on the
+   CUDA-core kernel (beside SDPA in float32); the SSD scan
    at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
    the order kernel, plain, plain, kernel, 5 calls each).  Then the
    two-pass tile step at svm-ocr's tile (processor 0's active block of
@@ -514,23 +527,33 @@ def phase_dense_kernels(dev):
     from repro_torch.kernels import dso_update, ops
     worst = 0.0
     blk = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=dev)
-    cases = [(999, 1155, 0.7, (1, 2, 3)), (64, 49500, 0.5, (1, 3))]
+    # (m, d, density, row_batches): db 289 (blocks at b*289 mod 4 = 1, 3,
+    # 0, 2 floats past 16 bytes), db 1, 3, 5, db 1,000 (several sweeps, a
+    # shared column partial) and db 12,375 (past it)
+    cases = [(999, 1155, 0.7, (1, 2, 3)), (999, 4, 0.9, (1, 2, 3)),
+             (999, 12, 0.8, (1, 2, 3)), (999, 20, 0.8, (1, 2, 3)),
+             (256, 4000, 0.5, (1, 3)), (64, 49500, 0.5, (1, 3))]
     for m, d, density, rbs in cases:
-        prob = make_classification(m=m, d=d, density=density, seed=m,
+        prob = make_classification(m=m, d=d, density=density, seed=m + d,
                                    device=dev)
         for rb in rbs:
             grid = make_grid_data(prob, P, rb)
+            mis = sorted((grid.Xg.data_ptr() // 4 + b * grid.db) % 4
+                         for b in blk.tolist())
             for loss, reg in LOSS_REG_PAIRS:
                 st = random_state(grid, loss, seed=rb)
                 e, ok = compare_step("dense", grid, st, blk,
                                      scalars(loss, 1e-3, m), rb, loss, reg)
                 worst = max(worst, e)
+                zeroed = all(bool((a == 0).all()) for a in ops._ACC.values())
                 say("3d", f"dense block step {loss}/{reg} row_batches={rb} "
-                          f"mb={grid.mb} db={grid.db} max|d|={e:.3e} "
-                          f"{'ok' if ok else 'FAIL'}")
+                          f"mb={grid.mb} db={grid.db} misalignments={mis} "
+                          f"max|d|={e:.3e} {'ok' if ok else 'FAIL'}")
                 check(ok, f"dense {loss}/{reg} rb={rb} db={grid.db}: "
                           f"kernel disagrees with its plain version "
                           f"(max|d| {e:.3e})")
+                check(zeroed, f"dense {loss}/{reg} rb={rb} db={grid.db}: "
+                              f"launch B left the accumulator nonzero")
     rng = np.random.default_rng(9)
     for name, X, y in tile_cases(dev):
         for loss, reg in LOSS_REG_PAIRS:
@@ -546,7 +569,8 @@ def phase_dense_kernels(dev):
             e = max(x for x, _ in errs)
             worst = max(worst, e)
             say("3d", f"dense tile step {name} {loss}/{reg} M={M} D={D} "
-                      f"max|d|={e:.3e}")
+                      f"row stride {X.stride(0)} misalignment "
+                      f"{X.data_ptr() // 4 % 4} max|d|={e:.3e}")
             check(all(ok for _, ok in errs),
                   f"dense tile step {name} {loss}/{reg}: kernel disagrees "
                   f"with its plain version (max|d| {e:.3e})")
@@ -597,7 +621,18 @@ SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
              (1, 2, 1, 100, 100, 64, 50, False, 0),       # ragged Tk
              (1, 4, 2, 300, 300, 112, 128, True, 0),      # ragged, Dh 112
              (1, 2, 2, 130, 130, 40, 64, True, 0),        # Dh 40: not x16
-             (1, 2, 1, 200, 200, 128, 100, True, 0)]      # Dh at the limit
+             (1, 2, 1, 200, 200, 128, 100, True, 0),      # Dh at the limit
+             # ragged to the 128-query and 64-key tiles, GQA 4, windows
+             # narrower and wider than a kv tile
+             (1, 8, 2, 200, 200, 112, 1, True, 0),
+             (1, 4, 1, 200, 200, 64, 63, True, 0),
+             (1, 4, 1, 200, 200, 112, 65, True, 0),
+             (1, 4, 1, 300, 300, 128, 127, True, 0),
+             (1, 4, 1, 257, 321, 40, 1000, True, 64),     # window past T
+             (2, 8, 2, 8, 4096, 112, 4096, True, 4088),   # decode, Dh 112
+             (1, 4, 1, 130, 190, 112, 50, False, 0),      # ragged Tq != Tk
+             (1, 4, 1, 16, 32, 64, 4, True, 30),          # rows 5.. see no key
+             (1, 2, 1, 77, 77, 36, 20, True, 0)]          # Dh 36: CUDA cores
 # (b, t, h, dh, n, chunk, A fill or None)
 SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
              (2, 256, 3, 32, 16, 64, None),
@@ -644,9 +679,13 @@ def phase_lm_kernels(dev):
     from repro_torch.kernels import swa_attention as swa
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {}
+    want_routes = {"tensor_cores": 0, "cuda_cores": 0}
+    ops.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for B, Hq, Hkv, Tq, Tk, Dh, window, causal, off in SWA_CASES:
+            route = swa.swa_route(dtype, Dh)
+            want_routes[route] += 1
             q = torch.randn(B, Hq, Tq, Dh, generator=gen, device=dev)
             k, v = (torch.randn(B, Hkv, Tk, Dh, generator=gen, device=dev)
                     for _ in range(2))
@@ -657,9 +696,10 @@ def phase_lm_kernels(dev):
             torch.cuda.synchronize()
             e, ok = within(got, want, SWA_TOL, bf16)
             worst["swa", bf16] = max(worst.get(("swa", bf16), 0.0), e)
-            say("3l", f"swa_attention {str(dtype)[6:]} B={B} Hq={Hq} "
-                      f"Hkv={Hkv} Tq={Tq} Tk={Tk} Dh={Dh} window={window} "
-                      f"causal={causal} q_offset={off} max|d|={e:.3e}")
+            say("3l", f"swa_attention {str(dtype)[6:]} ({route}) B={B} "
+                      f"Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} Dh={Dh} "
+                      f"window={window} causal={causal} q_offset={off} "
+                      f"max|d|={e:.3e}")
             check(ok and got.dtype == dtype,
                   f"swa_attention disagrees with its plain version "
                   f"(max|d| {e:.3e})")
@@ -678,6 +718,13 @@ def phase_lm_kernels(dev):
             check(ok and got.dtype == dtype,
                   f"ssd_scan disagrees with its plain version "
                   f"(max|d| {e:.3e})")
+    counts = ops.launch_counts()
+    got_routes = {"tensor_cores": counts["swa_attention_tc"],
+                  "cuda_cores": counts["swa_attention"]}
+    say("3l", f"swa_attention launches by route {got_routes} (cases routed: "
+              f"{want_routes})")
+    check(got_routes == want_routes,
+          f"swa_attention routes {got_routes} != {want_routes}")
     # shapes the kernels do not take raise on the card, with no fallback
     q = torch.zeros(1, 1, 8, 144, device=dev)
     refused = []
@@ -700,8 +747,12 @@ def phase_lm_kernels(dev):
 # 3,584; SSD 112 heads of 64 (expand 2), state 64; sliding window 8,192
 # above full_attn_max 65,536; bf16.  mamba2-370m: 32 SSD heads, state 128.
 ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 112
-SWA_FULL = [("causal, window >= T", 16384, 16384),
-            ("sliding window", 73728, 8192)]
+# (label, T, window, dtype name, launch counter)
+SWA_FULL = [("causal, window >= T", 16384, 16384, "bfloat16",
+             "swa_attention_tc"),
+            ("sliding window", 73728, 8192, "bfloat16", "swa_attention_tc"),
+            ("causal, window >= T, float32", 16384, 16384, "float32",
+             "swa_attention")]
 SSD_FULL = [("zamba2-7b", 16384, 112, 64, 64),
             ("mamba2-370m", 16384, 32, 64, 128)]
 SSD_CHUNK = 128
@@ -761,17 +812,17 @@ def phase_lm_full(dev):
     bf = torch.bfloat16
     rows = {}
     B, H, DH = 1, ZAMBA_HEADS, ZAMBA_HEAD_DIM
-    for label, T, window in SWA_FULL:
-        q, k, v = (torch.randn(B, H, T, DH, generator=gen, device=dev).to(bf)
-                   for _ in range(3))
+    for label, T, window, dname, counter in SWA_FULL:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(B, H, T, DH, generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
         out, n = drive_once(
-            "swa_attention",
-            lambda: ops.swa_attention(q, k, v, window=window))
-        check(out.shape == q.shape and out.dtype == bf
+            counter, lambda: ops.swa_attention(q, k, v, window=window))
+        check(out.shape == q.shape and out.dtype == dtype
               and bool(torch.isfinite(out).all()),
               f"swa_attention {label}: bad output")
         want = swa.swa_attention_plain(q, k, v, window=window)
-        err, ok = within(out, want, SWA_TOL, True)
+        err, ok = within(out, want, SWA_TOL, dtype == bf)
         check(ok, f"swa_attention {label}: max|d| {err:.3e} against the "
                   f"plain version")
         del out, want
@@ -785,12 +836,13 @@ def phase_lm_full(dev):
         if window >= T:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), 5, warm=1)
-        bound, by = swa_bound(B, H, H, T, T, DH, window, 0, 2)
-        rows["swa", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by=by, library_ms=lib_ms,
-                                  max_abs_err=err, launches=n,
-                                  device_ms=busy * 1e3)
-        say(7, f"swa_attention bf16 B={B} H={H} T={T} Dh={DH} "
+        bound, by = swa_bound(B, H, H, T, T, DH, window, 0,
+                              q.element_size())
+        rows[counter, label] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=by,
+                                    library_ms=lib_ms, max_abs_err=err,
+                                    launches=n, device_ms=busy * 1e3)
+        say(7, f"{counter} {dname} B={B} H={H} T={T} Dh={DH} "
                f"window={window} ({label}): {ms:.4f} ms per call (device "
                f"time {busy * 1e3:.4f} ms under the profiler), bound "
                f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
@@ -820,7 +872,7 @@ def phase_lm_full(dev):
         ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
         _, busy, _ = device_split(kern)
         bound, by = ssd_bound(x, nst)
-        rows["ssd", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        rows["ssd_scan", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                   bound_by=by, library_ms=None,
                                   max_abs_err=err, launches=n,
                                   device_ms=busy * 1e3)
@@ -1192,9 +1244,15 @@ def main() -> int:
     lib = build.library()
     say(2, f"built {lib.path} from {[f.name for f in build.sources()]} in "
            f"{lib.build_s:.2f} s")
+    injected = 0
     for line in lib.log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "smem" in line:
+        if "(C7519)" in line:           # ptxas's wgmma register fences
+            injected += 1
+        elif any(w in line for w in ("registers", "Compiling entry", "smem",
+                                     "spill", "warning", "error")):
             say(2, line.strip())
+    say(2, f"ptxas notes C7519 (warpgroup.arrive injected before a wgmma "
+           f"that uses registers) {injected} times")
 
     worst = phase_kernels(dev)
     say(3, f"all block-step cases within {TOL}: worst max|d| {worst:.3e}")
@@ -1252,17 +1310,17 @@ def main() -> int:
         dict(name="dso_tile_step_twopass", route="cuda",
              source="src/repro_torch/csrc/dso_twopass.cu",
              replaces="src/repro/kernels/dso_update.py:440", **t_row)]
-    for kind, name, line, label in (
-            ("swa", "swa_attention", 81, SWA_FULL[0][0]),
-            ("ssd", "ssd_scan", 70, SSD_FULL[0][0])):
-        r = dict(lm[kind, label])
+    for name, label, ref in (
+            ("swa_attention_tc", SWA_FULL[0][0], "swa_attention.py:81"),
+            ("swa_attention", SWA_FULL[2][0], "swa_attention.py:81"),
+            ("ssd_scan", SSD_FULL[0][0], "ssd_scan.py:70")):
+        r = dict(lm[name, label])
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
-                            if k == kind)
+                            if k == name)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{name}.cu",
-                            replaces=f"src/repro/kernels/{name}.py:{line}",
-                            **r))
+                            replaces=f"src/repro/kernels/{ref}", **r))
     print(json.dumps({"kernels": [s_step, b_step, primal, probe_row]
                       + dense_rows + lm_rows}))
     print(smi)

@@ -50,16 +50,27 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// Dual half of the Eq.-8 step for row r (alpha, ga at index r), from its
-// dot product xw with the pre-update w and its pre-update alpha a_old.
+// Dual half of the Eq.-8 step of one row from its operands: its dot
+// product xw with the pre-update w, its pre-update alpha a_old and AdaGrad
+// sum ga_old; gives the new alpha and ga.
+__device__ __forceinline__ void dual_update(int loss, float xw, float a_old,
+                                            float ga_old, float y, float trn,
+                                            float rn, float eta, float m,
+                                            float& a_new, float& ga_new) {
+  float g_a = -dual_grad(loss, a_old, y) * trn / (m * rn) - xw / m;
+  ga_new = ga_old + g_a * g_a;
+  float da = eta * g_a * (1.0f / sqrtf(ga_new + ADA_EPS));
+  a_new = project_alpha(loss, a_old + da, y);
+}
+
+// The same for row r (alpha, ga at index r).
 __device__ __forceinline__ void dual_step(int loss, float xw, float a_old,
                                           float* alpha, float* ga,
                                           long long r, float y, float trn,
                                           float rn, float eta, float m) {
-  float g_a = -dual_grad(loss, a_old, y) * trn / (m * rn) - xw / m;
-  float ga_new = ga[r] + g_a * g_a;
-  float da = eta * g_a * (1.0f / sqrtf(ga_new + ADA_EPS));
-  alpha[r] = project_alpha(loss, a_old + da, y);
+  float a_new, ga_new;
+  dual_update(loss, xw, a_old, ga[r], y, trn, rn, eta, m, a_new, ga_new);
+  alpha[r] = a_new;
   ga[r] = ga_new;
 }
 

@@ -1,0 +1,587 @@
+// Hand-written Hopper (sm_90a) kernel for sliding-window flash attention on
+// the tensor cores: the bf16 route of ops.swa_attention.
+//
+// Replaces, for bf16 q, k, v with a head size that is a multiple of 8, the
+// reference's Pallas TPU kernel
+//   src/repro/kernels/swa_attention.py _swa_kernel (:32), launched by
+//   swa_attention (:81) through its pallas_call (:102).
+// float32 inputs and other head sizes stay on the CUDA-core kernel of
+// swa_attention.cu; kernels/swa_attention.py swa_route names the choice.
+//
+// What it computes is what swa_attention.cu computes: for q (B, Hq, Tq, Dh)
+// and k, v (B, Hkv, Tk, Dh), query row t (position q_offset + t) of head h
+// attends to the keys of kv head h / (Hq / Hkv) (GQA by index, no copy of K
+// or V) at positions kpos with
+//     kpos < Tk,  kpos > qpos - window,  and kpos <= qpos when causal,
+// by the online-softmax recurrence with float32 state: scores masked to
+// -1e30, m' = max(m, rowmax s), p = exp(s - m'), l = l exp(m - m') + rowsum p,
+// acc = acc exp(m - m') + p V, out = acc / max(l, 1e-30) in bf16.  A query
+// with no key in its window gets 0.
+//
+// Design for the card.
+//   * One CTA per (batch x query head, 128 queries): two consumer
+//     warpgroups of 64 query rows each and a producer warpgroup, one
+//     thread of which issues the copies; setmaxnreg moves the producer's
+//     registers to the consumers (40 and 232 a thread).
+//   * Q K^T and P V are wgmma products with bf16 operands and float32
+//     accumulators in registers.  Q K^T is m64n64k16 with both operands in
+//     shared memory (K-major); P V takes P from registers and V from shared
+//     memory (V is Dh-contiguous: the transposed, MN-major B operand), in
+//     chunks of at most 64 output columns, one per 64-column box of V.
+//   * Precision: P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi)
+//     and P V is accumulated as P_hi V + P_lo V, which keeps ~16 bits of
+//     the float32 P of the reference (1.5x the operations of one product
+//     pair).  Products of bf16 values are exact in float32.
+//   * K/V tiles of 64 keys pass through a ring of 3 shared-memory stages,
+//     filled by TMA (one thread of the producer warpgroup) and handed over
+//     by mbarriers: full[s] completes on the copy's bytes, empty[s] when
+//     the 8 consumer warps have finished reading the stage.  A 3-D tensor
+//     map (Dh, T, B*H) reads rows of Dh bf16 as boxes of 64 columns
+//     (128 B, 128-byte swizzle) and zero-fills columns past Dh and rows
+//     past T, so ragged Tq and Tk need no padded copy and Dh pads to a
+//     multiple of 16 for the wgmma depth with zeros.
+//   * Softmax stays in registers on the accumulator fragments: a thread
+//     holds 2 rows x 16 scores of a tile; row maxima need two quad
+//     shuffles, the normaliser stays a per-thread partial until the end.
+//     Scores are kept in the log2 domain (scale * log2 e folded into the
+//     exponent's FMA) and exponentiated by the SFU's ex2.
+//   * The tile skip is loop bounds: the CTA walks only the kv tiles that
+//     meet its queries' windows; a warpgroup none of whose rows meets a
+//     tile only releases it.  Masks are evaluated only on tiles that a
+//     window or causal edge or Tk crosses.  The heaviest query tiles are
+//     scheduled first.
+//   (Tried on the card and left out: issuing tile t's Q K^T with tile
+//   t-1's P V so that the softmax overlaps the latter, and having the two
+//   warpgroups take turns on the tensor cores; both were slower.)
+//
+// Bound: operations.  4 Dh flops per attended (query, key) pair at the bf16
+// tensor-core rate; this kernel issues 6 Dh (the split P) plus the masked
+// corners of the tiles it visits.
+//
+// The entry point has a plain C interface for ctypes and returns
+// cudaGetLastError() (or the error of the tensor maps' creation) after its
+// launch.  cuTensorMapEncodeTiled is a driver function; it is reached
+// through cudaGetDriverEntryPoint, so the library needs no -lcuda.
+
+#include <cuda_bf16.h>
+
+#include "async_copy.cuh"
+
+namespace {
+
+constexpr int WG_ROWS = 64;             // query rows per consumer warpgroup
+constexpr int N_WG = 2;                 // consumer warpgroups per CTA
+constexpr int BQ = N_WG * WG_ROWS;      // query rows per CTA
+constexpr int BK = 64;                  // keys per kv tile
+constexpr int STAGES = 3;               // kv ring depth
+constexpr int BOX_COLS = 64;            // bf16 columns per TMA box (128 B)
+constexpr int BOX_BYTES = 64 * 128;     // one box of 64 rows
+constexpr int NT = (N_WG + 1) * 128;    // + the producer warpgroup
+constexpr int PRODUCER_REGS = 40;       // registers per thread after
+constexpr int CONSUMER_REGS = 232;      // setmaxnreg (<= 64K per SM)
+constexpr int CONSUMER_WARPS = N_WG * 4;
+constexpr float NEG = -1e30f;           // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ------------------------------------------------------------ PTX helpers --
+
+using acp::mbar_arrive;
+using acp::mbar_expect_tx;
+using acp::mbar_init;
+using acp::mbar_wait;
+using acp::smem_u32;
+using acp::tma_load_3d;
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma registers across the
+// fence / wait instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F8(d, i) F4(d, i), F4(d, i + 4)
+#define F16(d, i) F8(d, i), F8(d, i + 8)
+
+// d (64 x 64, float32 fragments) (+)= A (64 x 16, smem) B (16 x 64, smem),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) += A (64 x 16, registers) B (16 x N, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+      "p, 1, 1, 1;\n}\n"
+      : F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F8(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F8
+#undef F4
+
+// One 16-key step of P V into an output chunk of n (16..64) columns.
+__device__ __forceinline__ void pv_chunk(float* d, const uint32_t* a,
+                                         uint64_t db, int n) {
+  switch (n) {
+    case 16: wgmma_rs_n16(d, a, db); break;
+    case 32: wgmma_rs_n32(d, a, db); break;
+    case 48: wgmma_rs_n48(d, a, db); break;
+    default: wgmma_rs_n64(d, a, db); break;
+  }
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split two float32 probabilities (lower column first) into the bf16x2
+// registers of P_hi and P_lo.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// 2^x by the SFU (relative error ~2^-22; -1e30 gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (64 x 64 scores of one warpgroup, float32 fragments) = Q K^T of a
+// tile: Q's 64 rows of this warpgroup at q_w, K's 64 keys at ks, both as
+// boxes of 64 columns (K-major, 128-byte swizzle); issued, not waited for.
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_w, uint32_t ks,
+                                         int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk < ksteps) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(sc, smem_desc(q_w + (kk >> 2) * N_WG * BOX_BYTES + off,
+                                 16, 1024),
+                   smem_desc(ks + (kk >> 2) * BOX_BYTES + off, 16, 1024),
+                   kk > 0);
+    }
+  }
+}
+
+// O += P_hi V + P_lo V of a tile, V's boxes at vs; issued, not waited for.
+// V's depth step kk is rows 16 kk.. of a box (2048 B further); one
+// instruction covers at most one box's 64 columns, so both offsets are the
+// 1024 B between groups of 8 rows.
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t* ph,
+                                         const uint32_t* pl, uint32_t vs,
+                                         int n0, int n1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d0 = smem_desc(vs + kk * 2048, 1024, 1024);
+    pv_chunk(o, ph + 4 * kk, d0, n0);
+    pv_chunk(o, pl + 4 * kk, d0, n0);
+    if (n1 > 0) {
+      const uint64_t d1 = smem_desc(vs + BOX_BYTES + kk * 2048, 1024, 1024);
+      pv_chunk(o + 32, ph + 4 * kk, d1, n1);
+      pv_chunk(o + 32, pl + 4 * kk, d1, n1);
+    }
+  }
+}
+
+// Where a tile's scores are masked: key k0 + col against query qb + row,
+// dk = k0 - qb, keys from col kvalid on past Tk.
+struct TileMask {
+  long long dk, window;
+  int kvalid, causal;
+};
+
+// The online softmax of a tile's scores sc (the Q K^T accumulator, left
+// as it is) for the thread's rows r_lo and r_lo + 8,
+// in the log2 domain (scores times scale_log2; -1e30 where ``mask`` says,
+// when ``masked``): new maxima and partial normalisers, the corrections
+// c0, c1 of the earlier output, and P split into the A fragments of P V
+// (P's accumulator fragment of keys 16 kk.. is the A fragment of the kk-th
+// depth step).
+__device__ __forceinline__ void softmax_tile(const float* sc, bool masked,
+                                             const TileMask& mask, int r_lo,
+                                             int t4, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1,
+                                             uint32_t* ph, uint32_t* pl) {
+  float v[32];                          // scores, scaled when masked
+  const float sl = masked ? 1.0f : scale_log2;
+  if (masked) {                         // a branch, not per score
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int row = r_lo + ((i & 2) ? 8 : 0);
+      const long long d = mask.dk + col - row;  // kpos - qpos
+      const bool ok = col < mask.kvalid && d > -mask.window &&
+                      (!mask.causal || d <= 0);
+      v[i] = ok ? sc[i] * scale_log2 : NEG;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = sc[i];
+  }
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int i = 0; i < 32; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(v[i], v[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(v[i + 2], v[i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * sl), mn1 = fmaxf(m1, mx1 * sl);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float p[32];
+  float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; i += 4) {
+    p[i] = ex2(fmaf(v[i], sl, -mn0));
+    p[i + 1] = ex2(fmaf(v[i + 1], sl, -mn0));
+    p[i + 2] = ex2(fmaf(v[i + 2], sl, -mn1));
+    p[i + 3] = ex2(fmaf(v[i + 3], sl, -mn1));
+    rs0 += p[i] + p[i + 1];
+    rs1 += p[i + 2] + p[i + 3];
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split2(p[8 * kk], p[8 * kk + 1], ph[4 * kk], pl[4 * kk]);
+    split2(p[8 * kk + 2], p[8 * kk + 3], ph[4 * kk + 1], pl[4 * kk + 1]);
+    split2(p[8 * kk + 4], p[8 * kk + 5], ph[4 * kk + 2], pl[4 * kk + 2]);
+    split2(p[8 * kk + 6], p[8 * kk + 7], ph[4 * kk + 3], pl[4 * kk + 3]);
+  }
+}
+
+// ----------------------------------------------------------------- kernel --
+
+// Shared memory, from a 1024-byte-aligned base (the 128-byte swizzle repeats
+// every 1024 bytes): Q (nbox column boxes x 2 warpgroups of 64 rows), then
+// STAGES stages of K (nbox boxes) and V (nbox boxes), then the barriers.
+__global__ void __launch_bounds__(NT, 1)
+swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Tq,
+              int Tk, int Dh, long long window, int causal,
+              long long q_offset, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int nbox = (Dh + BOX_COLS - 1) / BOX_COLS;
+  const uint32_t q_s = base;
+  const uint32_t stage_bytes = 2 * nbox * BOX_BYTES;
+  const uint32_t kv_s = q_s + N_WG * nbox * BOX_BYTES;
+  const uint32_t q_bar = kv_s + STAGES * stage_bytes;
+  const uint32_t full_bar = q_bar + 8;
+  const uint32_t empty_bar = full_bar + 8 * STAGES;
+
+  const int bh = blockIdx.x;            // b * Hq + h
+  const int h = bh % Hq;
+  const int bkv = (bh / Hq) * Hkv + h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int nq = min(BQ, Tq - q0);
+
+  // kv tiles that meet the windows of the CTA's queries
+  const long long qlo = q_offset + q0;
+  const long long qhi = qlo + nq - 1;
+  long long klo = qlo - window + 1;
+  if (klo < 0) klo = 0;
+  long long khi = Tk - 1;
+  if (causal && qhi < khi) khi = qhi;
+  const int k_first = (int)(klo / BK) * BK;
+  const int n_tiles = klo <= khi ? (int)((khi - k_first) / BK) + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    acp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp >= CONSUMER_WARPS) {
+    // ------------------------------------------------------ producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      mbar_expect_tx(q_bar, N_WG * nbox * BOX_BYTES);
+      for (int c = 0; c < nbox; ++c)
+        for (int g = 0; g < N_WG; ++g)
+          tma_load_3d(q_s + (c * N_WG + g) * BOX_BYTES, &tm_q,
+                      c * BOX_COLS, q0 + g * WG_ROWS, bh, q_bar);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty_bar + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full_bar + 8 * s, stage_bytes);
+        const int k0 = k_first + t * BK;
+        const uint32_t ks = kv_s + s * stage_bytes;
+        for (int c = 0; c < nbox; ++c) {
+          tma_load_3d(ks + c * BOX_BYTES, &tm_k, c * BOX_COLS, k0, bkv,
+                      full_bar + 8 * s);
+          tma_load_3d(ks + (nbox + c) * BOX_BYTES, &tm_v, c * BOX_COLS, k0,
+                      bkv, full_bar + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int wg = warp >> 2;             // consumer warpgroup
+  const int g8 = lane >> 2;             // row of the fragment, 0..7
+  const int t4 = lane & 3;              // column pair of the fragment
+  const int r_lo = (warp & 3) * 16 + g8;              // rows r_lo, r_lo + 8
+  const int nq_w = max(0, min(WG_ROWS, Tq - q0 - wg * WG_ROWS));
+  const long long qb = q_offset + q0 + wg * WG_ROWS;  // position of row 0
+  long long klo_w = qb - window + 1;
+  if (klo_w < 0) klo_w = 0;
+  long long khi_w = Tk - 1;
+  if (causal && qb + nq_w - 1 < khi_w) khi_w = qb + nq_w - 1;
+
+  const int ksteps = (Dh + 15) / 16;    // wgmma depth steps of Q K^T
+  const int dpad = ksteps * 16;         // output columns computed
+  const int n0 = min(dpad, 64);         // first output chunk (box 0)
+  const int n1 = dpad - n0;             // second chunk (box 1), maybe 0
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float m0 = NEG, m1 = NEG;             // running max, rows r_lo, r_lo + 8
+  float l0 = 0.0f, l1 = 0.0f;           // this thread's partial normaliser
+
+  mbar_wait(q_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    const int k0 = k_first + t * BK;
+    const uint32_t ks = kv_s + s * stage_bytes;
+    mbar_wait(full_bar + 8 * s, (t / STAGES) & 1);
+    // a tile that meets no window of this warpgroup's rows is only released
+    if (nq_w > 0 && k0 <= khi_w && k0 + BK - 1 >= klo_w) {
+      float sc[32];
+      wgmma_fence();
+      issue_qk(sc, q_s + wg * BOX_BYTES, ks, ksteps);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<32>(sc);
+      // masks only where an edge crosses this warpgroup's part of the
+      // tile; elsewhere the scale is folded into the exponent's FMA
+      const bool inner = k0 + BK - 1 < Tk &&
+                         k0 > qb + WG_ROWS - 1 - window &&
+                         (!causal || k0 + BK - 1 <= qb);
+      const TileMask mask = {(long long)k0 - qb, window, Tk - k0, causal};
+      float c0, c1;
+      uint32_t ph[16], pl[16];
+      softmax_tile(sc, !inner, mask, r_lo, t4, scale_log2, m0, m1, l0, l1,
+                   c0, c1, ph, pl);
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[i] *= c0;
+        o[i + 1] *= c0;
+        o[i + 2] *= c1;
+        o[i + 3] *= c1;
+      }
+      fence_regs<64>(o);
+      fence_regs<16>(ph);
+      fence_regs<16>(pl);
+      wgmma_fence();
+      issue_pv(o, ph, pl, ks + nbox * BOX_BYTES, n0, n1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<64>(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = m0 == NEG ? 0.0f : 1.0f / fmaxf(l0, 1e-30f);
+  const float inv1 = m1 == NEG ? 0.0f : 1.0f / fmaxf(l1, 1e-30f);
+  const int row0 = q0 + wg * WG_ROWS + r_lo;
+  __nv_bfloat16* op = out + (long long)bh * Tq * Dh;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t4;
+    if (col < Dh) {
+      if (row0 < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * Dh + col) =
+            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (row0 + 8 < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)(row0 + 8) * Dh +
+                                           col) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// --------------------------------------------------------------- host side --
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over (rows, T, Dh) bf16 seen as (Dh, T, rows), innermost
+// first: boxes of 64 columns x 64 positions of one row, 128-byte swizzle,
+// zeros outside the tensor.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
+              int T, int Dh) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)T,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)Dh * 2,
+                                 (cuuint64_t)T * Dh * 2};
+  const cuuint32_t box[3] = {BOX_COLS, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous
+// bf16 with 16-byte-aligned data; Dh a multiple of 8 up to 128,
+// Hq % Hkv == 0.
+int swa_attention_tc_fwd(const void* q, const void* k, const void* v,
+                         void* out, int B, int Hq, int Hkv, int Tq, int Tk,
+                         int Dh, long long window, int causal,
+                         long long q_offset, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
+  if (Dh <= 0 || Dh > 128 || Dh % 8 != 0 || Tk <= 0)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(enc, &mq, q, B * Hq, Tq, Dh) ||
+      !make_map(enc, &mk, k, B * Hkv, Tk, Dh) ||
+      !make_map(enc, &mv, v, B * Hkv, Tk, Dh))
+    return (int)cudaErrorInvalidValue;
+  const int nbox = (Dh + BOX_COLS - 1) / BOX_COLS;
+  const size_t smem = 1024 + (size_t)(N_WG + 2 * STAGES) * nbox * BOX_BYTES +
+                      8 * (1 + 2 * STAGES);
+  cudaError_t e = cudaFuncSetAttribute(
+      swa_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hq, (Tq + BQ - 1) / BQ);
+  const float scale_log2 = scale * LOG2E;
+  swa_tc_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, Hq, Hkv, Tq, Tk, Dh, window, causal,
+      q_offset, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -54,6 +54,9 @@ SIGNATURES = {
     # csrc/swa_attention.cu
     "swa_attention_fwd":
         [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _I, _P],
+    # csrc/swa_attention_tc.cu
+    "swa_attention_tc_fwd":
+        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/ssd_scan.cu
     "ssd_scan_fwd":
         [_P] * 6 + [_I] * 7 + [_P],

@@ -21,7 +21,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
                                       as ``dso_tile_step_twopass``)
     dso_primal_update.launches        launch B (shared by all of them)
     sparse_probe.launches             the probe kernel
-    swa_attention.launches            sliding-window attention
+    swa_attention.launches            sliding-window attention, the
+                                      CUDA-core kernel (float32, other Dh)
+    _swa_attention_tc.launches        ... its tensor-core kernel (bf16, Dh
+                                      a multiple of 8; listed as
+                                      ``swa_attention_tc``)
     ssd_scan.launches                 the Mamba2 SSD scan
 
 One block step launches A then B once per row tile, so one inner
@@ -509,10 +513,13 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     ``kernels/swa_attention.py`` for the masking.
 
     The reference's tile sizes (``bq``, ``bk``) and ``interpret`` have no
-    counterpart, and nothing is padded: the kernel masks the ragged ends
-    itself.  So ``causal=False`` with a Tk that 64 does not divide attends
-    to no padded key, unlike the reference's padded call.  On the card the
-    tensors must be contiguous and Dh at most 128.
+    counterpart, and nothing is padded: the kernels mask the ragged ends
+    themselves.  So ``causal=False`` with a Tk that 64 does not divide
+    attends to no padded key, unlike the reference's padded call.  On the
+    card the tensors must be contiguous and Dh at most 128, and
+    ``_swa.swa_route`` picks the kernel: the tensor-core one for bf16 with
+    Dh a multiple of 8 (16-byte-aligned data), the CUDA-core one for the
+    rest; each counts its own launches.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")
@@ -533,24 +540,38 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     if not _route(q, k, v):
         return _swa.swa_attention_plain(q, k, v, window=window,
                                         causal=causal, q_offset=q_offset)
-    if Dh > _swa.MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes Dh <= "
-                         f"{_swa.MAX_HEAD_DIM}, got {Dh}")
-    if -(-Tq // _swa.QUERY_TILE) > 65535:
-        raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
-                         f"query tiles")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on the card")
     out = torch.empty_like(q)
-    _swa.launch_swa_attention(q, k, v, out, window=window,
-                              causal=bool(causal), q_offset=q_offset,
-                              scale=1.0 / Dh ** 0.5)
-    swa_attention.launches += 1
+    route = _swa.swa_route(q.dtype, Dh, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    tile = _swa.TC_QUERY_TILE if route == "tensor_cores" \
+        else _swa.QUERY_TILE
+    if -(-Tq // tile) > 65535:
+        raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
+                         f"query tiles")
+    kw = dict(window=window, causal=bool(causal), q_offset=q_offset,
+              scale=1.0 / Dh ** 0.5)
+    if route == "tensor_cores":
+        _swa_attention_tc(q, k, v, out, **kw)
+    else:
+        _swa.launch_swa_attention(q, k, v, out, **kw)
+        swa_attention.launches += 1
     return out
 
 
 swa_attention.launches = 0
+
+
+def _swa_attention_tc(q, k, v, out, **kw):
+    """The tensor-core route of ``swa_attention`` on tensors it has
+    checked, counted on its own."""
+    _swa.launch_swa_attention_tc(q, k, v, out, **kw)
+    _swa_attention_tc.launches += 1
+
+
+_swa_attention_tc.launches = 0
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
@@ -592,7 +613,8 @@ ssd_scan.launches = 0
 
 _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             dso_bucketed_block_step, dso_block_step, dso_tile_step,
-            _dso_tile_step_twopass, swa_attention, ssd_scan)
+            _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
+            ssd_scan)
 
 
 def reset_launch_counts():
@@ -603,5 +625,6 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     """Each wrapper's launch count by its public name (the two-pass
-    step's under ``dso_tile_step_twopass``)."""
+    step's under ``dso_tile_step_twopass``, the tensor-core attention's
+    under ``swa_attention_tc``)."""
     return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

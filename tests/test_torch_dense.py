@@ -9,7 +9,9 @@ Inputs are made with numpy from a seed and handed to both packages:
   ``dso_tile_step_plain`` (what ``ops.dso_block_step`` /
   ``ops.dso_tile_step`` run on CPU tensors), within 1e-5 of the reference's
   Pallas kernels run in interpret mode, its one-launch path and its
-  ``force_scan`` path, with a trailing row that must pass through;
+  ``force_scan`` path, with a trailing row that must pass through, also
+  at block widths 1, 3 and 5 and on a tile whose row stride is not a
+  multiple of 4 (the dense kernel's head, tail and 4-byte paths);
 - ``solve`` on the three dense backends within 1e-5 of the reference's
   ``solve(backend="dense_jnp")`` for {cyclic, lpt} x six (loss, reg) pairs
   at the reference's own sizes (m 120, d 60; l1's sign flips are
@@ -230,6 +232,70 @@ def test_dso_block_step_plain_matches_reference(loss, reg, row_batches):
                                    j["gw"], j["ga"], j["rn"], j["cn"], sc)),
                 row_batches=1, loss_name=loss, reg_name=reg)
             _check(f"oracle w q={q}", new["w_grid"][b], oracle[0])
+
+
+@pytest.mark.parametrize("kind", ["block", "tile"])
+@pytest.mark.parametrize("db", [1, 3, 5])
+def test_dense_plain_steps_at_narrow_blocks_match_reference(db, kind):
+    """The block widths under a 16-byte slot of the dense kernel (db 1, 3,
+    5): the block step on a p = 4 grid with a padded column and a trailing
+    row at row_batches 3 (mb 10), and the tile step on a view whose row stride
+    (4 db + 1) is not a multiple of 4; plain versions within 1e-5 of the
+    reference's interpret-mode Pallas."""
+    loss, reg = "logistic", "l2"
+    if kind == "block":
+        _, tp = _pair(loss, reg, seed=db, m=39, d=4 * db - 1)
+        grid = te.make_grid_data(tp, P, 3)
+        p, mb = grid.p, grid.mb
+        assert grid.db == db
+        old = _state(p, mb, db, grid.yg.numpy(), loss)
+        new = {k: v.clone() for k, v in old.items()}
+        blk = torch.tensor([3, 2, 0, 1], dtype=torch.int32)
+        scal = _scalars(loss, 39)
+        dso_update.dso_block_step_plain(
+            grid.Xg, blk, grid.yg, new["w_grid"], new["alpha"],
+            new["gw_grid"], new["ga"], grid.tile_row_nnz_g,
+            grid.tile_col_nnz_g, grid.row_nnz_g, grid.col_nnz, scal,
+            row_batches=3, loss_name=loss, reg_name=reg)
+        sc = np.asarray(scal, np.float32)
+        for q in range(p):
+            b = int(blk[q])
+            cols = slice(b * db, (b + 1) * db)
+            want = jops.dso_block_step(
+                grid.Xg[q, :, cols].numpy(), grid.yg[q].numpy(),
+                old["w_grid"][b].numpy(), old["alpha"][q].numpy(),
+                old["gw_grid"][b].numpy(), old["ga"][q].numpy(),
+                grid.tile_row_nnz_g[q, b].numpy(),
+                grid.tile_col_nnz_g[q, :3, cols].numpy(),
+                grid.row_nnz_g[q].numpy(), grid.col_nnz[cols].numpy(), sc,
+                row_batches=3, loss_name=loss, reg_name=reg, interpret=True)
+            for name, g, w in zip("w alpha gw ga".split(),
+                                  (new["w_grid"][b], new["alpha"][q],
+                                   new["gw_grid"][b], new["ga"][q]), want):
+                _check(f"{name} q={q}", g, w)
+        return
+    rng = np.random.default_rng(db)
+    M, ld = 37, 4 * db + 1
+    big = (rng.normal(0, 1, (M, ld))
+           * (rng.random((M, ld)) < 0.7)).astype(np.float32)
+    X = np.ascontiguousarray(big[:, 1:1 + db])
+    y = np.where(rng.random(M) < 0.5, 1.0, -1.0).astype(np.float32)
+    st = _state(1, M, db, y[None], loss)
+    v = {k: t[0].numpy() for k, t in st.items()}
+    rn = np.maximum((big != 0).sum(1), 1).astype(np.float32)
+    cn = np.maximum((X != 0).sum(0) + 1, 1).astype(np.float32)
+    scal = _scalars(loss, M)
+    want = jops.dso_tile_step(X, y, v["w_grid"], v["alpha"], v["gw_grid"],
+                              v["ga"], rn, cn, np.asarray(scal, np.float32),
+                              loss_name=loss, reg_name=reg, interpret=True)
+    T = torch.from_numpy
+    view = T(big)[:, 1:1 + db]
+    assert view.stride(0) % 4 != 0
+    got = ops.dso_tile_step(view, T(y), T(v["w_grid"]), T(v["alpha"]),
+                            T(v["gw_grid"]), T(v["ga"]), T(rn), T(cn), scal,
+                            loss_name=loss, reg_name=reg)
+    for name, g, w in zip("w alpha gw ga".split(), got, want):
+        _check(name, g, w)
 
 
 @pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)

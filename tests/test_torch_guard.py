@@ -45,12 +45,13 @@ def test_guard_sees_the_whole_port():
             "swa_attention.py", "ssd_scan.py", "build.py", "format.py",
             "chip_smoke.py"} <= names
     for src in ("dso_sparse.cu", "dso_update.cu", "dso_common.cuh",
-                "dso_twopass.cu", "swa_attention.cu", "ssd_scan.cu",
-                "float_io.cuh"):
+                "dso_twopass.cu", "swa_attention.cu", "swa_attention_tc.cu",
+                "ssd_scan.cu", "float_io.cuh", "async_copy.cuh"):
         assert (REPO / "src/repro_torch/csrc" / src).exists()
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     assert {"dso_twopass_primal", "dso_twopass_dual", "swa_attention_fwd",
-            "ssd_scan_fwd"} <= set(build.SIGNATURES)
+            "swa_attention_tc_fwd", "ssd_scan_fwd"} <= set(build.SIGNATURES)
+    assert {"swa_attention", "swa_attention_tc"} <= set(ops.launch_counts())
     assert "repro" != "repro_torch".split(".")[0]
 
 

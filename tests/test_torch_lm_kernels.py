@@ -15,7 +15,9 @@ interpret mode, at the tolerances of the reference's own kernel tests
 - ``ssd_scan`` within rtol 2e-4, atol 2e-5 of the reference's
   ``ops.ssd_scan(interpret=True)``;
 - the port's oracles ``swa_attention_ref`` and ``ssd_scan_ref`` within
-  1e-5 of the reference's.
+  1e-5 of the reference's;
+- ``swa_route``, the choice between the two attention kernels on the
+  card, by dtype, head size and alignment, or its refusal.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``,
 phases 3l and 7).
@@ -84,6 +86,77 @@ def test_swa_matches_reference(B, Hq, Hkv, Tq, Tk, Dh, window):
     got = ops.swa_attention(*t, window=window)
     assert got.dtype == torch.float32 and got.shape == t[0].shape
     _close(got, want, SWA_TOL)
+
+
+# The shapes at the edges of the tensor-core kernel's tiling (128 queries
+# per CTA in two warpgroups of 64, kv tiles of 64): Tq and Tk ragged to
+# both, windows narrower and wider than a kv tile, GQA 4, Dh 40 (a wgmma
+# depth padded to 48) to 128, an offset with Tq != Tk; chip_smoke phase 3l
+# holds the kernel to the plain version at the same shapes.
+# (B, Hq, Hkv, Tq, Tk, Dh, window, q_offset)
+TILE_EDGES = [(1, 8, 2, 200, 200, 112, 1, 0),
+              (1, 4, 1, 200, 200, 64, 63, 0),
+              (1, 4, 1, 200, 200, 112, 65, 0),
+              (1, 4, 1, 300, 300, 128, 127, 0),
+              (1, 4, 1, 257, 321, 40, 1000, 64)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,Dh,window,q_offset", TILE_EDGES)
+def test_swa_plain_at_tile_edges_matches_reference(B, Hq, Hkv, Tq, Tk, Dh,
+                                                   window, q_offset):
+    j, t = _both(*_attn_inputs(B, Hq, Hkv, Tq, Tk, Dh, seed=Tq + window))
+    kw = dict(window=window, q_offset=q_offset)
+    want = jops.swa_attention(*j, **kw, interpret=True, bq=64, bk=64)
+    _close(ops.swa_attention(*t, **kw), want, SWA_TOL)
+
+
+def test_swa_plain_decode_and_ragged_noncausal_at_kernel_shapes():
+    """chip_smoke's decode case (Tq 8 at the end of 4,096 keys, Dh 112)
+    against the reference's kernel, and its non-causal case with Tq 130 !=
+    Tk 190 against the reference's oracle (its padded call attends to the
+    zero keys past a ragged Tk)."""
+    j, t = _both(*_attn_inputs(2, 8, 2, 8, 4096, 112, seed=11))
+    kw = dict(window=4096, q_offset=4088)
+    want = jops.swa_attention(*j, **kw, interpret=True, bq=8, bk=512)
+    _close(ops.swa_attention(*t, **kw), want, SWA_TOL)
+    j, t = _both(*_attn_inputs(1, 4, 1, 130, 190, 112, seed=12))
+    kw = dict(window=50, causal=False)
+    _close(ops.swa_attention(*t, **kw), jref.swa_attention_ref(*j, **kw),
+           SWA_TOL)
+
+
+def test_swa_plain_rows_without_keys_next_to_rows_with_keys():
+    """chip_smoke's all-masked rows: positions 30..45 over 32 keys with a
+    window of 4; rows at 35 and later see no key and get 0, the others
+    match the reference's kernel."""
+    j, t = _both(*_attn_inputs(1, 4, 1, 16, 32, 64, seed=13))
+    kw = dict(window=4, q_offset=30)
+    got = ops.swa_attention(*t, **kw)
+    want = jops.swa_attention(*j, **kw, interpret=True, bq=16, bk=32)
+    _close(got[:, :, :5], np.asarray(want)[:, :, :5], SWA_TOL)
+    assert torch.equal(got[:, :, 5:], torch.zeros_like(got[:, :, 5:]))
+
+
+@pytest.mark.parametrize("dtype,head_dim,aligned,route", [
+    (torch.bfloat16, 112, True, "tensor_cores"),
+    (torch.bfloat16, 128, True, "tensor_cores"),
+    (torch.bfloat16, 40, True, "tensor_cores"),
+    (torch.bfloat16, 8, True, "tensor_cores"),
+    (torch.bfloat16, 36, True, "cuda_cores"),      # not a multiple of 8
+    (torch.bfloat16, 112, False, "cuda_cores"),    # no 16-byte tensor map
+    (torch.float32, 112, True, "cuda_cores"),
+    (torch.float32, 1, True, "cuda_cores"),
+    (torch.bfloat16, 136, True, ValueError),       # past both kernels
+    (torch.float32, 0, True, ValueError),
+    (torch.float16, 64, True, TypeError),
+])
+def test_swa_route_picks_the_kernel_or_raises(dtype, head_dim, aligned,
+                                              route):
+    if isinstance(route, str):
+        assert tswa.swa_route(dtype, head_dim, aligned) == route
+    else:
+        with pytest.raises(route):
+            tswa.swa_route(dtype, head_dim, aligned)
 
 
 def test_swa_decode_offset():
