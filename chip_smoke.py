@@ -12,7 +12,11 @@ Phases, one line per result:
 3. sparse kernels vs plain versions on the card: the probe, then both
    sparse block-step kernels against their plain PyTorch versions on the
    same inputs for six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5
-   (rtol and atol; atomics reorder the scatter's sum).
+   (rtol and atol; atomics reorder the scatter's sum), on three grids:
+   power-law columns, the same with column 0 in every row (a hot column),
+   and a wide one (db 62,500: past the shared budget).  The bucketed
+   launch A's route is picked by db and the card's shared-memory limit;
+   each route's launch count must equal the cases routed to it.
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
@@ -36,7 +40,12 @@ Phases, one line per result:
    profiled 2-epoch ``run_epochs`` for the device's busy and idle time.
 5. main path, K-bucketed: the logistic-real-sim configuration (logistic,
    l2, lam 1e-4, alpha0 5e-4) on power-law columns (alpha 1.3); same
-   checks.
+   checks, and every bucketed launch A must take the shared route.
+5n. main path, K-bucketed at news20's size: the logistic-news20
+   configuration (dso_problems.py:29; the same loss and steps) on m
+   19,996 rows and d 1,355,191 columns, 455 power-law draws per row; its
+   db 338,798 is past the shared budget, so every bucketed launch A must
+   take the global route; same checks.
 5d. main path, dense: ``solve(problem, backend="auto")`` on the svm-ocr
    configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at ocr's width
    (d 1,156) with m 1,000,000 rows drawn on the card; ``auto`` must pick
@@ -53,7 +62,9 @@ Phases, one line per result:
    tests, decode offsets (Tq 8, Tk 4,096), ``causal=False`` (ragged Tq
    and Tk too), Tq and Tk ragged to the 128-query and 64-key tiles,
    windows 1, 63, 65, 127 and past T, GQA Hq/Hkv = 4, rows with no key in
-   their window, Dh 36, 40, 64, 112 and 128, n 128, dh 128, total decay;
+   their window, Dh 36, 40, 64, 112 and 128; SSD with n 128, dh 112-256,
+   n = dh = 128, 32 and 64 chunks, b 2 with a ragged t, chunk 100, total
+   decay;
    bf16 with Dh a multiple of 8 runs the tensor-core attention kernel,
    float32 and bf16 Dh 36 the CUDA-core one, and each route's launch
    count must equal the cases routed to it; shapes past the kernels'
@@ -61,11 +72,14 @@ Phases, one line per result:
    reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
    bf16 one bf16 ulp (2^-7 relative) more, since kernel and plain version
    each round float32 sums that differ in order to bf16.
-6. times at the phase-4/5/5d shapes with CUDA events: each kernel's ms per
-   call beside its bound (bytes over 3.35 TB/s, operations over 67
+6. times at the phase-4/5/5n/5d shapes with CUDA events: each kernel's ms
+   per call beside its bound (bytes over 3.35 TB/s, operations over 67
    TFLOP/s float32), its plain version's ms and, for the dense kernel,
    the cuBLAS mat-vecs computing the same two products (``torch.mv``,
-   never called by the port).
+   never called by the port).  Then the bucketed launch A alone at the
+   logistic-real-sim shape, both routes in turn (global, shared, shared,
+   global), on its power-law grid and on a K-bucketed grid of the uniform
+   svm-real-sim CSR.
 7. the LM kernels at zamba2-7b's widths (bf16, 32 heads of 112, SSD 112
    heads of 64 with state 64, chunk 128), each case driven once through
    ``ops`` with the counts set to 0 just before and read just after:
@@ -75,7 +89,9 @@ Phases, one line per result:
    counted on the tensor-core kernel, and at T 16,384 in float32 on the
    CUDA-core kernel (beside SDPA in float32); the SSD scan
    at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
-   the order kernel, plain, plain, kernel, 5 calls each).  Then the
+   the order kernel, plain, plain, kernel, 5 calls each; the device time
+   of each of its three launches, and the chunked form's operations
+   beside the exact recurrence's bound).  Then the
    two-pass tile step at svm-ocr's tile (processor 0's active block of
    phase 5d, 250,000 x 289) beside the fused step.  Each: ms per call
    (CUDA events), bound, plain ms, max|d| against the plain version.
@@ -105,6 +121,7 @@ P = 4
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
 REALSIM_M, REALSIM_D, REALSIM_K = 72309, 20958, 51
+NEWS20_M, NEWS20_D, NEWS20_K = 19996, 1355191, 455   # LIBSVM news20.binary
 OCR_M, OCR_D = 1_000_000, 1156   # ocr's published width; rows cut
 EPOCHS, EVAL_EVERY = 10, 2
 EPOCH_REPS = 5             # timed repeats of run_epochs(EPOCHS) per backend
@@ -154,23 +171,29 @@ def cuda_ms(fn, n, warm=3):
     return start.elapsed_time(end) / n
 
 
-def device_split(fn):
+def device_split(fn, tries=3):
     """Wall seconds of ``fn()`` (synchronised) and the device time of every
     kernel it ran, from a ``torch.profiler`` trace: (wall_s, busy_s,
-    [(kernel, us), ...] largest first)."""
+    [(kernel, us), ...] largest first).  A trace that holds no device
+    event at all (the profiler drops one now and then) is taken again, up
+    to ``tries`` times, and said so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = [(e.key, e.self_device_time_total)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels = [(e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+        say("prof", f"trace {attempt} of {tries} holds no device event")
     kernels.sort(key=lambda kv: -kv[1])
     return wall, sum(us for _, us in kernels) / 1e6, kernels
 
@@ -345,65 +368,106 @@ def compare_step(kind, grid, st, blk, scal, rb, loss, reg):
 # ---------------------------------------------------------------- phases --
 
 
+def phase3_csr(m, d, alpha, hot, seed):
+    """A CSR of ``m`` rows over ``d`` columns for phase 3: 2-59 power-law
+    (``alpha``) columns per row, so its tiles fall in several K buckets;
+    ``hot``: column 0 in every row besides."""
+    import numpy as np
+    from repro_torch.sparse import CSRMatrix
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, d + 1, dtype=np.float64) ** -alpha
+    pop /= pop.sum()
+    rows = [np.sort(rng.choice(d, size=k, replace=False, p=pop))
+            for k in rng.integers(2, 60, m)]
+    if hot:
+        rows = [np.union1d(r, [0]) for r in rows]
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=indptr[1:])
+    csr = CSRMatrix(indptr, np.concatenate(rows).astype(np.int32),
+                    rng.normal(0, 1, indptr[-1]).astype(np.float32), (m, d))
+    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    return csr, y
+
+
+# phase 3's CSRs: (name, m, d, alpha, hot column, seed, bucketed route
+# expected)
+PHASE3_CSRS = [("power-law", 1000, 512, 1.3, False, 5, "shared"),
+               ("hot column", 1000, 512, 1.3, True, 7, "shared"),
+               # db 62,500 at p 4: 250,000 B of sums, past the shared
+               # budget; alpha 0.9 spreads its tiles over 4 K buckets
+               ("wide", 400, 250000, 0.9, False, 9, "global")]
+
+
 def phase_kernels(dev):
     """Phase 3: probe, then both block steps against their plain versions
-    at small shapes with trailing rows (mb = 250, 250 % 3 = 1)."""
-    import numpy as np
+    at small shapes with trailing rows (mb = 250, 250 % 3 = 1) on the
+    grids of ``PHASE3_CSRS``; the bucketed launches must take the route
+    each grid expects, as often as the cases there ask for."""
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.sparse import (CSRMatrix, bucketed_grid_from_csr,
-                                    sparse_grid_from_csr)
+    from repro_torch.kernels import dso_sparse, ops
+    from repro_torch.sparse import bucketed_grid_from_csr, sparse_grid_from_csr
     err = ops.sparse_kernel_error(dev)
     check(err is None, f"probe failed: {err}")
     say(3, "probe: gather + atomicAdd scatter matches its plain version")
-    rng = np.random.default_rng(5)
-    m, d = 1000, 512
-    pop = np.arange(1, d + 1, dtype=np.float64) ** -1.3
-    pop /= pop.sum()
-    ks = rng.integers(2, 60, m)
-    cols = np.concatenate([np.sort(rng.choice(d, size=k, replace=False,
-                                              p=pop)) for k in ks])
-    indptr = np.zeros(m + 1, np.int64)
-    np.cumsum(ks, out=indptr[1:])
-    csr = CSRMatrix(indptr, cols.astype(np.int32),
-                    rng.normal(0, 1, indptr[-1]).astype(np.float32), (m, d))
-    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    limit = ops.shared_memory_limit(dev)
     blk = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=dev)
     worst = 0.0
-    for rb in (1, 3):
-        grids = {"sparse": sparse_grid_from_csr(csr, y, P, rb, device=dev),
-                 "bucketed": bucketed_grid_from_csr(csr, y, P, rb,
-                                                    device=dev)}
-        check(len(grids["bucketed"].bucket_ks) >= 3,
-              f"bucketed case has {grids['bucketed'].bucket_ks}")
-        for loss, reg in LOSS_REG_PAIRS:
-            for kind, grid in grids.items():
-                st = random_state(grid, loss, seed=rb)
-                e, ok = compare_step(kind, grid, st, blk,
-                                     scalars(loss, 1e-3, m), rb, loss, reg)
-                worst = max(worst, e)
-                say(3, f"{kind:8s} {loss}/{reg} row_batches={rb} "
-                       f"mb={grid.mb} "
-                       f"buckets={getattr(grid, 'bucket_ks', '-')} "
-                       f"max|d|={e:.3e} {'ok' if ok else 'FAIL'}")
-                check(ok, f"{kind} {loss}/{reg} rb={rb}: kernel disagrees "
-                          f"with its plain version (max|d| {e:.3e})")
+    want = {r: 0 for r in dso_sparse.BUCKETED_ROUTES}
+    ops.reset_launch_counts()
+    for name, m, d, alpha, hot, seed, route in PHASE3_CSRS:
+        csr, y = phase3_csr(m, d, alpha, hot, seed)
+        for rb in (1, 3):
+            grids = {"sparse": sparse_grid_from_csr(csr, y, P, rb,
+                                                    device=dev),
+                     "bucketed": bucketed_grid_from_csr(csr, y, P, rb,
+                                                        device=dev)}
+            bgrid = grids["bucketed"]
+            got = dso_sparse.bucketed_route(bgrid.db, limit)
+            check(got == route, f"{name}: db {bgrid.db} routes {got} on a "
+                                f"{limit} B limit, expected {route}")
+            check(len(bgrid.bucket_ks) >= 3,
+                  f"{name}: bucketed case has {bgrid.bucket_ks}")
+            for loss, reg in LOSS_REG_PAIRS:
+                for kind, grid in grids.items():
+                    st = random_state(grid, loss, seed=rb)
+                    e, ok = compare_step(kind, grid, st, blk,
+                                         scalars(loss, 1e-3, m), rb, loss,
+                                         reg)
+                    worst = max(worst, e)
+                    if kind == "bucketed":
+                        want[route] += rb
+                    via = f"route={route} " if kind == "bucketed" else ""
+                    say(3, f"{name} {kind:8s} {loss}/{reg} row_batches={rb} "
+                           f"mb={grid.mb} db={grid.db} "
+                           f"buckets={getattr(grid, 'bucket_ks', '-')} "
+                           f"{via}max|d|={e:.3e} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{name} {kind} {loss}/{reg} rb={rb}: kernel "
+                              f"disagrees with its plain version (max|d| "
+                              f"{e:.3e})")
+    counts = ops.launch_counts()
+    got = {"shared": counts["dso_bucketed_block_step_shared"],
+           "global": counts["dso_bucketed_block_step"]}
+    say(3, f"bucketed launch A by route {got} (cases routed: {want}; "
+           f"shared-memory limit {limit} B)")
+    check(got == want, f"bucketed routes {got} != {want}")
     return worst
 
 
-def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
-    """Phases 4/5: the main path at real-sim size through ``solve``."""
+def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
+               seed, shape=(REALSIM_M, REALSIM_D, REALSIM_K), route=None):
+    """Phases 4/5/5n: the main path through ``solve`` on a CSR of
+    ``shape`` (rows, columns, draws per row) drawn from ``seed``;
+    ``route``: the route every bucketed launch A must take."""
     import numpy as np
     import torch
     from repro_torch.engine import (make_csr_primal_eval, resolve_backend,
                                     resolve_backend_for_layout, solve)
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import dso_sparse, ops
     from repro_torch.sparse import (bucketed_grid_from_csr, csr_k_per_tile,
                                     grid_nbytes, sparse_grid_from_csr,
                                     tile_k_skew)
     t0 = time.perf_counter()
-    csr, y = realsim_csr(REALSIM_M, REALSIM_D, REALSIM_K, powerlaw,
-                         seed=phase)
+    csr, y = realsim_csr(*shape, powerlaw, seed=seed)
     skew = tile_k_skew(csr_k_per_tile(csr, P))
     be = resolve_backend("auto", csr.density, k_skew=skew,
                          device_type=dev.type)
@@ -436,12 +500,17 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_step = EPOCHS * P * 1          # epochs x inner iterations x row tiles
+    counter = "dso_sparse_block_step"
+    if be.layout == "bucketed":
+        got = dso_sparse.bucketed_route(grid.db, ops.shared_memory_limit(dev))
+        check(got == route, f"db {grid.db} routes {got}, expected {route}")
+        counter = {"shared": "dso_bucketed_block_step_shared",
+                   "global": "dso_bucketed_block_step"}[route]
     want = dict({k: 0 for k in counts}, sparse_probe=1,
-                dso_primal_update=n_step,
-                dso_sparse_block_step=n_step if be.layout == "sparse" else 0,
-                dso_bucketed_block_step=n_step
-                if be.layout == "bucketed" else 0)
-    say(phase, f"launch counts {counts} (design: {want})")
+                dso_primal_update=n_step, **{counter: n_step})
+    say(phase, f"launch counts {counts} (design: {want}"
+               + (f"; every bucketed launch A on the {route} route)"
+                  if route else ")"))
     check(counts == want, f"launch counts {counts} != design {want}")
     primal = [h["primal"] for h in res.history]
     say(phase, "primal per eval " + " ".join(
@@ -479,7 +548,7 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect):
                f"{1 - busy / wall:.3f}; top kernels (us): "
                + ", ".join(f"{k[:48]}={us:.1f}" for k, us in kernels[:6]))
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
-                lam=lam, m=csr.m, state=res.state)
+                lam=lam, m=csr.m, state=res.state, counter=counter)
 
 
 def tile_cases(dev):
@@ -641,7 +710,15 @@ SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
              (1, 1000, 4, 64, 64, 128, None),     # ragged t, zamba2 n, dh
              (1, 300, 2, 64, 128, 128, None),     # mamba2-370m's n = 128
              (1, 260, 2, 128, 64, 128, None),     # dh 128
-             (1, 128, 1, 16, 8, 64, -1e4)]        # total decay
+             (1, 128, 1, 16, 8, 64, -1e4),        # total decay
+             (1, 4096, 2, 64, 64, 64, None),      # 64 chunks
+             (2, 4000, 3, 64, 64, 128, None),     # b 2, ragged t, 32 chunks
+             (2, 2100, 2, 112, 48, 64, None),     # b 2, ragged, dh 112
+             (1, 256, 2, 128, 128, 128, None),    # n = dh = 128
+             (1, 250, 2, 48, 24, 100, None),      # chunk 100: a part tile
+             (2, 130, 2, 160, 16, 64, None),      # dh 160 (3 tiles)
+             (1, 70, 1, 256, 8, 64, None),        # dh 256, the widest
+             (1, 200, 2, 64, 64, 128, -1e4)]      # total decay, 2 chunks
 SWA_TOL = (2e-5, 2e-5)       # (rtol, atol) of the reference's swa tests
 SSD_TOL = (2e-4, 2e-5)       # ... and of its ssd tests
 
@@ -732,13 +809,18 @@ def phase_lm_kernels(dev):
         ops.swa_attention(q, q, q, window=4)
     except ValueError as e:
         refused.append(str(e))
-    x, dt, A, Bm, Cm = ssd_inputs(1, 8, 1, 128, 128, gen, torch.float32)
-    try:            # 280,576 B of shared memory: the launch refuses it
+    x, dt, A, Bm, Cm = ssd_inputs(1, 8, 1, 64, 512, gen, torch.float32)
+    try:            # n 512: 314,368 B of shared memory, the launch refuses
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
     except RuntimeError as e:
         refused.append(str(e))
+    x, dt, A, Bm, Cm = ssd_inputs(1, 8, 1, 264, 8, gen, torch.float32)
+    try:            # dh past the kernels' four tiles of 64
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
+    except ValueError as e:
+        refused.append(str(e))
     say("3l", f"refused on the card: {refused}")
-    check(len(refused) == 2, "a shape the kernels do not take was not "
+    check(len(refused) == 3, "a shape the kernels do not take was not "
                              "refused")
     return worst
 
@@ -784,6 +866,16 @@ def ssd_bound(x, n):
     ops_s = 5 * n * dh * b * t * h / F32_OPS_S
     by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
     return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
+
+
+def ssd_chunked_flops(x, n, chunk):
+    """float32 operations of the chunked form the kernels compute (a note
+    beside the bound, not a bound): per (batch, head, chunk) of L steps,
+    the chunk state (n dh L multiply-adds), the causal C B^T and M x
+    (L^2 (n + dh) / 2) and the carried-state term (L n dh)."""
+    b, t, h, dh = x.shape
+    macs = 2 * chunk * n * dh + chunk * chunk * (n + dh) / 2
+    return 2 * macs * b * h * -(-t // chunk)
 
 
 def drive_once(name, fn):
@@ -870,16 +962,21 @@ def phase_lm_full(dev):
         ms_a, plain_a = cuda_ms(kern, 5, warm=1), cuda_ms(plain, 5, warm=1)
         plain_b, ms_b = cuda_ms(plain, 5, warm=1), cuda_ms(kern, 5, warm=1)
         ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-        _, busy, _ = device_split(kern)
+        _, busy, kern_us = device_split(kern)
         bound, by = ssd_bound(x, nst)
-        rows["ssd_scan", label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by=by, library_ms=None,
-                                  max_abs_err=err, launches=n,
-                                  device_ms=busy * 1e3)
+        chunked = ssd_chunked_flops(x, nst, SSD_CHUNK)
+        rows["ssd_scan", label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None, max_abs_err=err, launches=n,
+            device_ms=busy * 1e3)
         say(7, f"ssd_scan bf16 x ({label}) b=1 t={t} h={h} dh={dh} n={nst} "
                f"chunk={SSD_CHUNK}: {ms:.4f} ms per call ({ms_a:.4f}, "
                f"{ms_b:.4f}; device time {busy * 1e3:.4f} ms under the "
-               f"profiler), bound {bound:.4f} ms ({by}), plain "
+               f"profiler: "
+               + ", ".join(f"{k[:40]}={us / 1e3:.4f}" for k, us in kern_us)
+               + f"), bound {bound:.4f} ms ({by}; the chunked form's "
+               f"{chunked / 1e9:.2f} GFLOP would take "
+               f"{chunked / F32_OPS_S * 1e3:.4f} ms), plain "
                f"{plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f}), no "
                f"single PyTorch call computes it, max|d| {err:.3e}")
         del x, dt, A, Bm, Cm
@@ -1160,8 +1257,7 @@ def phase_times(ctx):
     nbytes = slots * 8 + 28 * p * mb + 24 * p * db
     ops_n = 4 * slots + 20 * p * mb + 12 * p * db
     bound = max(nbytes / HBM_BYTES_S, ops_n / F32_OPS_S) * 1e3
-    name = {"sparse": "dso_sparse_block_step",
-            "bucketed": "dso_bucketed_block_step"}[layout]
+    name = ctx["counter"]
     step = dict(name=name, route="cuda",
                 source="src/repro_torch/csrc/dso_sparse.cu",
                 replaces={"sparse": "src/repro/kernels/dso_sparse.py:116",
@@ -1204,6 +1300,52 @@ def phase_times(ctx):
     primal = dict(ms=p_ms, plain_ms=p_plain, bound_ms=p_bound,
                   max_abs_err=p_err)
     return step, primal
+
+
+def bucketed_launch_a_times(ctx, routes):
+    """Phase 6, row 2's launch A alone at the logistic-real-sim shape
+    (p 4, mb 18,078, db 5,240, blocks [1, 2, 3, 0]), each route in
+    ``routes`` on two grids: the power-law grid of phase 5 and a K-bucketed
+    grid of phase 4's uniform svm-real-sim CSR.  Per (grid, route): ms per
+    launch by CUDA events over 200 back-to-back launches and the device ms
+    per launch under the profiler over 50, beside the bytes bound of its
+    live slots.  Launch A is called directly (no launch B, so the
+    accumulator keeps growing, which changes no work), and these launches
+    are not counted."""
+    import torch
+    from repro_torch.kernels import dso_sparse
+    from repro_torch.sparse import bucketed_grid_from_csr
+    dev = ctx["grid"].yg.device
+    csr, y = realsim_csr(REALSIM_M, REALSIM_D, REALSIM_K, None, seed=4)
+    grids = {"power-law": ctx["grid"],
+             "uniform": bucketed_grid_from_csr(csr, y, P, 1, device=dev)}
+    blk = torch.tensor([1, 2, 3, 0], dtype=torch.int32, device=dev)
+    eta, _, m, _, _ = scalars("logistic", ctx["lam"], ctx["m"])
+    out = {}
+    for gname, grid in grids.items():
+        st = random_state(grid, "logistic", seed=6)
+        acc = torch.zeros_like(st["w_grid"])
+        slots = packed_bytes(dict(grid=grid, layout="bucketed"), blk) // 8
+        nbytes = slots * 8 + 28 * grid.p * grid.mb
+        for route in routes:
+            def launch():
+                dso_sparse.launch_bucketed_dual_scatter(
+                    grid.cols_fl, grid.vals_fl, grid.chunk_lut,
+                    grid.chunk_cnt, blk, grid.yg, st["w_grid"], st["alpha"],
+                    st["ga"], grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0,
+                    grid.mb, eta, m, "logistic", route=route)
+            ms = cuda_ms(launch, 200)
+            n_prof = 50
+            _, busy, _ = device_split(lambda: [launch()
+                                               for _ in range(n_prof)])
+            dev_ms = busy / n_prof * 1e3
+            out[gname, route] = dict(ms=ms, device_ms=dev_ms, slots=slots)
+            say(6, f"bucketed launch A alone, {gname} grid "
+                   f"(buckets {grid.bucket_ks}, {slots} live slots), route "
+                   f"{route}: {ms:.4f} ms per launch (events), device "
+                   f"{dev_ms:.4f} ms per launch under the profiler; bytes "
+                   f"bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms")
+    return out
 
 
 def probe_times(dev):
@@ -1267,13 +1409,19 @@ def main() -> int:
                           for (k, bf), e in worst_l.items()))
 
     uni = phase_main(4, dev, loss="hinge", lam=1e-4, alpha0=0.0,
-                     powerlaw=None, expect="sparse_pallas")
+                     powerlaw=None, expect="sparse_pallas", seed=4)
     buck = phase_main(5, dev, loss="logistic", lam=1e-4, alpha0=0.0005,
-                      powerlaw=1.3, expect="sparse_bucketed_pallas")
+                      powerlaw=1.3, expect="sparse_bucketed_pallas", seed=5,
+                      route="shared")
+    news = phase_main("5n", dev, loss="logistic", lam=1e-4, alpha0=0.0005,
+                      powerlaw=1.3, expect="sparse_bucketed_pallas", seed=6,
+                      shape=(NEWS20_M, NEWS20_D, NEWS20_K), route="global")
     dense = phase_dense_main(dev)
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
+    n_step, _ = phase_times(news)
+    bucketed_launch_a_times(buck, ("global", "shared", "shared", "global"))
     d_rows = phase_dense_times(dense)
     t_row = phase_twopass_times(dense)
     lm = phase_lm_full(dev)
@@ -1282,7 +1430,7 @@ def main() -> int:
                   source="src/repro_torch/csrc/dso_sparse.cu",
                   replaces="src/repro/kernels/dso_sparse.py:116",
                   launches=sum(ctx["counts"]["dso_primal_update"]
-                               for ctx in (uni, buck, dense)),
+                               for ctx in (uni, buck, news, dense)),
                   max_abs_err=max(s_primal["max_abs_err"],
                                   b_primal["max_abs_err"]),
                   ms=s_primal["ms"], plain_ms=s_primal["plain_ms"],
@@ -1292,8 +1440,8 @@ def main() -> int:
     probe_row = dict(name="sparse_probe", route="cuda",
                      source="src/repro_torch/csrc/dso_sparse.cu",
                      replaces="src/repro/kernels/ops.py:223",
-                     launches=uni["counts"]["sparse_probe"]
-                     + buck["counts"]["sparse_probe"],
+                     launches=sum(ctx["counts"]["sparse_probe"]
+                                  for ctx in (uni, buck, news)),
                      bound_by="bytes", library_ms=None, **probe)
     dense_rows = []
     for key, name, line in (("block", "dso_block_step", 354),
@@ -1321,7 +1469,7 @@ def main() -> int:
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{name}.cu",
                             replaces=f"src/repro/kernels/{ref}", **r))
-    print(json.dumps({"kernels": [s_step, b_step, primal, probe_row]
+    print(json.dumps({"kernels": [s_step, b_step, n_step, primal, probe_row]
                       + dense_rows + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -78,4 +78,40 @@ inline unsigned blocks_for(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
 }
 
+// The card's SM count, read once.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// CTAs of Kernel per SM at `threads` threads and `smem` bytes of dynamic
+// shared memory, worked out when the size changes (a grid keeps one size
+// from step to step), together with the attribute that lets the kernel
+// take that much.  On an error the error state is cleared for the next
+// launch and the error returned.
+template <auto Kernel>
+cudaError_t ctas_per_sm(int threads, size_t smem, int* per_sm) {
+  static size_t last = 0;
+  static int n = 0;
+  if (smem != last) {
+    cudaError_t e = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, threads,
+                                                        smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+    last = smem;
+  }
+  *per_sm = n;
+  return cudaSuccess;
+}
+
 }  // namespace dso

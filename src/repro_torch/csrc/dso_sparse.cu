@@ -26,6 +26,25 @@
 // is what news20-like widths (db ~ 339k at p = 4) need; w, gw and acc would
 // not fit in 227 KB of shared memory there.
 //
+// The K-bucketed launch A has two routes (kernels/dso_sparse.py
+// bucketed_route picks by db and the card's shared-memory limit).  On
+// power-law data a few columns lie in almost every row, so one global
+// atomicAdd per nonzero (the "global" route, bucketed_dual_scatter_kernel)
+// sends ~mb atomics to each hot address of acc, which serialize in L2.
+// The "shared" route (bucketed_dual_scatter_shared_kernel) gives each CTA
+// one processor and a contiguous range of its rows: it sums X^T alpha_old
+// in a db-wide float32 accumulator in shared memory, so the hot columns
+// meet in shared atomics contended only inside one SM, and then adds each
+// nonzero entry to acc[q] with one global atomic: at most one per (CTA,
+// column).  Each row is a chain of dependent loads (lut, slots, w) and a
+// dual step, so the launch is bound by latency more than by bytes: a group
+// of 8, 16 or 32 lanes (the fewest that cover the tile's live slots) takes
+// one row, so a warp walks several short rows at once, and the grid, sized
+// from the SM count, is split among the processors by the chains their
+// rows cost (the processor holding the popular block has 5 live chunks per
+// row at logistic-real-sim, the others 1).  The lut walk, the gather of
+// the pre-update w and the dual step's arithmetic are the global route's.
+//
 // Bound: bytes.  A tile step reads the packed tile once (8 B per slot) and
 // a few float vectors; it does ~4 flops per slot, far below the card's
 // float32 rate.  The gather of w and the atomics land in L2 (a w block is
@@ -125,6 +144,112 @@ __global__ void bucketed_dual_scatter_kernel(
               trn_g[((long long)q * p + b) * mb + i], rn_g[r], eta, m);
 }
 
+constexpr int SH_WARPS = 16;             // warps per CTA, shared route
+constexpr int KC = 8;                    // slots per chunk of the flat view
+
+// Lanes per row of the shared route for a tile of n_live live chunks: the
+// fewest of 8, 16 or 32 that cover its slots, so a warp walks 32 / G rows
+// at once where rows are short.
+__device__ __forceinline__ int shared_group(int n_live) {
+  const int slots = n_live * KC;
+  return slots <= 8 ? 8 : (slots <= 16 ? 16 : 32);
+}
+
+// A processor's share of the shared route's grid: each row is a chain of
+// dependent loads (lut, slots, w) then a reduction and the dual step, so a
+// row costs about (its passes over the slots + 1) chains, and a warp runs
+// 32 / G rows side by side.  Weight = (passes + 1) * G.
+__device__ __forceinline__ long long shared_weight(int n_live) {
+  const int g = shared_group(n_live);
+  return (long long)((n_live * KC + g - 1) / g + 1) * g;
+}
+
+// The shared route of the bucketed launch A.  CTA x of the grid works for
+// processor q on rows [lo, hi) of row tile [r0, r0 + rb): every CTA derives
+// the same split from blk_ids and cnt_g.  Processor q takes 1 + (G - p) *
+// w_q / W of the G CTAs (w_q = shared_weight, W their sum); the host makes
+// G >= p.  A group of shared_group(n_live) lanes takes one row: the same
+// lut walk, gather and dual step as the global route, with the row's dual
+// operands loaded before its slots.  acc_s is the CTA's db-wide
+// accumulator (dynamic shared memory, 4 * db bytes).
+__global__ void __launch_bounds__(32 * SH_WARPS)
+bucketed_dual_scatter_shared_kernel(
+    const int* __restrict__ cols_fl, const float* __restrict__ vals_fl,
+    const int* __restrict__ lut, const int* __restrict__ cnt_g,
+    const int* __restrict__ blk_ids, const float* __restrict__ yg,
+    const float* __restrict__ w_grid, float* __restrict__ alpha,
+    float* __restrict__ ga, const float* __restrict__ trn_g,
+    const float* __restrict__ rn_g, float* __restrict__ acc, int p, int mb,
+    int n_chunks, int n_kc, int db, int r0, int rb, float eta, float m,
+    int loss) {
+  extern __shared__ float acc_s[];
+  long long wsum = 0;
+  for (int q = 0; q < p; ++q)
+    wsum += shared_weight(cnt_g[q * p + blk_ids[q]]);
+  const long long spare = (long long)gridDim.x - p;
+  int q = 0, first = 0, n_q = 0;
+  for (; q < p; ++q) {
+    n_q = 1 + (int)(spare * shared_weight(cnt_g[q * p + blk_ids[q]]) / wsum);
+    if ((int)blockIdx.x < first + n_q) break;
+    first += n_q;
+  }
+  if (q == p) return;                  // past the split: the whole CTA
+  const int j = blockIdx.x - first;
+  const int lo = r0 + (int)((long long)rb * j / n_q);
+  const int hi = r0 + (int)((long long)rb * (j + 1) / n_q);
+
+  for (int c = threadIdx.x; c < db; c += blockDim.x) acc_s[c] = 0.0f;
+  __syncthreads();
+  const int b = blk_ids[q];
+  const long long tile = (long long)q * p + b;
+  const int* lq = lut + tile * n_kc;
+  const int n_live = cnt_g[q * p + b];
+  const float* w = w_grid + (long long)b * db;
+  const int g = shared_group(n_live);
+  const int per_warp = 32 / g;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % g;             // lane within the row's group
+  for (int i0 = lo + (int)threadIdx.x / 32 * per_warp; i0 < hi;
+       i0 += SH_WARPS * per_warp) {
+    const int i = i0 + lane / g;
+    const bool live = i < hi;
+    const long long r = (long long)q * mb + i;
+    float s = 0.0f, a_old = 0.0f;
+    float y = 0.0f, trn = 0.0f, rn = 0.0f, ga_old = 0.0f;
+    if (live) {
+      a_old = alpha[r];
+      if (gl == 0) {
+        y = yg[r];
+        trn = trn_g[tile * mb + i];
+        rn = rn_g[r];
+        ga_old = ga[r];
+      }
+      for (int t = gl; t < n_live * KC; t += g) {
+        long long off = (((long long)q * n_chunks + lq[t / KC]) * mb + i) *
+                        KC + (t % KC);
+        float vk = vals_fl[off];
+        int ck = cols_fl[off];
+        s += vk * w[ck];
+        if (vk != 0.0f) atomicAdd(acc_s + ck, vk * a_old);
+      }
+    }
+    for (int off = g / 2; off > 0; off >>= 1)   // every lane takes part
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (live && gl == 0) {
+      float a_new, ga_new;
+      dual_update(loss, s, a_old, ga_old, y, trn, rn, eta, m, a_new, ga_new);
+      alpha[r] = a_new;
+      ga[r] = ga_new;
+    }
+  }
+  __syncthreads();
+  float* acc_q = acc + (long long)q * db;
+  for (int c = threadIdx.x; c < db; c += blockDim.x) {
+    const float v = acc_s[c];
+    if (v != 0.0f) atomicAdd(acc_q + c, v);
+  }
+}
+
 // Launch B: primal half of row tile s for every processor, one thread per
 // column of the active block; consumes and zeroes acc.
 __global__ void primal_update_kernel(
@@ -197,6 +322,34 @@ int dso_bucketed_dual_scatter(const int* cols_fl, const float* vals_fl,
                                    (cudaStream_t)stream>>>(
         cols_fl, vals_fl, lut, cnt_g, blk_ids, yg, w_grid, alpha, ga, trn_g,
         rn_g, acc, p, mb, n_chunks, n_kc, db, r0, rb, eta, m, loss);
+  return (int)cudaGetLastError();
+}
+
+// The shared route: db float32 sums must fit one CTA's shared memory
+// (the attribute's error comes back when they do not).
+int dso_bucketed_dual_scatter_shared(
+    const int* cols_fl, const float* vals_fl, const int* lut,
+    const int* cnt_g, const int* blk_ids, const float* yg,
+    const float* w_grid, float* alpha, float* ga, const float* trn_g,
+    const float* rn_g, float* acc, int p, int mb, int n_chunks, int n_kc,
+    int db, int r0, int rb, float eta, float m, int loss, void* stream) {
+  if (p <= 0 || rb <= 0 || db <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)db * sizeof(float);
+  int per_sm = 0;
+  const cudaError_t e = dso::ctas_per_sm<bucketed_dual_scatter_shared_kernel>(
+      32 * SH_WARPS, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // as many CTAs as fit on the card at once, at least one per processor
+  // and no more than a warp per row
+  long long grid = (long long)per_sm * dso::sm_count();
+  const long long most = (long long)p * dso::blocks_for(rb, SH_WARPS);
+  if (grid > most) grid = most;
+  if (grid < p) grid = p;
+  bucketed_dual_scatter_shared_kernel<<<(unsigned)grid, 32 * SH_WARPS, smem,
+                                        (cudaStream_t)stream>>>(
+      cols_fl, vals_fl, lut, cnt_g, blk_ids, yg, w_grid, alpha, ga, trn_g,
+      rn_g, acc, p, mb, n_chunks, n_kc, db, r0, rb, eta, m, loss);
   return (int)cudaGetLastError();
 }
 

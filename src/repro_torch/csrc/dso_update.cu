@@ -387,37 +387,6 @@ dense_general_kernel(
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// The stream kernel's CTAs per SM at `smem` bytes of dynamic shared memory,
-// worked out when the size changes (a grid keeps one size from step to
-// step), together with the attribute that lets it take that much.
-cudaError_t stream_ctas_per_sm(size_t smem, int* per_sm) {
-  static size_t last = 0;
-  static int n = 0;
-  if (smem != last) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dense_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n,
-                                                        dense_stream_kernel,
-                                                        NT + 32, smem);
-    if (e != cudaSuccess) return e;
-    last = smem;
-  }
-  *per_sm = n;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -436,7 +405,8 @@ int dso_dense_dual_scatter(const float* X, long long ld,
                         (size_t)STAGES * STAGE_ROWS * ns_max * 16 +
                         16 * STAGES;
     int per_sm = 0;
-    const cudaError_t e = stream_ctas_per_sm(smem, &per_sm);
+    const cudaError_t e =
+        ctas_per_sm<dense_stream_kernel>(NT + 32, smem, &per_sm);
     if (e != cudaSuccess) return (int)e;
     // as many CTAs as fit on the card at once, no more than row blocks
     const long long need = blocks_for(rb, STAGE_ROWS);

@@ -39,6 +39,8 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
     "dso_bucketed_dual_scatter":
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
+    "dso_bucketed_dual_scatter_shared":
+        [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
     "dso_primal_update":
         [_P] * 6 + [_I] * 4 + [_F] * 5 + [_I, _P],
     "dso_sparse_probe":
@@ -59,7 +61,7 @@ SIGNATURES = {
         [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/ssd_scan.cu
     "ssd_scan_fwd":
-        [_P] * 6 + [_I] * 7 + [_P],
+        [_P] * 8 + [_I] * 7 + [_P],
 }
 
 

@@ -35,6 +35,25 @@ from repro_torch.kernels.dso_update import (LOSS_IDS, REG_IDS, _dual_update,
                                             active_block_stats)
 
 
+# Launch A of the K-bucketed step has two kernels, one per route:
+#   "shared": each CTA sums X^T alpha for its rows in a db-wide float32
+#             accumulator in shared memory, then adds each nonzero entry to
+#             acc[q] with one global atomic (hot columns meet in shared
+#             atomics, contended only inside one SM);
+#   "global": one global atomic per nonzero into acc[q], for any db.
+_BUCKETED_ENTRIES = {"shared": "dso_bucketed_dual_scatter_shared",
+                     "global": "dso_bucketed_dual_scatter"}
+BUCKETED_ROUTES = tuple(_BUCKETED_ENTRIES)
+
+
+def bucketed_route(db: int, smem_limit: int) -> str:
+    """The route of the bucketed launch A for column blocks of ``db``
+    columns on a card whose CTAs may take ``smem_limit`` bytes of shared
+    memory: ``"shared"`` when the db float32 sums fit, else
+    ``"global"``."""
+    return "shared" if 4 * db <= smem_limit else "global"
+
+
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
@@ -58,17 +77,18 @@ def launch_sparse_dual_scatter(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
 def launch_bucketed_dual_scatter(cols_fl, vals_fl, lut, cnt, blk_ids, yg,
                                  w_grid, alpha, ga, trn_g, rn_g, acc,
                                  r0: int, rb: int, eta: float, m: float,
-                                 loss_name: str):
-    """Launch A on the flat chunk view for rows [r0, r0 + rb)."""
+                                 loss_name: str, *, route: str):
+    """Launch A on the flat chunk view for rows [r0, r0 + rb), by the
+    kernel of ``route`` (``bucketed_route``)."""
     p, n_chunks, mb, _ = cols_fl.shape
     n_kc = lut.shape[2]
     db = w_grid.shape[1]
-    _check("dso_bucketed_dual_scatter",
-           library().lib.dso_bucketed_dual_scatter(
-               _ptr(cols_fl), _ptr(vals_fl), _ptr(lut), _ptr(cnt),
-               _ptr(blk_ids), _ptr(yg), _ptr(w_grid), _ptr(alpha), _ptr(ga),
-               _ptr(trn_g), _ptr(rn_g), _ptr(acc), p, mb, n_chunks, n_kc,
-               db, r0, rb, eta, m, LOSS_IDS[loss_name], _stream(acc)))
+    entry = _BUCKETED_ENTRIES[route]
+    _check(entry, getattr(library().lib, entry)(
+        _ptr(cols_fl), _ptr(vals_fl), _ptr(lut), _ptr(cnt), _ptr(blk_ids),
+        _ptr(yg), _ptr(w_grid), _ptr(alpha), _ptr(ga), _ptr(trn_g),
+        _ptr(rn_g), _ptr(acc), p, mb, n_chunks, n_kc, db, r0, rb, eta, m,
+        LOSS_IDS[loss_name], _stream(acc)))
 
 
 def launch_primal_update(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz,

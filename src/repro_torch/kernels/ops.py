@@ -13,7 +13,13 @@ Each wrapper counts its kernel launches in a plain int attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched:
 
     dso_sparse_block_step.launches    launch A, uniform block-ELL grid
-    dso_bucketed_block_step.launches  launch A, flat chunk view
+    dso_bucketed_block_step.launches  launch A, flat chunk view, the
+                                      global route (one global atomic per
+                                      nonzero; db past the shared budget)
+    _dso_bucketed_block_step_shared.launches
+                                      ... its shared route (the sums in
+                                      shared memory; listed as
+                                      ``dso_bucketed_block_step_shared``)
     dso_block_step.launches           dense launch A, p processors
     dso_tile_step.launches            dense launch A, one tile
     _dso_tile_step_twopass.launches   the two-pass step's primal pass and
@@ -278,7 +284,9 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     chunk view: cols_fl/vals_fl (p, n_chunks, mb, K_CHUNK), chunk_lut
     (p, p, n_kc), chunk_cnt (p, p).  Each processor streams only the live
     chunks of its active tile.  Same truncation (ops.py:307-317) and
-    in-place contract."""
+    in-place contract.  On the card ``dso_sparse.bucketed_route`` picks
+    launch A's kernel from db and the card's shared-memory limit, with no
+    fallback; each route counts its own launches."""
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
                  tile_col_nnz_g, row_nnz_g, col_nnz, row_batches)
@@ -303,20 +311,43 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
             reg_name=reg_name)
         return
     _require_probe(yg.device, "sparse_bucketed_jnp")
+    route = dso_sparse.bucketed_route(w_grid.shape[1],
+                                      shared_memory_limit(yg.device))
     rb = mb // row_batches
     acc = _take_acc(w_grid)
     for s in range(row_batches):
-        dso_sparse.launch_bucketed_dual_scatter(
-            cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg, w_grid,
-            alpha, ga, tile_row_nnz_g, row_nnz_g, acc, s * rb, rb, scal[0],
-            scal[2], loss_name)
-        dso_bucketed_block_step.launches += 1
+        a_args = (cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg,
+                  w_grid, alpha, ga, tile_row_nnz_g, row_nnz_g, acc, s * rb,
+                  rb, scal[0], scal[2], loss_name)
+        if route == "shared":
+            _dso_bucketed_block_step_shared(*a_args)
+        else:
+            dso_sparse.launch_bucketed_dual_scatter(*a_args, route="global")
+            dso_bucketed_block_step.launches += 1
         _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
                        col_nnz, s, scal, reg_name)
     _give_acc(acc)
 
 
 dso_bucketed_block_step.launches = 0
+
+
+def _dso_bucketed_block_step_shared(*a_args):
+    """The shared route of the bucketed launch A on tensors
+    ``dso_bucketed_block_step`` has checked, counted on its own."""
+    dso_sparse.launch_bucketed_dual_scatter(*a_args, route="shared")
+    _dso_bucketed_block_step_shared.launches += 1
+
+
+_dso_bucketed_block_step_shared.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def shared_memory_limit(device) -> int:
+    """Bytes of shared memory one CTA may take on the card ``device`` (its
+    opt-in limit), read once per device."""
+    return int(torch.cuda.get_device_properties(device)
+               .shared_memory_per_block_optin)
 
 
 # -------------------------------------------------------------- dense --
@@ -580,8 +611,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
     returns y like x.  ``chunk`` defaults to ``min(128, max(8, t))`` as in
     the reference; the reference's ``interpret`` has no counterpart.  On
     the card dt, A, B and C are taken as float32 (a copy when they are
-    not); a chunk whose shared memory does not fit one CTA makes the
-    launch fail with ``RuntimeError``."""
+    not), dh must be at most ``_ssd.MAX_HEAD_DIM`` (else ``ValueError``),
+    and a state size n whose shared memory does not fit one CTA makes the
+    launch fail with ``RuntimeError``.  One call is three CUDA launches
+    (chunk states, state passing, chunk output), counted as one."""
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be a 4-D float32 or bf16 tensor, got "
                         f"{x.dtype} of shape {tuple(x.shape)}")
@@ -602,6 +635,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous on the card")
+    if dh > _ssd.MAX_HEAD_DIM:
+        raise ValueError(f"the SSD kernels take dh <= {_ssd.MAX_HEAD_DIM}, "
+                         f"got {dh}")
     f32 = [a.to(torch.float32).contiguous() for a in (dt, A, B, C)]
     y = torch.empty_like(x)
     _ssd.launch_ssd_scan(x, *f32, y, chunk=chunk)
@@ -612,7 +648,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
 ssd_scan.launches = 0
 
 _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
-            dso_bucketed_block_step, dso_block_step, dso_tile_step,
+            dso_bucketed_block_step, _dso_bucketed_block_step_shared,
+            dso_block_step, dso_tile_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
             ssd_scan)
 
@@ -626,5 +663,6 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Each wrapper's launch count by its public name (the two-pass
     step's under ``dso_tile_step_twopass``, the tensor-core attention's
-    under ``swa_attention_tc``)."""
+    under ``swa_attention_tc``, the bucketed shared route's under
+    ``dso_bucketed_block_step_shared``)."""
     return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

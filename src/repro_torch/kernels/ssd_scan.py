@@ -15,7 +15,8 @@ padded with dt = 0, a step that changes nothing (the reference's rule,
 ``ops.py:349-353``).
 
 Replaces the reference's Pallas kernel ``_ssd_kernel``
-(``src/repro/kernels/ssd_scan.py:32``, pallas_call :84); the note in
+(``src/repro/kernels/ssd_scan.py:32``, pallas_call :84) by three launches
+(chunk states, state passing, chunk output); the note in
 ``csrc/ssd_scan.cu`` gives the design.
 """
 
@@ -26,16 +27,33 @@ import torch
 from repro_torch.kernels.build import check, library, stream
 
 DEFAULT_CHUNK = 128
+MAX_HEAD_DIM = 256          # the kernels' widest dh (4 tiles of 64)
+
+
+def workspace_floats(b: int, t: int, h: int, dh: int, n: int,
+                     chunk: int) -> int:
+    """float32 elements of the kernels' chunk-state workspace: one (n, dh)
+    state per (batch, head, chunk), b * h * ceil(t / chunk) * n * dh (235
+    MB at zamba2-7b's t 16,384, 112 heads, n = dh = 64, chunk 128; 134 MB
+    at mamba2-370m's 32 heads, n 128)."""
+    return b * h * -(-t // chunk) * n * dh
 
 
 def launch_ssd_scan(x, dt, A, B, C, y, *, chunk: int):
-    """The kernel on contiguous tensors: x and ``y`` float32 or bf16, dt,
-    A, B, C float32."""
+    """The kernels on contiguous tensors: x and ``y`` float32 or bf16, dt,
+    A, B, C float32, dh <= ``MAX_HEAD_DIM``.  Allocates the chunk-state
+    workspace (``workspace_floats``) and the chunks' total decays with
+    ``torch.empty`` for the call."""
     b, t, h, dh = x.shape
+    n = B.shape[-1]
+    ws = torch.empty(workspace_floats(b, t, h, dh, n, chunk),
+                     dtype=torch.float32, device=x.device)
+    decay = torch.empty(b * h * -(-t // chunk), dtype=torch.float32,
+                        device=x.device)
     check("ssd_scan_fwd", library().lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), b, t, h, dh, B.shape[-1], chunk,
-        int(x.dtype == torch.bfloat16), stream(y)))
+        C.data_ptr(), y.data_ptr(), ws.data_ptr(), decay.data_ptr(), b, t,
+        h, dh, n, chunk, int(x.dtype == torch.bfloat16), stream(y)))
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int):

@@ -50,8 +50,10 @@ def test_guard_sees_the_whole_port():
         assert (REPO / "src/repro_torch/csrc" / src).exists()
     from repro_torch.kernels import build, ops
     assert {"dso_twopass_primal", "dso_twopass_dual", "swa_attention_fwd",
-            "swa_attention_tc_fwd", "ssd_scan_fwd"} <= set(build.SIGNATURES)
-    assert {"swa_attention", "swa_attention_tc"} <= set(ops.launch_counts())
+            "swa_attention_tc_fwd", "ssd_scan_fwd",
+            "dso_bucketed_dual_scatter_shared"} <= set(build.SIGNATURES)
+    assert {"swa_attention", "swa_attention_tc", "dso_bucketed_block_step",
+            "dso_bucketed_block_step_shared"} <= set(ops.launch_counts())
     assert "repro" != "repro_torch".split(".")[0]
 
 

@@ -28,14 +28,21 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 P, M_ROWS, D = 4, 124, 96          # mb = 31, db = 24
 
 
-def _grids(row_batches):
-    """Uniform and bucketed grids of one power-law CSR (>= 3 buckets)."""
-    rng = np.random.default_rng(11)
+def _grids(row_batches, hot=False):
+    """Uniform and bucketed grids of one power-law CSR (>= 3 buckets).
+    ``hot``: column 0 lies in every row besides the power-law draws, the
+    column on which the shared route of the bucketed launch A sums every
+    row's contribution in one CTA."""
+    rng = np.random.default_rng(12 if hot else 11)
     pop = np.arange(1, D + 1, dtype=np.float64) ** -1.3
     pop /= pop.sum()
     ks = rng.integers(2, 40, M_ROWS)          # ragged rows: 3 tile widths
-    cols = np.concatenate([np.sort(rng.choice(D, size=k, replace=False,
-                                              p=pop)) for k in ks])
+    rows = [np.sort(rng.choice(D, size=k, replace=False, p=pop))
+            for k in ks]
+    if hot:
+        rows = [np.union1d(r, [0]) for r in rows]
+        ks = np.array([len(r) for r in rows])
+    cols = np.concatenate(rows)
     indptr = np.zeros(M_ROWS + 1, np.int64)
     np.cumsum(ks, out=indptr[1:])
     vals = rng.normal(0, 1, indptr[-1]).astype(np.float32)
@@ -146,7 +153,25 @@ def test_sparse_block_step_matches_reference(loss, reg, row_batches):
 @pytest.mark.parametrize("row_batches", [1, 3])
 @pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
 def test_bucketed_block_step_matches_reference(loss, reg, row_batches):
-    uni, grid = _grids(row_batches)
+    _check_bucketed_step(*_grids(row_batches), loss, reg, row_batches)
+
+
+@pytest.mark.parametrize("row_batches", [1, 3])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_bucketed_block_step_with_a_hot_column_matches_reference(
+        loss, reg, row_batches):
+    """Column 0 in every row on top of the power-law draws: it lies in w
+    block 0, so every processor's tile of that block holds it in every
+    row."""
+    uni, grid = _grids(row_batches, hot=True)
+    assert bool((uni.cols_g[:, 0, :, 0] == 0).all())   # every row's first
+    assert bool((uni.vals_g[:, 0, :, 0] != 0).all())   # slot: column 0
+    _check_bucketed_step(uni, grid, loss, reg, row_batches)
+
+
+def _check_bucketed_step(uni, grid, loss, reg, row_batches):
+    """The plain bucketed block step against the uniform layout's, the
+    reference's interpret-mode Pallas kernel and the port's oracle."""
     assert len(grid.bucket_ks) >= 3
     old = _state(grid, loss)
     new = {k: v.clone() for k, v in old.items()}
@@ -186,6 +211,19 @@ def test_bucketed_block_step_matches_reference(loss, reg, row_batches):
         _check("oracle w", new["w_grid"][b], oracle[0])
         _check("oracle alpha", new["alpha"][q][:mk], oracle[1])
         _check("oracle ga", new["ga"][q][:mk], oracle[3])
+
+
+@pytest.mark.parametrize("db,limit,route", [
+    (1000, 4000, "shared"),              # at the budget
+    (999, 4000, "shared"),               # below it
+    (1001, 4000, "global"),              # above it
+    (5240, 232448, "shared"),            # real-sim's blocks on an H100
+    (58112, 232448, "shared"),           # the widest that fits there
+    (338798, 232448, "global"),          # news20's blocks
+])
+def test_bucketed_route_by_db_and_the_cards_limit(db, limit, route):
+    assert dso_sparse.bucketed_route(db, limit) == route
+    assert route in dso_sparse.BUCKETED_ROUTES
 
 
 def test_primal_update_and_probe_plain_versions():

@@ -249,6 +249,35 @@ def test_ssd_matches_reference(b, t, h, dh, n, chunk):
     _close(got, jref.ssd_scan_ref(*j), SSD_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_many_chunks_matches_reference(dtype):
+    """64 chunks of 64 (t 4,096): the chunk states' recurrence that the
+    card's kernels run as a launch of its own, over many chunks; bf16 x
+    within the bf16 tolerance."""
+    x, dt, A, B, C = _ssd_inputs(1, 4096, 2, 16, 8, seed=41)
+    j, tt = _both(x, dt, A, B, C)
+    if dtype == "bfloat16":
+        j[0], tt[0] = j[0].astype(jnp.bfloat16), tt[0].to(torch.bfloat16)
+    want = jops.ssd_scan(*j, chunk=64, interpret=True)
+    got = ops.ssd_scan(*tt, chunk=64)
+    assert got.dtype == tt[0].dtype and got.shape == tt[0].shape
+    _close(got, np.asarray(want, np.float32),
+           SSD_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,dh,n,chunk", [
+    (1, 250, 2, 48, 24, 100),   # a chunk that 64-row tiles do not divide
+    (2, 130, 2, 160, 16, 64),   # dh past two tiles of 64, ragged t, b 2
+    (1, 256, 1, 128, 128, 128),  # n = dh = 128
+])
+def test_ssd_kernel_tile_edges_match_reference(b, t, h, dh, n, chunk):
+    """Shapes at the edges of the card's 64 x 64 tiles (chip_smoke phase
+    3l holds the kernels to the plain version there)."""
+    j, tt = _both(*_ssd_inputs(b, t, h, dh, n, seed=t + dh))
+    want = jops.ssd_scan(*j, chunk=chunk, interpret=True)
+    _close(ops.ssd_scan(*tt, chunk=chunk), want, SSD_TOL)
+
+
 @pytest.mark.parametrize("chunks,h,decay", [(1, 1, 0.1), (2, 3, 3.0),
                                             (4, 2, 1.0)])
 def test_ssd_decays(chunks, h, decay):
