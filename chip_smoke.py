@@ -55,18 +55,25 @@ Phases, one line per result:
    memory.
 3t. the two-pass tile step (``ops.dso_tile_step(twopass=True)``) against
    its plain version and against the fused ``ops.dso_tile_step`` on the
-   same inputs, six pairs at M 999, D 1,155, contiguous and row-strided;
-   bound 1e-5.
+   same inputs, six pairs at M 999, D 1,155, contiguous (row kernels) and
+   row-strided (span kernels): one processor's block at each of the four
+   16-byte misalignments, and blocks of db 1, 3 and 5, and an empty block
+   (db 0, row kernels); each case must take the kernels its row stride and
+   width call for; bound 1e-5.
 3l. ``ops.swa_attention`` and ``ops.ssd_scan`` against their plain
    versions in float32 and bf16: the shapes of the reference's kernel
    tests, decode offsets (Tq 8, Tk 4,096), ``causal=False`` (ragged Tq
    and Tk too), Tq and Tk ragged to the 128-query and 64-key tiles,
    windows 1, 63, 65, 127 and past T, GQA Hq/Hkv = 4, rows with no key in
-   their window, Dh 36, 40, 64, 112 and 128; SSD with n 128, dh 112-256,
+   their window, Dh 36, 40, 64, 112 and 128; in float32 also the split-
+   TF32 kernel's edges (a ragged 16-row warp slice, Dh 8, 30 and 128,
+   window 1, a decode row at q_offset 4,088, GQA 4); in both dtypes q, k,
+   v not 16-byte aligned; SSD with n 128, dh 112-256,
    n = dh = 128, 32 and 64 chunks, b 2 with a ragged t, chunk 100, total
    decay;
-   bf16 with Dh a multiple of 8 runs the tensor-core attention kernel,
-   float32 and bf16 Dh 36 the CUDA-core one, and each route's launch
+   float32 runs the split-TF32 tensor-core kernel, bf16 with Dh a
+   multiple of 8 (aligned) the bf16 tensor-core one, other bf16 the
+   CUDA-core one, and each route's launch
    count must equal the cases routed to it; shapes past the kernels'
    limits must raise.  Bounds: float32 as the
    reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
@@ -85,16 +92,24 @@ Phases, one line per result:
    ``ops`` with the counts set to 0 just before and read just after:
    attention at T 16,384 with a window past T (full causal; beside
    ``F.scaled_dot_product_attention(is_causal=True)``, never called by
-   the port) and at T 73,728 with the 8,192 sliding window, both bf16 and
-   counted on the tensor-core kernel, and at T 16,384 in float32 on the
-   CUDA-core kernel (beside SDPA in float32); the SSD scan
+   the port, whose device kernel's name is printed) and at T 73,728 with
+   the 8,192 sliding window (beside SDPA's efficient-attention backend
+   given the window as a T x T boolean mask), both bf16 and
+   counted on the tensor-core kernel, at T 16,384 in float32 on the
+   split-TF32 kernel (beside SDPA in float32; bound at 3 TF32 products
+   per float32 product, the float32 FMA bound beside it; also at T 73,728
+   with the 8,192 window), and at T 16,384
+   in bf16 on a misaligned copy, counted on the CUDA-core kernel; device
+   times per launch from a trace of 3 calls, over the launches it holds;
+   the SSD scan
    at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
    the order kernel, plain, plain, kernel, 5 calls each; the device time
    of each of its three launches, and the chunked form's operations
    beside the exact recurrence's bound).  Then the
    two-pass tile step at svm-ocr's tile (processor 0's active block of
-   phase 5d, 250,000 x 289) beside the fused step.  Each: ms per call
-   (CUDA events), bound, plain ms, max|d| against the plain version.
+   phase 5d, 250,000 x 289, the span route) beside the fused step and the
+   cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
+   max|d| against the plain version.
 
 Prints the kernel table as one JSON line, the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -114,6 +129,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BF16_OPS_S = 989e12        # H100 SXM bf16 tensor cores, dense
 BF16_ULP = 2.0 ** -7       # bf16 spacing relative to the value
 TOL = 1e-5
@@ -151,7 +167,8 @@ def smi_line() -> str:
 def max_rel_err(got, want):
     import torch
     d = (got - want).abs()
-    return float(d.max()), bool(torch.all(d <= TOL + TOL * want.abs()))
+    return (float(d.max()) if d.numel() else 0.0,
+            bool(torch.all(d <= TOL + TOL * want.abs())))
 
 
 def cuda_ms(fn, n, warm=3):
@@ -174,9 +191,10 @@ def cuda_ms(fn, n, warm=3):
 def device_split(fn, tries=3):
     """Wall seconds of ``fn()`` (synchronised) and the device time of every
     kernel it ran, from a ``torch.profiler`` trace: (wall_s, busy_s,
-    [(kernel, us), ...] largest first).  A trace that holds no device
-    event at all (the profiler drops one now and then) is taken again, up
-    to ``tries`` times, and said so."""
+    [(kernel, us, count), ...] largest first).  A trace that holds no
+    device event at all is taken again, up to ``tries`` times, and said
+    so.  Traces lose single kernel records too (see
+    ``device_ms_per_call``), so busy_s can fall short."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -188,14 +206,33 @@ def device_split(fn, tries=3):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        kernels = [(e.key, e.self_device_time_total)
+        kernels = [(e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
         if kernels:
             break
         say("prof", f"trace {attempt} of {tries} holds no device event")
     kernels.sort(key=lambda kv: -kv[1])
-    return wall, sum(us for _, us in kernels) / 1e6, kernels
+    return wall, sum(us for _, us, _ in kernels) / 1e6, kernels
+
+
+def device_ms_per_call(fn, n):
+    """Device ms per call of ``fn`` and per kernel, [(kernel, ms), ...],
+    from one profiled window of ``n`` calls.  A trace can lack some of
+    the window's kernel records (a record of a launch in the middle of
+    the window as well as at either end; once, all of them), so each
+    kernel's time is its device time over the launches of it that the
+    trace holds, times its launches per call: the launches held, rounded
+    up to a multiple of ``n``.  Missing records are said so."""
+    _, _, kernels = device_split(lambda: [fn() for _ in range(n)])
+    per = []
+    for name, us, count in kernels:
+        calls = -(-count // n)
+        if count != calls * n:
+            say("prof", f"the trace holds {count} of {calls * n} launches "
+                        f"of {name[:60]}")
+        per.append((name, us / count * calls / 1e3))
+    return sum(ms for _, ms in per), per
 
 
 def epoch_runner(grid, backend, *, loss, lam, m, alpha0):
@@ -546,7 +583,7 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
     say(phase, f"profiled run_epochs(2) of {be.name}: wall {wall:.6f} s, "
                f"device busy {busy:.6f} s, idle share "
                f"{1 - busy / wall:.3f}; top kernels (us): "
-               + ", ".join(f"{k[:48]}={us:.1f}" for k, us in kernels[:6]))
+               + ", ".join(f"{k[:48]}={us:.1f}" for k, us, _ in kernels[:6]))
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
                 lam=lam, m=csr.m, state=res.state, counter=counter)
 
@@ -653,16 +690,48 @@ def compare_tile_steps(got, wants):
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
+def twopass_cases(dev):
+    """Phase 3t's cases, (name, X, y, the kernels the card must take X on):
+    those of phase 3d, then one processor's block of the same p = 4 grid
+    (row stride 1,156) at each of the four 16-byte misalignments (blocks
+    b = 0..3: b*289 mod 4 = 0, 1, 2, 3), blocks of db 1, 3 and 5 (row
+    strides 4, 12 and 20), and an empty block (db 0, row stride 1,156)."""
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.engine import make_grid_data
+    contiguous, strided = tile_cases(dev)
+    cases = [(*contiguous, "rows"), (*strided, "span")]
+    prob = make_classification(m=999, d=1155, density=0.7, seed=3,
+                               device=dev)
+    grid = make_grid_data(prob, P, 1)
+    db = grid.db
+    cases += [(f"block {b}", grid.Xg[2, :, b * db:(b + 1) * db], grid.yg[2],
+               "span") for b in range(P)]
+    cases.append(("db 0", grid.Xg[2, :, db:db], grid.yg[2], "rows"))
+    for d in (4, 12, 20):
+        prob = make_classification(m=999, d=d, density=0.8, seed=d,
+                                   device=dev)
+        grid = make_grid_data(prob, P, 1)
+        cases.append((f"db {grid.db}",
+                      grid.Xg[1, :, grid.db:2 * grid.db], grid.yg[1],
+                      "span"))
+    return cases
+
+
 def phase_twopass_kernels(dev):
     """Phase 3t: the two-pass tile step against its plain version and the
-    fused step on the same inputs, six pairs on the cases of phase 3d."""
+    fused step on the same inputs, six pairs on ``twopass_cases``, each
+    case on the kernels it must take."""
     import numpy as np
     import torch
     from repro_torch.kernels import dso_update, ops
     worst = 0.0
     rng = np.random.default_rng(11)
-    for name, X, y in tile_cases(dev):
+    for name, X, y, want_route in twopass_cases(dev):
         M, D = X.shape
+        route = dso_update.twopass_route(X)
+        check(route == (want_route if dev.type == "cuda" else "plain"),
+              f"two-pass tile step {name}: takes the {route} kernels, "
+              f"expected {want_route}")
         for loss, reg in LOSS_REG_PAIRS:
             args = tile_step_args(X, y, loss, rng)
             kw = dict(loss_name=loss, reg_name=reg)
@@ -672,8 +741,10 @@ def phase_twopass_kernels(dev):
             torch.cuda.synchronize()
             e, ok = compare_tile_steps(got, (plain, fused))
             worst = max(worst, e)
-            say("3t", f"two-pass tile step {name} {loss}/{reg} M={M} D={D} "
-                      f"max|d| vs plain and fused {e:.3e}")
+            say("3t", f"two-pass tile step {name} ({route}) {loss}/{reg} "
+                      f"M={M} D={D} row stride {X.stride(0)} misalignment "
+                      f"{X.data_ptr() // 4 % 4} max|d| vs plain and fused "
+                      f"{e:.3e}")
             check(ok, f"two-pass tile step {name} {loss}/{reg}: disagrees "
                       f"with its plain version or the fused step "
                       f"(max|d| {e:.3e})")
@@ -702,6 +773,21 @@ SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
              (1, 4, 1, 130, 190, 112, 50, False, 0),      # ragged Tq != Tk
              (1, 4, 1, 16, 32, 64, 4, True, 30),          # rows 5.. see no key
              (1, 2, 1, 77, 77, 36, 20, True, 0)]          # Dh 36: CUDA cores
+# float32 only: the edges of the split-TF32 kernel's tiling (128 queries
+# per CTA in warps of 16 rows, kv tiles of 32, depth padded to 16)
+SWA_F32_CASES = [(1, 2, 1, 141, 141, 112, 1000, True, 0),  # ragged warp
+                 (1, 2, 2, 7, 7, 64, 16, True, 0),         # part of a warp
+                 (1, 2, 2, 100, 100, 8, 40, True, 0),      # Dh 8
+                 (1, 2, 1, 260, 260, 128, 300, True, 0),   # Dh 128
+                 (1, 4, 4, 70, 70, 64, 1, True, 0),        # window 1
+                 (1, 4, 1, 1, 4089, 112, 4096, True, 4088),  # decode row
+                 (2, 8, 2, 200, 200, 112, 150, True, 0),   # GQA 4
+                 (1, 2, 1, 90, 90, 30, 45, True, 0)]       # Dh 30: 4-byte
+# both dtypes, q, k, v one element into a larger buffer (not 16-byte
+# aligned): float32 stays on split TF32 (4-byte copies), bf16 takes the
+# CUDA-core kernel
+SWA_MISALIGNED_CASES = [(1, 4, 2, 150, 150, 112, 64, True, 0),
+                        (1, 2, 2, 100, 100, 64, 100, False, 0)]
 # (b, t, h, dh, n, chunk, A fill or None)
 SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
              (2, 256, 3, 32, 16, 64, None),
@@ -735,6 +821,16 @@ def within(got, want, tol, bf16):
     return float(d.max()), bool(torch.all(d <= atol + rtol * w.abs()))
 
 
+def misaligned_copy(a):
+    """A contiguous copy of ``a`` that starts one element into a larger
+    buffer, so its data is not 16-byte aligned."""
+    import torch
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
 def ssd_inputs(b, t, h, dh, n, gen, dtype):
     """x (in ``dtype``), dt, A, B, C on ``gen``'s device, drawn as the
     reference's kernel tests draw them."""
@@ -756,17 +852,22 @@ def phase_lm_kernels(dev):
     from repro_torch.kernels import swa_attention as swa
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {}
-    want_routes = {"tensor_cores": 0, "cuda_cores": 0}
+    want_routes = {r: 0 for r in swa.QUERY_TILES}
     ops.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        for B, Hq, Hkv, Tq, Tk, Dh, window, causal, off in SWA_CASES:
-            route = swa.swa_route(dtype, Dh)
+        cases = [(c, True) for c in SWA_CASES] \
+            + [(c, True) for c in (SWA_F32_CASES if not bf16 else [])] \
+            + [(c, False) for c in SWA_MISALIGNED_CASES]
+        for (B, Hq, Hkv, Tq, Tk, Dh, window, causal, off), aligned in cases:
+            route = swa.swa_route(dtype, Dh, aligned)
             want_routes[route] += 1
             q = torch.randn(B, Hq, Tq, Dh, generator=gen, device=dev)
             k, v = (torch.randn(B, Hkv, Tk, Dh, generator=gen, device=dev)
                     for _ in range(2))
             q, k, v = (a.to(dtype) for a in (q, k, v))
+            if not aligned:
+                q, k, v = (misaligned_copy(a) for a in (q, k, v))
             kw = dict(window=window, causal=causal, q_offset=off)
             got = ops.swa_attention(q, k, v, **kw)
             want = swa.swa_attention_plain(q, k, v, **kw)
@@ -776,7 +877,7 @@ def phase_lm_kernels(dev):
             say("3l", f"swa_attention {str(dtype)[6:]} ({route}) B={B} "
                       f"Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} Dh={Dh} "
                       f"window={window} causal={causal} q_offset={off} "
-                      f"max|d|={e:.3e}")
+                      f"{'' if aligned else 'misaligned '}max|d|={e:.3e}")
             check(ok and got.dtype == dtype,
                   f"swa_attention disagrees with its plain version "
                   f"(max|d| {e:.3e})")
@@ -796,7 +897,8 @@ def phase_lm_kernels(dev):
                   f"ssd_scan disagrees with its plain version "
                   f"(max|d| {e:.3e})")
     counts = ops.launch_counts()
-    got_routes = {"tensor_cores": counts["swa_attention_tc"],
+    got_routes = {"tf32x3": counts["swa_attention_tf32x3"],
+                  "tensor_cores": counts["swa_attention_tc"],
                   "cuda_cores": counts["swa_attention"]}
     say("3l", f"swa_attention launches by route {got_routes} (cases routed: "
               f"{want_routes})")
@@ -829,29 +931,40 @@ def phase_lm_kernels(dev):
 # 3,584; SSD 112 heads of 64 (expand 2), state 64; sliding window 8,192
 # above full_attn_max 65,536; bf16.  mamba2-370m: 32 SSD heads, state 128.
 ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 112
-# (label, T, window, dtype name, launch counter)
+# (label, T, window, dtype name, launch counter, misaligned): the
+# misaligned bf16 case keeps the CUDA-core kernel timed at this shape
 SWA_FULL = [("causal, window >= T", 16384, 16384, "bfloat16",
-             "swa_attention_tc"),
-            ("sliding window", 73728, 8192, "bfloat16", "swa_attention_tc"),
+             "swa_attention_tc", False),
+            ("sliding window", 73728, 8192, "bfloat16", "swa_attention_tc",
+             False),
             ("causal, window >= T, float32", 16384, 16384, "float32",
-             "swa_attention")]
+             "swa_attention_tf32x3", False),
+            ("sliding window, float32", 73728, 8192, "float32",
+             "swa_attention_tf32x3", False),
+            ("causal, window >= T, bf16 misaligned", 16384, 16384,
+             "bfloat16", "swa_attention", True)]
 SSD_FULL = [("zamba2-7b", 16384, 112, 64, 64),
             ("mamba2-370m", 16384, 32, 64, 128)]
 SSD_CHUNK = 128
 
 
-def swa_bound(B, Hq, Hkv, Tq, Tk, Dh, window, q_offset, elem):
+def swa_bound(B, Hq, Hkv, Tq, Tk, Dh, window, q_offset, elem,
+              split_tf32=False):
     """(bound ms, bound_by) of causal sliding-window attention: q, k, v
     read once and the output written once; 4 Dh operations per attended
     (query, key) pair at the bf16 tensor-core rate (float32 for 4-byte
-    inputs)."""
+    inputs; with ``split_tf32``, 3 TF32 products per float32 product at
+    the TF32 tensor-core rate, the arithmetic the float32 kernel does)."""
     import torch
     pos = torch.arange(Tq, dtype=torch.float64) + q_offset
     lo = (pos - window + 1).clamp(min=0)
     hi = pos.clamp(max=Tk - 1)
     pairs = float((hi - lo + 1).clamp(min=0).sum()) * B * Hq
     nbytes = elem * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
-    ops_s = 4 * Dh * pairs / (BF16_OPS_S if elem == 2 else F32_OPS_S)
+    if split_tf32:
+        ops_s = 3 * 4 * Dh * pairs / TF32_OPS_S
+    else:
+        ops_s = 4 * Dh * pairs / (BF16_OPS_S if elem == 2 else F32_OPS_S)
     by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
     return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
 
@@ -876,6 +989,43 @@ def ssd_chunked_flops(x, n, chunk):
     b, t, h, dh = x.shape
     macs = 2 * chunk * n * dh + chunk * chunk * (n + dh) / 2
     return 2 * macs * b * h * -(-t // chunk)
+
+
+def sdpa_ms(q, k, v, window):
+    """ms per call of the PyTorch call that computes the same attention,
+    never called by the port, and what it was: with the window past T,
+    ``F.scaled_dot_product_attention(is_causal=True)`` (its device
+    kernel's name printed from one profiled call); with a sliding window,
+    the same call given the window as a T x T boolean ``attn_mask`` under
+    ``sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)`` (the mask, 5.4 GB at T
+    73,728, is built before the timing), or (None, its error) when the
+    backend refuses it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    T = q.shape[2]
+    if window >= T:
+        call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
+        _, _, kern = device_split(call)
+        say(7, f"SDPA(is_causal) {q.dtype} T={T}: device kernels "
+               + ", ".join(f"{name} ({us / 1e3:.4f} ms)"
+                           for name, us, _ in kern))
+        return cuda_ms(call, 5, warm=1), "SDPA(is_causal)"
+    pos = torch.arange(T, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+    what = (f"SDPA(EFFICIENT_ATTENTION, bool attn_mask of "
+            f"{mask.numel()} B)")
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), 2, warm=1)
+    except RuntimeError as e:
+        ms, what = None, f"{what} refused: {str(e).splitlines()[0]}"
+    del mask
+    torch.cuda.empty_cache()
+    return ms, what
 
 
 def drive_once(name, fn):
@@ -904,10 +1054,12 @@ def phase_lm_full(dev):
     bf = torch.bfloat16
     rows = {}
     B, H, DH = 1, ZAMBA_HEADS, ZAMBA_HEAD_DIM
-    for label, T, window, dname, counter in SWA_FULL:
+    for label, T, window, dname, counter, misaligned in SWA_FULL:
         dtype = getattr(torch, dname)
         q, k, v = (torch.randn(B, H, T, DH, generator=gen,
                                device=dev).to(dtype) for _ in range(3))
+        if misaligned:
+            q, k, v = (misaligned_copy(a) for a in (q, k, v))
         out, n = drive_once(
             counter, lambda: ops.swa_attention(q, k, v, window=window))
         check(out.shape == q.shape and out.dtype == dtype
@@ -920,27 +1072,29 @@ def phase_lm_full(dev):
         del out, want
         ms = cuda_ms(lambda: ops.swa_attention(q, k, v, window=window), 3,
                      warm=1)
-        _, busy, _ = device_split(
-            lambda: ops.swa_attention(q, k, v, window=window))
+        busy, _ = device_ms_per_call(
+            lambda: ops.swa_attention(q, k, v, window=window), 3)
         plain_ms = cuda_ms(lambda: swa.swa_attention_plain(
             q, k, v, window=window), 2, warm=0)
-        lib_ms = None
-        if window >= T:
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 5, warm=1)
+        lib_ms, lib = sdpa_ms(q, k, v, window)
+        split = counter == "swa_attention_tf32x3"
         bound, by = swa_bound(B, H, H, T, T, DH, window, 0,
-                              q.element_size())
+                              q.element_size(), split_tf32=split)
+        extra = ""
+        if split:
+            f32_bound, _ = swa_bound(B, H, H, T, T, DH, window, 0, 4)
+            extra = (f" (split TF32: 3 products at {TF32_OPS_S:.0e}/s; at "
+                     f"the float32 FMA rate {f32_bound:.4f} ms)")
         rows[counter, label] = dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound, bound_by=by,
                                     library_ms=lib_ms, max_abs_err=err,
-                                    launches=n, device_ms=busy * 1e3)
+                                    launches=n, device_ms=busy)
         say(7, f"{counter} {dname} B={B} H={H} T={T} Dh={DH} "
                f"window={window} ({label}): {ms:.4f} ms per call (device "
-               f"time {busy * 1e3:.4f} ms under the profiler), bound "
-               f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
-               f"SDPA(is_causal) "
-               + (f"{lib_ms:.4f} ms" if lib_ms is not None else "-")
-               + f", max|d| {err:.3e}")
+               f"time {busy:.4f} ms per call under the profiler), bound "
+               f"{bound:.4f} ms ({by}){extra}, plain {plain_ms:.4f} ms, "
+               f"{lib} " + (f"{lib_ms:.4f} ms" if lib_ms is not None
+                            else "-") + f", max|d| {err:.3e}")
         del q, k, v
         torch.cuda.empty_cache()
     for label, t, h, dh, nst in SSD_FULL:
@@ -962,18 +1116,18 @@ def phase_lm_full(dev):
         ms_a, plain_a = cuda_ms(kern, 5, warm=1), cuda_ms(plain, 5, warm=1)
         plain_b, ms_b = cuda_ms(plain, 5, warm=1), cuda_ms(kern, 5, warm=1)
         ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-        _, busy, kern_us = device_split(kern)
+        busy, kern_ms = device_ms_per_call(kern, 3)
         bound, by = ssd_bound(x, nst)
         chunked = ssd_chunked_flops(x, nst, SSD_CHUNK)
         rows["ssd_scan", label] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None, max_abs_err=err, launches=n,
-            device_ms=busy * 1e3)
+            device_ms=busy)
         say(7, f"ssd_scan bf16 x ({label}) b=1 t={t} h={h} dh={dh} n={nst} "
                f"chunk={SSD_CHUNK}: {ms:.4f} ms per call ({ms_a:.4f}, "
-               f"{ms_b:.4f}; device time {busy * 1e3:.4f} ms under the "
+               f"{ms_b:.4f}; device time {busy:.4f} ms per call under the "
                f"profiler: "
-               + ", ".join(f"{k[:40]}={us / 1e3:.4f}" for k, us in kern_us)
+               + ", ".join(f"{k[:40]}={kms:.4f}" for k, kms in kern_ms)
                + f"), bound {bound:.4f} ms ({by}; the chunked form's "
                f"{chunked / 1e9:.2f} GFLOP would take "
                f"{chunked / F32_OPS_S * 1e3:.4f} ms), plain "
@@ -1002,6 +1156,8 @@ def phase_twopass_times(ctx):
            st0.gw_grid[b].clone(), st0.ga[q].clone(), grid.row_nnz_g[q],
            grid.col_nnz[cols], scalars(loss, ctx["lam"], ctx["m"]))
     kw = dict(loss_name=loss, reg_name="l2")
+    route = dso_update.twopass_route(X)
+    check(route == "span", f"svm-ocr's tile routes {route}, expected span")
     ops.reset_launch_counts()
     got = ops.dso_tile_step(X, *vec, twopass=True, **kw)
     torch.cuda.synchronize()
@@ -1023,8 +1179,7 @@ def phase_twopass_times(ctx):
     one = lambda: ops.dso_tile_step(X, *vec, **kw, **stats)       # noqa
     ms_a, fused_a = cuda_ms(two, 50), cuda_ms(one, 50)
     fused_b, ms_b = cuda_ms(one, 50), cuda_ms(two, 50)
-    n_prof = 20
-    _, busy, kern = device_split(lambda: [two() for _ in range(n_prof)])
+    busy, kern = device_ms_per_call(two, 20)
     plain_ms = cuda_ms(lambda: dso_update.dso_tile_step_twopass_plain(
         X, *vec, **kw), 20)
     lib_ms = cuda_ms(lambda: (torch.mv(X, vec[1]), torch.mv(X.t(), vec[2])),
@@ -1033,8 +1188,8 @@ def phase_twopass_times(ctx):
     ms, fused_ms = (ms_a + ms_b) / 2, (fused_a + fused_b) / 2
     say(7, f"dso_tile_step_twopass at svm-ocr's tile ({grid.mb}x{db}, "
            f"row-strided): {ms:.4f} ms per call ({ms_a:.4f}, {ms_b:.4f}; "
-           f"device time {busy / n_prof * 1e3:.4f} ms per call: "
-           + ", ".join(f"{k[:40]}={us / n_prof:.1f}us" for k, us in kern[:4])
+           f"device time {busy:.4f} ms per call: "
+           + ", ".join(f"{k[:40]}={kms * 1e3:.1f}us" for k, kms in kern[:4])
            + ") "
            f"beside the fused step {fused_ms:.4f} ms ({fused_a:.4f}, "
            f"{fused_b:.4f}); bound {bound:.4f} ms ({by}, one read of X; the "
@@ -1042,8 +1197,7 @@ def phase_twopass_times(ctx):
            f"pair {lib_ms:.4f} ms, max|d| {err:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, max_abs_err=err,
-                launches=counts["dso_tile_step_twopass"],
-                device_ms=busy / n_prof * 1e3)
+                launches=counts["dso_tile_step_twopass"], device_ms=busy)
 
 
 def phase_dense_main(dev):
@@ -1120,7 +1274,7 @@ def phase_dense_main(dev):
     say("5d", f"profiled run_epochs(2) of dense_pallas_block: wall "
               f"{wall:.6f} s, device busy {busy:.6f} s, idle share "
               f"{1 - busy / wall:.3f}; top kernels (us): "
-              + ", ".join(f"{k[:48]}={us:.1f}" for k, us in kernels[:6]))
+              + ", ".join(f"{k[:48]}={us:.1f}" for k, us, _ in kernels[:6]))
     return dict(grid=grid, layout="dense", loss="hinge", lam=lam, m=prob.m,
                 state=runs["auto"][0].state,
                 counts={k: runs["auto"][1][k] + runs["dense_pallas_fused"][1]
@@ -1161,10 +1315,8 @@ def phase_dense_times(ctx):
     st = {k: v.clone() for k, v in st0.items()}
     ms = cuda_ms(lambda: run_step("dense", grid, st, blk, scal, 1, loss,
                                   "l2", plain=False), 50)
-    n_prof = 20
-    _, busy, kern = device_split(lambda: [run_step(
-        "dense", grid, st, blk, scal, 1, loss, "l2", plain=False)
-        for _ in range(n_prof)])
+    busy, kern = device_ms_per_call(lambda: run_step(
+        "dense", grid, st, blk, scal, 1, loss, "l2", plain=False), 20)
     st = {k: v.clone() for k, v in st0.items()}
     plain_ms = cuda_ms(lambda: run_step("dense", grid, st, blk, scal, 1,
                                         loss, "l2", plain=True), 5, warm=1)
@@ -1175,11 +1327,11 @@ def phase_dense_times(ctx):
     bound, by = dense_bound(mb, db, p)
     rows["block"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, library_ms=lib_ms, max_abs_err=err,
-                         device_ms=busy / n_prof * 1e3)
+                         device_ms=busy)
     say(6, f"dso_block_step: {ms:.4f} ms per call (A+B, {p} processors, "
-           f"{p * mb * db * 4} B of X; device time {busy / n_prof * 1e3:.4f}"
+           f"{p * mb * db * 4} B of X; device time {busy:.4f}"
            f" ms per call under the profiler: "
-           + ", ".join(f"{k[:40]}={us / n_prof:.1f}us" for k, us in kern[:3])
+           + ", ".join(f"{k[:40]}={kms * 1e3:.1f}us" for k, kms in kern[:3])
            + f") bound {bound:.4f} ms ({by}) plain {plain_ms:.4f} ms "
              f"cuBLAS mv pair {lib_ms:.4f} ms max|d| {err:.3e}")
 
@@ -1199,8 +1351,8 @@ def phase_dense_times(ctx):
     check(all(ok for _, ok in errs),
           f"dense tile step disagrees at the svm-ocr shape: {t_err}")
     t_ms = cuda_ms(lambda: ops.dso_tile_step(X, *vec, **kw), 50)
-    _, t_busy, _ = device_split(lambda: [ops.dso_tile_step(X, *vec, **kw)
-                                         for _ in range(n_prof)])
+    t_busy, _ = device_ms_per_call(lambda: ops.dso_tile_step(X, *vec, **kw),
+                                   20)
     t_plain = cuda_ms(lambda: dso_update.dso_tile_step_plain(X, *vec, **kw),
                       20)
     t_lib = cuda_ms(lambda: (torch.mv(X, vec[1]), torch.mv(X.t(), vec[2])),
@@ -1208,10 +1360,10 @@ def phase_dense_times(ctx):
     t_bound, t_by = dense_bound(mb, db, 1)
     rows["tile"] = dict(ms=t_ms, plain_ms=t_plain, bound_ms=t_bound,
                         bound_by=t_by, library_ms=t_lib, max_abs_err=t_err,
-                        device_ms=t_busy / n_prof * 1e3)
+                        device_ms=t_busy)
     say(6, f"dso_tile_step: {t_ms:.4f} ms per call (A+B, one processor, "
            f"{mb}x{db} row-strided block; device time "
-           f"{t_busy / n_prof * 1e3:.4f} ms per call) bound {t_bound:.4f} ms "
+           f"{t_busy:.4f} ms per call) bound {t_bound:.4f} ms "
            f"({t_by}) plain {t_plain:.4f} ms cuBLAS mv pair {t_lib:.4f} ms "
            f"max|d| {t_err:.3e}")
     return rows
@@ -1245,10 +1397,8 @@ def phase_times(ctx):
     st = {k: v.clone() for k, v in st0.items()}
     ms = cuda_ms(lambda: run_step(layout, grid, st, blk, scal, 1, loss,
                                   "l2", plain=False), 200)
-    n_prof = 50
-    _, busy, _ = device_split(lambda: [run_step(
-        layout, grid, st, blk, scal, 1, loss, "l2", plain=False)
-        for _ in range(n_prof)])
+    busy, _ = device_ms_per_call(lambda: run_step(
+        layout, grid, st, blk, scal, 1, loss, "l2", plain=False), 50)
     st = {k: v.clone() for k, v in st0.items()}
     plain_ms = cuda_ms(lambda: run_step(layout, grid, st, blk, scal, 1,
                                         loss, "l2", plain=True), 20)
@@ -1268,7 +1418,7 @@ def phase_times(ctx):
                 bound_by="bytes" if nbytes / HBM_BYTES_S
                 >= ops_n / F32_OPS_S else "operations", library_ms=None)
     say(6, f"{name}: {ms:.4f} ms per call (A+B, {p} processors, "
-           f"{slots} packed slots; device time {busy / n_prof * 1e3:.4f} ms "
+           f"{slots} packed slots; device time {busy:.4f} ms "
            f"per call under the profiler) bound {bound:.4f} ms plain "
            f"{plain_ms:.4f} ms max|d| {err:.3e}")
 
@@ -1335,10 +1485,7 @@ def bucketed_launch_a_times(ctx, routes):
                     st["ga"], grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0,
                     grid.mb, eta, m, "logistic", route=route)
             ms = cuda_ms(launch, 200)
-            n_prof = 50
-            _, busy, _ = device_split(lambda: [launch()
-                                               for _ in range(n_prof)])
-            dev_ms = busy / n_prof * 1e3
+            dev_ms, _ = device_ms_per_call(launch, 50)
             out[gname, route] = dict(ms=ms, device_ms=dev_ms, slots=slots)
             say(6, f"bucketed launch A alone, {gname} grid "
                    f"(buckets {grid.bucket_ks}, {slots} live slots), route "
@@ -1460,7 +1607,8 @@ def main() -> int:
              replaces="src/repro/kernels/dso_update.py:440", **t_row)]
     for name, label, ref in (
             ("swa_attention_tc", SWA_FULL[0][0], "swa_attention.py:81"),
-            ("swa_attention", SWA_FULL[2][0], "swa_attention.py:81"),
+            ("swa_attention_tf32x3", SWA_FULL[2][0], "swa_attention.py:81"),
+            ("swa_attention", SWA_FULL[4][0], "swa_attention.py:81"),
             ("ssd_scan", SSD_FULL[0][0], "ssd_scan.py:70")):
         r = dict(lm[name, label])
         r.pop("device_ms")

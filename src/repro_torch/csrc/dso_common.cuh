@@ -97,8 +97,8 @@ inline int sm_count() {
 template <auto Kernel>
 cudaError_t ctas_per_sm(int threads, size_t smem, int* per_sm) {
   static size_t last = 0;
-  static int n = 0;
-  if (smem != last) {
+  static int n = 0;                     // 0 until worked out
+  if (n == 0 || smem != last) {
     cudaError_t e = cudaFuncSetAttribute(
         Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)

@@ -1,4 +1,9 @@
-// Hand-written Hopper (sm_90a) kernel for sliding-window flash attention.
+// Hand-written Hopper (sm_90a) kernel for sliding-window flash attention on
+// the CUDA cores: the route of ops.swa_attention for bf16 q, k, v that the
+// tensor-core kernel (swa_attention_tc.cu) does not take, a head size that
+// is not a multiple of 8 or data that is not 16-byte aligned.  float32
+// takes swa_attention_tf32x3.cu; kernels/swa_attention.py swa_route names
+// the choice.
 //
 // Replaces the reference's Pallas TPU kernel
 //   src/repro/kernels/swa_attention.py _swa_kernel (:32), launched by
@@ -12,8 +17,8 @@
 //     s = (q . k) * scale, masked to -1e30;  m' = max(m, rowmax s);
 //     p = exp(s - m');  l = l * exp(m - m') + rowsum p;
 //     acc = acc * exp(m - m') + p V;   out = acc / max(l, 1e-30).
-// A query with no key in its window gets 0 (its m stays -1e30).  bf16 or
-// float32 inputs; the output is in the input's type.
+// A query with no key in its window gets 0 (its m stays -1e30).  bf16
+// inputs and output.
 //
 // What changes on the card.  The Pallas grid is (batch x head, q tile, kv
 // tile) with the kv axis sequential and fully masked kv tiles skipped by
@@ -38,7 +43,8 @@
 // Bound: operations.  4 * Dh flops per (query, attended key) pair; the
 // products are float32 FMAs on the CUDA cores (67 TFLOP/s), not the tensor
 // cores — the reference's bodies compute in float32 and this kernel keeps
-// that arithmetic.  Tensor cores (wgmma) and TMA are later work.
+// that arithmetic.  Unaligned data rules out the TMA copies of the
+// tensor-core kernel, and cp.async with mma.sync is later work.
 //
 // The entry point has a plain C interface for ctypes and returns
 // cudaGetLastError() after its launch.
@@ -232,26 +238,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous,
-// of one type (bf16 when is_bf16, else float32); Dh <= 128, Hq % Hkv == 0.
+// q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous
+// bf16; Dh <= 128, Hq % Hkv == 0.
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       int B, int Hq, int Hkv, int Tq, int Tk, int Dh,
                       long long window, int causal, long long q_offset,
-                      float scale, int is_bf16, void* stream) {
+                      float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const bool wide = Dh > 64;
-  if (is_bf16)
-    return wide ? launch<__nv_bfloat16, 8>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                           Dh, window, causal, q_offset,
-                                           scale, st)
-                : launch<__nv_bfloat16, 4>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                           Dh, window, causal, q_offset,
-                                           scale, st);
-  return wide ? launch<float, 8>(q, k, v, out, B, Hq, Hkv, Tq, Tk, Dh,
-                                 window, causal, q_offset, scale, st)
-              : launch<float, 4>(q, k, v, out, B, Hq, Hkv, Tq, Tk, Dh,
-                                 window, causal, q_offset, scale, st);
+  return Dh > 64 ? launch<__nv_bfloat16, 8>(q, k, v, out, B, Hq, Hkv, Tq,
+                                            Tk, Dh, window, causal, q_offset,
+                                            scale, st)
+                 : launch<__nv_bfloat16, 4>(q, k, v, out, B, Hq, Hkv, Tq,
+                                            Tk, Dh, window, causal, q_offset,
+                                            scale, st);
 }
 
 }  // extern "C"

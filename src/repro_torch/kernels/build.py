@@ -49,15 +49,20 @@ SIGNATURES = {
     "dso_dense_dual_scatter":
         [_P, _L, _L] + [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
     # csrc/dso_twopass.cu
+    "dso_twopass_route":
+        [_P, _L, _I],
     "dso_twopass_primal":
         [_P, _L, _I, _I] + [_P] * 4,
     "dso_twopass_dual":
-        [_P, _L, _I, _I] + [_P] * 6 + [_F, _F, _I, _P],
+        [_P, _L, _I, _I] + [_P] * 7 + [_F, _F, _I, _P],
     # csrc/swa_attention.cu
     "swa_attention_fwd":
-        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _I, _P],
+        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/swa_attention_tc.cu
     "swa_attention_tc_fwd":
+        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
+    # csrc/swa_attention_tf32x3.cu
+    "swa_attention_tf32x3_fwd":
         [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/ssd_scan.cu
     "ssd_scan_fwd":

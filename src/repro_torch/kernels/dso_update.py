@@ -134,6 +134,19 @@ def launch_dense_dual_scatter(X, ld: int, proc_stride: int, blk_ids, yg,
         LOSS_IDS[loss_name], stream(acc)))
 
 
+def twopass_route(X) -> str:
+    """The kernels the two-pass step runs for X (M, D) (unit column
+    stride), as ``dso_twopass.cu``'s entry points choose them: ``"span"``
+    (whole row spans in 16-byte loads; row stride a multiple of 4 floats
+    and 0 < D <= 381) or ``"rows"`` (4-byte loads, any stride); ``"plain"``
+    for a tensor off the card, which takes the plain version."""
+    if not X.is_cuda:
+        return "plain"
+    span = library().lib.dso_twopass_route(X.data_ptr(), X.stride(0),
+                                           X.shape[1])
+    return "span" if span else "rows"
+
+
 def launch_twopass_primal(X, alpha, acc, cnt):
     """The two-pass step's primal pass over X (M, D) (unit column stride,
     row stride ``X.stride(0)``): adds X^T alpha into ``acc`` (D,) and the
@@ -144,16 +157,16 @@ def launch_twopass_primal(X, alpha, acc, cnt):
         cnt.data_ptr(), stream(acc)))
 
 
-def launch_twopass_dual(X, w, alpha, alpha_out, ga, y, row_nnz, eta: float,
-                        m: float, loss_name: str):
+def launch_twopass_dual(X, w, alpha, alpha_out, ga, ga_out, y, row_nnz,
+                        eta: float, m: float, loss_name: str):
     """The two-pass step's dual pass: X w from the input ``w`` and the row
-    counts, then the dual step of every row from the input ``alpha`` into
-    ``alpha_out``, with ``ga`` updated in place."""
+    counts, then the dual step of every row from the input ``alpha`` and
+    ``ga`` into ``alpha_out`` and ``ga_out``, which it writes in full."""
     M, D = X.shape
     check("dso_twopass_dual", library().lib.dso_twopass_dual(
         X.data_ptr(), X.stride(0), M, D, w.data_ptr(), alpha.data_ptr(),
-        alpha_out.data_ptr(), ga.data_ptr(), y.data_ptr(),
-        row_nnz.data_ptr(), eta, m, LOSS_IDS[loss_name], stream(ga)))
+        alpha_out.data_ptr(), ga.data_ptr(), ga_out.data_ptr(), y.data_ptr(),
+        row_nnz.data_ptr(), eta, m, LOSS_IDS[loss_name], stream(ga_out)))
 
 
 # ------------------------------------------------------ plain versions --

@@ -28,10 +28,14 @@ Each wrapper counts its kernel launches in a plain int attribute,
     dso_primal_update.launches        launch B (shared by all of them)
     sparse_probe.launches             the probe kernel
     swa_attention.launches            sliding-window attention, the
-                                      CUDA-core kernel (float32, other Dh)
-    _swa_attention_tc.launches        ... its tensor-core kernel (bf16, Dh
-                                      a multiple of 8; listed as
+                                      CUDA-core kernel (bf16 with another
+                                      Dh or alignment)
+    _swa_attention_tc.launches        ... its bf16 tensor-core kernel (Dh a
+                                      multiple of 8, aligned; listed as
                                       ``swa_attention_tc``)
+    _swa_attention_tf32x3.launches    ... its float32 tensor-core kernel
+                                      (split TF32; listed as
+                                      ``swa_attention_tf32x3``)
     ssd_scan.launches                 the Mamba2 SSD scan
 
 One block step launches A then B once per row tile, so one inner
@@ -506,8 +510,9 @@ def _dso_tile_step_twopass(X, y, w, alpha, gw, ga, row_nnz, col_nnz,
     On the card: the primal pass (X^T alpha and the column counts into a
     zeroed accumulator), launch B fed those counts, and the dual pass (X w,
     the row counts and the dual step); both passes read the input w and
-    alpha.  It is the baseline the fused step is held against; no backend
-    runs it.
+    alpha, on the kernels the entry points pick by X's row stride and
+    width (``dso_update.twopass_route`` reports which).  It is the
+    baseline the fused step is held against; no backend runs it.
     """
     M, D = _check_tile(X, y, w, alpha, gw, ga, row_nnz, col_nnz)
     scal = _scalars(scalars)
@@ -515,7 +520,10 @@ def _dso_tile_step_twopass(X, y, w, alpha, gw, ga, row_nnz, col_nnz,
         return dso_update.dso_tile_step_twopass_plain(
             X, y, w, alpha, gw, ga, row_nnz, col_nnz, scal,
             loss_name=loss_name, reg_name=reg_name)
-    w2, a2, gw2, ga2 = w.clone(), alpha.clone(), gw.clone(), ga.clone()
+    # launch B updates w and gw in place; the dual pass writes every row
+    # of the new alpha and ga
+    w2, gw2 = w.clone(), gw.clone()
+    a2, ga2 = torch.empty_like(alpha), torch.empty_like(ga)
     w_grid, gw_grid = w2.view(1, D), gw2.view(1, D)
     cnt = torch.zeros_like(w)
     acc = _take_acc(w_grid)
@@ -524,7 +532,7 @@ def _dso_tile_step_twopass(X, y, w, alpha, gw, ga, row_nnz, col_nnz,
     _launch_primal(_tile_blk(X.device), w_grid, gw_grid, acc,
                    cnt.view(1, 1, D), col_nnz, 0, scal, reg_name)
     _give_acc(acc)
-    dso_update.launch_twopass_dual(X, w, alpha, a2, ga2, y, row_nnz,
+    dso_update.launch_twopass_dual(X, w, alpha, a2, ga, ga2, y, row_nnz,
                                    scal[0], scal[2], loss_name)
     _dso_tile_step_twopass.launches += 1
     return w2, a2, gw2, ga2
@@ -548,9 +556,10 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     themselves.  So ``causal=False`` with a Tk that 64 does not divide
     attends to no padded key, unlike the reference's padded call.  On the
     card the tensors must be contiguous and Dh at most 128, and
-    ``_swa.swa_route`` picks the kernel: the tensor-core one for bf16 with
-    Dh a multiple of 8 (16-byte-aligned data), the CUDA-core one for the
-    rest; each counts its own launches.
+    ``_swa.swa_route`` picks the kernel: split TF32 on the tensor cores
+    for float32, the bf16 tensor-core one for bf16 with Dh a multiple of 8
+    (16-byte-aligned data), the CUDA-core one for the rest; each counts
+    its own launches.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")
@@ -577,14 +586,14 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     out = torch.empty_like(q)
     route = _swa.swa_route(q.dtype, Dh, aligned=all(
         t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
-    tile = _swa.TC_QUERY_TILE if route == "tensor_cores" \
-        else _swa.QUERY_TILE
-    if -(-Tq // tile) > 65535:
+    if -(-Tq // _swa.QUERY_TILES[route]) > 65535:
         raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
                          f"query tiles")
     kw = dict(window=window, causal=bool(causal), q_offset=q_offset,
               scale=1.0 / Dh ** 0.5)
-    if route == "tensor_cores":
+    if route == "tf32x3":
+        _swa_attention_tf32x3(q, k, v, out, **kw)
+    elif route == "tensor_cores":
         _swa_attention_tc(q, k, v, out, **kw)
     else:
         _swa.launch_swa_attention(q, k, v, out, **kw)
@@ -603,6 +612,16 @@ def _swa_attention_tc(q, k, v, out, **kw):
 
 
 _swa_attention_tc.launches = 0
+
+
+def _swa_attention_tf32x3(q, k, v, out, **kw):
+    """The float32 route of ``swa_attention`` (split TF32 on the tensor
+    cores) on tensors it has checked, counted on its own."""
+    _swa.launch_swa_attention_tf32x3(q, k, v, out, **kw)
+    _swa_attention_tf32x3.launches += 1
+
+
+_swa_attention_tf32x3.launches = 0
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
@@ -651,7 +670,7 @@ _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             dso_bucketed_block_step, _dso_bucketed_block_step_shared,
             dso_block_step, dso_tile_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
-            ssd_scan)
+            _swa_attention_tf32x3, ssd_scan)
 
 
 def reset_launch_counts():
@@ -663,6 +682,6 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Each wrapper's launch count by its public name (the two-pass
     step's under ``dso_tile_step_twopass``, the tensor-core attention's
-    under ``swa_attention_tc``, the bucketed shared route's under
-    ``dso_bucketed_block_step_shared``)."""
+    under ``swa_attention_tc`` and ``swa_attention_tf32x3``, the bucketed
+    shared route's under ``dso_bucketed_block_step_shared``)."""
     return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

@@ -12,12 +12,15 @@ reference's ``max(l, 1e-30)`` floor (:74); the output is in q's type.  A
 query with no key in its window gets 0.
 
 Replaces the reference's Pallas kernel ``_swa_kernel``
-(``src/repro/kernels/swa_attention.py:32``, pallas_call :102) by two
+(``src/repro/kernels/swa_attention.py:32``, pallas_call :102) by three
 kernels, one per route (``swa_route``):
 
+- ``"tf32x3"``: float32 q, k, v (any Dh up to 128, any alignment),
+  ``csrc/swa_attention_tf32x3.cu`` (split TF32: three mma.sync TF32
+  products per float32 product);
 - ``"tensor_cores"``: bf16 q, k, v with Dh a multiple of 8 and 16-byte
   aligned data, ``csrc/swa_attention_tc.cu`` (wgmma products, TMA ring);
-- ``"cuda_cores"``: float32, or bf16 with another Dh or alignment,
+- ``"cuda_cores"``: bf16 with another Dh or alignment,
   ``csrc/swa_attention.cu`` (float32 FMAs).
 
 Each kernel's note gives its design.
@@ -30,9 +33,9 @@ import torch
 from repro_torch.kernels.build import check, library, stream
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # both kernels' widest head
-QUERY_TILE = 64             # query rows per CTA of the CUDA-core kernel
-TC_QUERY_TILE = 128         # ... and of the tensor-core kernel
+MAX_HEAD_DIM = 128          # the kernels' widest head
+# query rows per CTA of each route's kernel
+QUERY_TILES = {"tf32x3": 128, "tensor_cores": 128, "cuda_cores": 64}
 TC_HEAD_DIM_STEP = 8        # the tensor map's rows are 16-byte multiples
 # float32 score elements per chunk of queries in the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -40,31 +43,33 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 
 def swa_route(dtype, head_dim: int, aligned: bool = True) -> str:
     """The kernel that takes attention of ``dtype`` and head size
-    ``head_dim`` on the card: ``"tensor_cores"`` for bf16 with a head size
-    that is a multiple of 8 and 16-byte-aligned q, k, v (``aligned``),
-    else ``"cuda_cores"``.  Raises ``ValueError`` for a head size that
-    neither kernel takes and ``TypeError`` for another dtype."""
+    ``head_dim`` on the card: ``"tf32x3"`` for float32 (its copies fall to
+    4-byte ones for a Dh that is not a multiple of 4 or unaligned data, so
+    ``aligned`` does not matter there); for bf16 ``"tensor_cores"`` with a
+    head size that is a multiple of 8 and 16-byte-aligned q, k, v
+    (``aligned``), else ``"cuda_cores"``.  Raises ``ValueError`` for a
+    head size that no kernel takes and ``TypeError`` for another dtype."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the SWA kernels take float32 or bf16, got {dtype}")
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"the SWA kernels take 1 <= Dh <= {MAX_HEAD_DIM}, "
                          f"got {head_dim}")
-    if dtype == torch.bfloat16 and head_dim % TC_HEAD_DIM_STEP == 0 \
-            and aligned:
+    if dtype == torch.float32:
+        return "tf32x3"
+    if head_dim % TC_HEAD_DIM_STEP == 0 and aligned:
         return "tensor_cores"
     return "cuda_cores"
 
 
 def launch_swa_attention(q, k, v, out, *, window: int, causal: bool,
                          q_offset: int, scale: float):
-    """The CUDA-core kernel on contiguous q, k, v and ``out`` (like q), all
-    float32 or all bf16."""
+    """The CUDA-core kernel on contiguous bf16 q, k, v and ``out`` (like
+    q)."""
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     check("swa_attention_fwd", library().lib.swa_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-        Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale,
-        int(q.dtype == torch.bfloat16), stream(out)))
+        Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale, stream(out)))
 
 
 def launch_swa_attention_tc(q, k, v, out, *, window: int, causal: bool,
@@ -76,6 +81,19 @@ def launch_swa_attention_tc(q, k, v, out, *, window: int, causal: bool,
     check("swa_attention_tc_fwd", library().lib.swa_attention_tc_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
         Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale, stream(out)))
+
+
+def launch_swa_attention_tf32x3(q, k, v, out, *, window: int,
+                                causal: bool, q_offset: int, scale: float):
+    """The split-TF32 tensor-core kernel on contiguous float32 q, k, v and
+    ``out`` (like q)."""
+    B, Hq, Tq, Dh = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    check("swa_attention_tf32x3_fwd",
+          library().lib.swa_attention_tf32x3_fwd(
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              Hq, Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale,
+              stream(out)))
 
 
 def swa_attention_plain(q, k, v, *, window: int, causal: bool = True,

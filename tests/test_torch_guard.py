@@ -46,14 +46,17 @@ def test_guard_sees_the_whole_port():
             "chip_smoke.py"} <= names
     for src in ("dso_sparse.cu", "dso_update.cu", "dso_common.cuh",
                 "dso_twopass.cu", "swa_attention.cu", "swa_attention_tc.cu",
-                "ssd_scan.cu", "float_io.cuh", "async_copy.cuh"):
+                "swa_attention_tf32x3.cu", "ssd_scan.cu", "float_io.cuh",
+                "async_copy.cuh"):
         assert (REPO / "src/repro_torch/csrc" / src).exists()
     from repro_torch.kernels import build, ops
     assert {"dso_twopass_primal", "dso_twopass_dual", "swa_attention_fwd",
-            "swa_attention_tc_fwd", "ssd_scan_fwd",
-            "dso_bucketed_dual_scatter_shared"} <= set(build.SIGNATURES)
-    assert {"swa_attention", "swa_attention_tc", "dso_bucketed_block_step",
-            "dso_bucketed_block_step_shared"} <= set(ops.launch_counts())
+            "swa_attention_tc_fwd", "swa_attention_tf32x3_fwd",
+            "ssd_scan_fwd", "dso_bucketed_dual_scatter_shared"} \
+        <= set(build.SIGNATURES)
+    assert {"swa_attention", "swa_attention_tc", "swa_attention_tf32x3",
+            "dso_bucketed_block_step", "dso_bucketed_block_step_shared"} \
+        <= set(ops.launch_counts())
     assert "repro" != "repro_torch".split(".")[0]
 
 

@@ -16,8 +16,11 @@ interpret mode, at the tolerances of the reference's own kernel tests
   ``ops.ssd_scan(interpret=True)``;
 - the port's oracles ``swa_attention_ref`` and ``ssd_scan_ref`` within
   1e-5 of the reference's;
-- ``swa_route``, the choice between the two attention kernels on the
-  card, by dtype, head size and alignment, or its refusal.
+- ``swa_route``, the choice between the three attention kernels on the
+  card, by dtype, head size and alignment, or its refusal;
+- the float32 kernel's arithmetic (split TF32), emulated here bit for bit
+  per operand: within the float32 tolerance of a float64 attention, where
+  plain TF32 is not.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``,
 phases 3l and 7).
@@ -144,11 +147,23 @@ def test_swa_plain_rows_without_keys_next_to_rows_with_keys():
     (torch.bfloat16, 8, True, "tensor_cores"),
     (torch.bfloat16, 36, True, "cuda_cores"),      # not a multiple of 8
     (torch.bfloat16, 112, False, "cuda_cores"),    # no 16-byte tensor map
-    (torch.float32, 112, True, "cuda_cores"),
-    (torch.float32, 1, True, "cuda_cores"),
+    # float32 took the CUDA-core kernel until the split-TF32 kernel came;
+    # these two cases keep the ids they had then, as a test whose check
+    # rightly changes keeps its name (the route they assert is the 4th value)
+    pytest.param(torch.float32, 112, True, "tf32x3",
+                 id="dtype6-112-True-cuda_cores"),
+    pytest.param(torch.float32, 1, True, "tf32x3",
+                 id="dtype7-1-True-cuda_cores"),
     (torch.bfloat16, 136, True, ValueError),       # past both kernels
     (torch.float32, 0, True, ValueError),
     (torch.float16, 64, True, TypeError),
+    # the float32 route's edges: every head size up to 128, any alignment
+    (torch.float32, 112, False, "tf32x3"),          # 4-byte copies
+    (torch.float32, 36, True, "tf32x3"),            # depth padded to 48
+    (torch.float32, 8, True, "tf32x3"),
+    (torch.float32, 128, True, "tf32x3"),
+    (torch.float32, 129, True, ValueError),
+    (torch.bfloat16, 8, False, "cuda_cores"),
 ])
 def test_swa_route_picks_the_kernel_or_raises(dtype, head_dim, aligned,
                                               route):
@@ -157,6 +172,80 @@ def test_swa_route_picks_the_kernel_or_raises(dtype, head_dim, aligned,
     else:
         with pytest.raises(route):
             tswa.swa_route(dtype, head_dim, aligned)
+
+
+def _tf32(x):
+    """float32 -> TF32 (10 mantissa bits) rounded to nearest, ties away
+    from zero, on the bits as the kernel does it (cvt.rna.tf32)."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0x1000) & 0xFFFFE000
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(
+        torch.float32)
+
+
+def _toward_zero(x):
+    """float64 -> float32 rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mm_tf32(a, b, split):
+    """a (m, k) @ b (k, n) of float32 as ``swa_attention_tf32x3.cu`` chains
+    its mma.sync m16n8k8 steps: per 8-deep step, lo*hi, hi*lo and hi*hi of
+    the split operands (plain TF32: hi*hi alone), one after the other into
+    one float32 accumulator.  Each mma is modelled as the exact sum of its
+    8 products and the accumulator, truncated toward zero to float32, as
+    the tensor core's accumulator does not round to nearest.  The finer
+    detail of the hardware's sum (how it aligns the addends) is not
+    modelled: only the card shows it (chip_smoke.py, phases 3l and 7)."""
+    pad = -a.shape[1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    terms = [(al, bh), (ah, bl), (ah, bh)] if split else [(ah, bh)]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            acc = _toward_zero(acc.double() + x[:, k0:k0 + 8].double()
+                               @ y[k0:k0 + 8].double())
+    return acc
+
+
+def _attend(q, k, v, qpos, mm):
+    """Causal attention of rows at positions ``qpos`` over all of k, v:
+    (scores, output), products by ``mm``, the rest in q's type."""
+    ok = torch.arange(k.shape[0])[None, :] <= qpos[:, None]
+    s = mm(q, k.t()) / q.shape[1] ** 0.5
+    p = torch.exp(s.masked_fill(~ok, -1e30)
+                  - s.masked_fill(~ok, -1e30).amax(-1, keepdim=True))
+    p = p * ok
+    return s, mm(p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("keys", [64, 4096])
+@pytest.mark.parametrize("Dh", [112, 36])
+def test_split_tf32_holds_the_float32_tolerance(Dh, keys):
+    """The float32 kernel's products in split TF32 (three TF32 products per
+    float32 product, chained mma steps with a truncating accumulator) give
+    Q K^T and the attention output within SWA_TOL of float64, over one
+    64-key tile and over a 4,096-key causal row (16 query rows, a warp's
+    share, at the end of the keys); plain TF32 (one product) does not, so
+    the split is what holds the gate."""
+    rng = np.random.default_rng(Dh + keys)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, Dh)).astype(np.float32))
+               for n in (16, keys, keys))
+    qpos = torch.arange(keys - 16, keys)
+    s64, o64 = _attend(q.double(), k.double(), v.double(), qpos,
+                       lambda a, b: a @ b)
+    s3, o3 = _attend(q, k, v, qpos, lambda a, b: _mm_tf32(a, b, True))
+    s1, o1 = _attend(q, k, v, qpos, lambda a, b: _mm_tf32(a, b, False))
+    ok = torch.arange(keys)[None, :] <= qpos[:, None]
+    _close(s3[ok], s64[ok].numpy(), SWA_TOL, "split TF32 scores")
+    _close(o3, o64.numpy(), SWA_TOL, "split TF32 output")
+    for got, want in ((s1[ok], s64[ok]), (o1, o64)):
+        assert not np.allclose(got.numpy(), want.numpy(), **SWA_TOL)
 
 
 def test_swa_decode_offset():
