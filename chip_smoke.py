@@ -12,11 +12,14 @@ Phases, one line per result:
 3. sparse kernels vs plain versions on the card: the probe, then both
    sparse block-step kernels against their plain PyTorch versions on the
    same inputs for six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5
-   (rtol and atol; atomics reorder the scatter's sum), on three grids:
+   (rtol and atol; atomics reorder the scatter's sum), on five grids:
    power-law columns, the same with column 0 in every row (a hot column),
-   and a wide one (db 62,500: past the shared budget).  The bucketed
-   launch A's route is picked by db and the card's shared-memory limit;
-   each route's launch count must equal the cases routed to it.
+   and three wide ones (db 62,500: past the shared budget, the hot route):
+   power-law columns, the same columns under a random permutation (the
+   hot columns scattered over the block), and more distinct columns in a
+   block than the hot route has slots (its cold global atomics run).  The
+   bucketed launch A's route is picked by db and the card's shared-memory
+   limit; each route's launch count must equal the cases routed to it.
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
@@ -45,7 +48,7 @@ Phases, one line per result:
    configuration (dso_problems.py:29; the same loss and steps) on m
    19,996 rows and d 1,355,191 columns, 455 power-law draws per row; its
    db 338,798 is past the shared budget, so every bucketed launch A must
-   take the global route; same checks.
+   take the hot route (its table's bytes printed); same checks.
 5d. main path, dense: ``solve(problem, backend="auto")`` on the svm-ocr
    configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at ocr's width
    (d 1,156) with m 1,000,000 rows drawn on the card; ``auto`` must pick
@@ -68,12 +71,13 @@ Phases, one line per result:
    their window, Dh 36, 40, 64, 112 and 128; in float32 also the split-
    TF32 kernel's edges (a ragged 16-row warp slice, Dh 8, 30 and 128,
    window 1, a decode row at q_offset 4,088, GQA 4); in both dtypes q, k,
-   v not 16-byte aligned; SSD with n 128, dh 112-256,
+   v not 16-byte aligned; in bf16 also Dh 1, 30, 33 and 127 and a
+   misaligned Dh 36 (the packed route); SSD with n 128, dh 112-256,
    n = dh = 128, 32 and 64 chunks, b 2 with a ragged t, chunk 100, total
    decay;
    float32 runs the split-TF32 tensor-core kernel, bf16 with Dh a
-   multiple of 8 (aligned) the bf16 tensor-core one, other bf16 the
-   CUDA-core one, and each route's launch
+   multiple of 8 (aligned) the bf16 tensor-core one in place, other bf16
+   the same kernel on a packed copy, and each route's launch
    count must equal the cases routed to it; shapes past the kernels'
    limits must raise.  Bounds: float32 as the
    reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
@@ -81,12 +85,18 @@ Phases, one line per result:
    each round float32 sums that differ in order to bf16.
 6. times at the phase-4/5/5n/5d shapes with CUDA events: each kernel's ms
    per call beside its bound (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s float32), its plain version's ms and, for the dense kernel,
-   the cuBLAS mat-vecs computing the same two products (``torch.mv``,
-   never called by the port).  Then the bucketed launch A alone at the
-   logistic-real-sim shape, both routes in turn (global, shared, shared,
-   global), on its power-law grid and on a K-bucketed grid of the uniform
-   svm-real-sim CSR.
+   TFLOP/s float32), its plain version's ms and the library calls
+   computing the same two products (``torch.mv``, never called by the
+   port): cuBLAS for the dense kernel, cuSPARSE on CSR copies of the
+   active tiles and their transposes for the sparse ones; the probe's
+   device time.  At news20's shape the block step also on the global
+   route, in the same run.  Then the bucketed launch A alone: at the
+   logistic-real-sim shape the shared and global routes in turn (global,
+   shared, shared, global) on its power-law grid and on a K-bucketed grid
+   of the uniform svm-real-sim CSR; at news20's shape the hot and global
+   routes in turn (global, hot, hot, global), and the hot route with its
+   slots per CTA the SM's shared memory split 1 to 8 ways, the
+   measurement behind ``dso_sparse.HOT_SMEM_SHARE``.
 7. the LM kernels at zamba2-7b's widths (bf16, 32 heads of 112, SSD 112
    heads of 64 with state 64, chunk 128), each case driven once through
    ``ops`` with the counts set to 0 just before and read just after:
@@ -99,7 +109,8 @@ Phases, one line per result:
    split-TF32 kernel (beside SDPA in float32; bound at 3 TF32 products
    per float32 product, the float32 FMA bound beside it; also at T 73,728
    with the 8,192 window), and at T 16,384
-   in bf16 on a misaligned copy, counted on the CUDA-core kernel; device
+   in bf16 on a misaligned copy, counted on the packed route (beside SDPA
+   on an aligned copy); device
    times per launch from a trace of 3 calls, over the launches it holds;
    the SSD scan
    at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
@@ -389,17 +400,41 @@ def run_step(kind, grid, st, blk, scal, rb, loss, reg, plain):
            reg_name=reg)
 
 
-def compare_step(kind, grid, st, blk, scal, rb, loss, reg):
+def compare_step(kind, grid, st, blk, scal, rb, loss, reg, step=None):
     """Kernel vs plain version on clones of the same state: max|d| and
-    whether every field is within the bound."""
+    whether every field is within the bound.  ``step(st)`` replaces the
+    kernel wrapper's block step."""
     import torch
     a = {k: v.clone() for k, v in st.items()}
     b = {k: v.clone() for k, v in st.items()}
-    run_step(kind, grid, a, blk, scal, rb, loss, reg, plain=False)
+    if step is None:
+        run_step(kind, grid, a, blk, scal, rb, loss, reg, plain=False)
+    else:
+        step(a)
     run_step(kind, grid, b, blk, scal, rb, loss, reg, plain=True)
     torch.cuda.synchronize()
     errs = [max_rel_err(a[k], b[k]) for k in st]
     return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
+def global_route_step(grid, blk, scal, loss):
+    """``step(st)``: one block step (row_batches 1) of the bucketed grid
+    with launch A on the global route, by its launchers (uncounted): the
+    baseline the hot route is timed against, which no wrapper takes."""
+    import torch
+    from repro_torch.kernels import dso_sparse
+    acc = torch.zeros(grid.p, grid.db, device=grid.yg.device)
+
+    def step(st):
+        dso_sparse.launch_bucketed_dual_scatter(
+            grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt, blk,
+            grid.yg, st["w_grid"], st["alpha"], st["ga"],
+            grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0, grid.mb, scal[0],
+            scal[2], loss, route="global")
+        dso_sparse.launch_primal_update(blk, st["w_grid"], st["gw_grid"],
+                                        acc, grid.tile_col_nnz_g,
+                                        grid.col_nnz, 0, scal, "l2")
+    return step
 
 
 # ---------------------------------------------------------------- phases --
@@ -426,13 +461,71 @@ def phase3_csr(m, d, alpha, hot, seed):
     return csr, y
 
 
-# phase 3's CSRs: (name, m, d, alpha, hot column, seed, bucketed route
-# expected)
-PHASE3_CSRS = [("power-law", 1000, 512, 1.3, False, 5, "shared"),
-               ("hot column", 1000, 512, 1.3, True, 7, "shared"),
+def wide_csr(m, d, alpha, permute, seed):
+    """A CSR of ``m`` rows over ``d`` columns for phase 3's wide grids,
+    drawn vectorised: 2-59 power-law (``alpha``) draws per row with
+    replacement, sorted and deduplicated per row; ``permute``: the columns
+    of each of the P column blocks under a random permutation of the block,
+    so the popular columns lie anywhere in their blocks (each block keeps
+    its share of the draws, so the tiles still fall in several K
+    buckets)."""
+    import numpy as np
+    from repro_torch.sparse import CSRMatrix
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, d + 1, dtype=np.float64) ** -alpha
+    pop /= pop.sum()
+    ks = rng.integers(2, 60, m)
+    cols = rng.choice(d, size=(m, 59), replace=True, p=pop)
+    if permute:
+        db = -(-d // P)
+        perm = np.concatenate([b * db + rng.permutation(min(db, d - b * db))
+                               for b in range(P)])
+        cols = perm[cols]
+    cols = np.where(np.arange(59) < ks[:, None], cols, d)
+    cols.sort(axis=1)
+    keep = cols < d
+    keep[:, 1:] &= cols[:, 1:] != cols[:, :-1]
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(keep.sum(axis=1), out=indptr[1:])
+    csr = CSRMatrix(indptr, cols[keep].astype(np.int32),
+                    rng.normal(0, 1, indptr[-1]).astype(np.float32), (m, d))
+    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    return csr, y
+
+
+# phase 3's CSRs: (name, m, d, alpha, seed, bucketed route expected,
+# generator, its flag: phase3_csr's hot column or wide_csr's permutation)
+PHASE3_CSRS = [("power-law", 1000, 512, 1.3, 5, "shared", phase3_csr, False),
+               ("hot column", 1000, 512, 1.3, 7, "shared", phase3_csr, True),
                # db 62,500 at p 4: 250,000 B of sums, past the shared
                # budget; alpha 0.9 spreads its tiles over 4 K buckets
-               ("wide", 400, 250000, 0.9, False, 9, "global")]
+               ("wide", 400, 250000, 0.9, 9, "hot", phase3_csr, False),
+               # the same kind of columns, permuted within each block:
+               # the hot columns scattered
+               ("wide, permuted", 400, 250000, 0.9, 10, "hot", wide_csr,
+                True),
+               # ~180 K draws: block 0 holds more distinct columns than
+               # the hot route has slots, so some go to global atomics
+               ("wide, cold", 6000, 250000, 0.9, 11, "hot", wide_csr,
+                False)]
+
+
+def block_distinct(grid):
+    """The most distinct columns of one block that the grid's tiles hold,
+    over the blocks, from its flat chunk view."""
+    import torch
+    p, db = grid.p, grid.db
+    cols, vals = grid.cols_fl, grid.vals_fl
+    blk_of_chunk = torch.full((p, cols.shape[1]), -1, dtype=torch.long,
+                              device=cols.device)
+    for q in range(p):
+        for b in range(p):
+            n = int(grid.chunk_cnt[q, b])
+            blk_of_chunk[q, grid.chunk_lut[q, b, :n].long()] = b
+    live = vals != 0
+    b = blk_of_chunk[:, :, None, None].expand_as(cols)[live]
+    return int(max(torch.unique(cols[live][b == k]).numel()
+                   for k in range(p)))
 
 
 def phase_kernels(dev):
@@ -447,12 +540,16 @@ def phase_kernels(dev):
     check(err is None, f"probe failed: {err}")
     say(3, "probe: gather + atomicAdd scatter matches its plain version")
     limit = ops.shared_memory_limit(dev)
+    slots = ops.hot_slots(dev)
+    _, reached = dso_sparse.hot_slots()
+    say(3, f"hot route: {slots} slots per CTA (the SM's shared memory split "
+           f"{dso_sparse.HOT_SMEM_SHARE} ways), {reached} CTAs per SM")
     blk = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=dev)
     worst = 0.0
-    want = {r: 0 for r in dso_sparse.BUCKETED_ROUTES}
+    want = {r: 0 for r in ROUTE_COUNTERS}
     ops.reset_launch_counts()
-    for name, m, d, alpha, hot, seed, route in PHASE3_CSRS:
-        csr, y = phase3_csr(m, d, alpha, hot, seed)
+    for name, m, d, alpha, seed, route, draw, flag in PHASE3_CSRS:
+        csr, y = draw(m, d, alpha, flag, seed)
         for rb in (1, 3):
             grids = {"sparse": sparse_grid_from_csr(csr, y, P, rb,
                                                     device=dev),
@@ -464,6 +561,12 @@ def phase_kernels(dev):
                                 f"{limit} B limit, expected {route}")
             check(len(bgrid.bucket_ks) >= 3,
                   f"{name}: bucketed case has {bgrid.bucket_ks}")
+            if name == "wide, cold":
+                most = block_distinct(bgrid)
+                say(3, f"{name}: up to {most} distinct columns in a block "
+                       f"against {slots} hot slots")
+                check(most > slots, f"{name}: {most} distinct columns in a "
+                                    f"block fit the {slots} hot slots")
             for loss, reg in LOSS_REG_PAIRS:
                 for kind, grid in grids.items():
                     st = random_state(grid, loss, seed=rb)
@@ -482,12 +585,17 @@ def phase_kernels(dev):
                               f"disagrees with its plain version (max|d| "
                               f"{e:.3e})")
     counts = ops.launch_counts()
-    got = {"shared": counts["dso_bucketed_block_step_shared"],
-           "global": counts["dso_bucketed_block_step"]}
+    got = {r: counts[c] for r, c in ROUTE_COUNTERS.items()}
     say(3, f"bucketed launch A by route {got} (cases routed: {want}; "
-           f"shared-memory limit {limit} B)")
+           f"shared-memory limit {limit} B, hot slots {slots})")
     check(got == want, f"bucketed routes {got} != {want}")
     return worst
+
+
+# the launch count of each route of the bucketed launch A that
+# ``bucketed_route`` picks (the global route is its baseline, never picked)
+ROUTE_COUNTERS = {"shared": "dso_bucketed_block_step_shared",
+                  "hot": "dso_bucketed_block_step"}
 
 
 def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
@@ -541,8 +649,20 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
     if be.layout == "bucketed":
         got = dso_sparse.bucketed_route(grid.db, ops.shared_memory_limit(dev))
         check(got == route, f"db {grid.db} routes {got}, expected {route}")
-        counter = {"shared": "dso_bucketed_block_step_shared",
-                   "global": "dso_bucketed_block_step"}[route]
+        counter = ROUTE_COUNTERS[route]
+    if route == "hot":
+        hot, hot_cols = ops.grid_hot_table(grid.col_nnz, P, grid.db)
+        say(phase, f"hot table: {hot.nbytes + hot_cols.nbytes} B on the card "
+                   f"(column -> slot {tuple(hot.shape)}, slot -> column "
+                   f"{tuple(hot_cols.shape)}), built once for the grid")
+        cnt = np.bincount(csr.indices, minlength=P * grid.db).reshape(
+            P, grid.db)
+        hc = hot_cols.cpu().numpy()
+        say(phase, "nonzeros by block (share of all; share in the block's "
+                   "hot columns): " + ", ".join(
+                       f"{b}: {cnt[b].sum() / cnt.sum():.4f}; "
+                       f"{cnt[b, hc[b]].sum() / max(cnt[b].sum(), 1):.4f}"
+                       for b in range(P)))
     want = dict({k: 0 for k in counts}, sparse_probe=1,
                 dso_primal_update=n_step, **{counter: n_step})
     say(phase, f"launch counts {counts} (design: {want}"
@@ -585,7 +705,8 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
                f"{1 - busy / wall:.3f}; top kernels (us): "
                + ", ".join(f"{k[:48]}={us:.1f}" for k, us, _ in kernels[:6]))
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
-                lam=lam, m=csr.m, state=res.state, counter=counter)
+                lam=lam, m=csr.m, state=res.state, counter=counter,
+                route=route)
 
 
 def tile_cases(dev):
@@ -772,7 +893,7 @@ SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
              (2, 8, 2, 8, 4096, 112, 4096, True, 4088),   # decode, Dh 112
              (1, 4, 1, 130, 190, 112, 50, False, 0),      # ragged Tq != Tk
              (1, 4, 1, 16, 32, 64, 4, True, 30),          # rows 5.. see no key
-             (1, 2, 1, 77, 77, 36, 20, True, 0)]          # Dh 36: CUDA cores
+             (1, 2, 1, 77, 77, 36, 20, True, 0)]          # Dh 36: packed
 # float32 only: the edges of the split-TF32 kernel's tiling (128 queries
 # per CTA in warps of 16 rows, kv tiles of 32, depth padded to 16)
 SWA_F32_CASES = [(1, 2, 1, 141, 141, 112, 1000, True, 0),  # ragged warp
@@ -783,11 +904,19 @@ SWA_F32_CASES = [(1, 2, 1, 141, 141, 112, 1000, True, 0),  # ragged warp
                  (1, 4, 1, 1, 4089, 112, 4096, True, 4088),  # decode row
                  (2, 8, 2, 200, 200, 112, 150, True, 0),   # GQA 4
                  (1, 2, 1, 90, 90, 30, 45, True, 0)]       # Dh 30: 4-byte
+# bf16 only: head sizes off a multiple of 8, packed into rows of
+# roundup(Dh, 8) (an odd Dh stores its output one bf16 at a time)
+SWA_BF16_CASES = [(1, 4, 1, 200, 200, 30, 100, True, 0),     # Dh 30
+                  (1, 2, 2, 130, 130, 33, 1000, True, 0),    # Dh 33, odd
+                  (1, 4, 2, 150, 150, 1, 64, True, 0),       # Dh 1
+                  (1, 2, 1, 260, 260, 127, 130, True, 0),    # Dh 127
+                  (2, 4, 2, 8, 1024, 33, 512, True, 1016)]   # decode, odd
 # both dtypes, q, k, v one element into a larger buffer (not 16-byte
 # aligned): float32 stays on split TF32 (4-byte copies), bf16 takes the
-# CUDA-core kernel
+# packed route
 SWA_MISALIGNED_CASES = [(1, 4, 2, 150, 150, 112, 64, True, 0),
-                        (1, 2, 2, 100, 100, 64, 100, False, 0)]
+                        (1, 2, 2, 100, 100, 64, 100, False, 0),
+                        (1, 4, 2, 140, 140, 36, 70, True, 0)]     # Dh 36
 # (b, t, h, dh, n, chunk, A fill or None)
 SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
              (2, 256, 3, 32, 16, 64, None),
@@ -857,7 +986,8 @@ def phase_lm_kernels(dev):
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         cases = [(c, True) for c in SWA_CASES] \
-            + [(c, True) for c in (SWA_F32_CASES if not bf16 else [])] \
+            + [(c, True) for c in (SWA_BF16_CASES if bf16
+                                   else SWA_F32_CASES)] \
             + [(c, False) for c in SWA_MISALIGNED_CASES]
         for (B, Hq, Hkv, Tq, Tk, Dh, window, causal, off), aligned in cases:
             route = swa.swa_route(dtype, Dh, aligned)
@@ -899,7 +1029,7 @@ def phase_lm_kernels(dev):
     counts = ops.launch_counts()
     got_routes = {"tf32x3": counts["swa_attention_tf32x3"],
                   "tensor_cores": counts["swa_attention_tc"],
-                  "cuda_cores": counts["swa_attention"]}
+                  "packed": counts["swa_attention"]}
     say("3l", f"swa_attention launches by route {got_routes} (cases routed: "
               f"{want_routes})")
     check(got_routes == want_routes,
@@ -932,7 +1062,7 @@ def phase_lm_kernels(dev):
 # above full_attn_max 65,536; bf16.  mamba2-370m: 32 SSD heads, state 128.
 ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 112
 # (label, T, window, dtype name, launch counter, misaligned): the
-# misaligned bf16 case keeps the CUDA-core kernel timed at this shape
+# misaligned bf16 case times the packed route at this shape
 SWA_FULL = [("causal, window >= T", 16384, 16384, "bfloat16",
              "swa_attention_tc", False),
             ("sliding window", 73728, 8192, "bfloat16", "swa_attention_tc",
@@ -1072,11 +1202,13 @@ def phase_lm_full(dev):
         del out, want
         ms = cuda_ms(lambda: ops.swa_attention(q, k, v, window=window), 3,
                      warm=1)
-        busy, _ = device_ms_per_call(
+        busy, kern = device_ms_per_call(
             lambda: ops.swa_attention(q, k, v, window=window), 3)
         plain_ms = cuda_ms(lambda: swa.swa_attention_plain(
             q, k, v, window=window), 2, warm=0)
-        lib_ms, lib = sdpa_ms(q, k, v, window)
+        # SDPA on an aligned copy of a misaligned case's q, k, v
+        lib_ms, lib = sdpa_ms(*((a.clone() for a in (q, k, v)) if misaligned
+                                else (q, k, v)), window)
         split = counter == "swa_attention_tf32x3"
         bound, by = swa_bound(B, H, H, T, T, DH, window, 0,
                               q.element_size(), split_tf32=split)
@@ -1091,7 +1223,9 @@ def phase_lm_full(dev):
                                     launches=n, device_ms=busy)
         say(7, f"{counter} {dname} B={B} H={H} T={T} Dh={DH} "
                f"window={window} ({label}): {ms:.4f} ms per call (device "
-               f"time {busy:.4f} ms per call under the profiler), bound "
+               f"time {busy:.4f} ms per call under the profiler: "
+               + ", ".join(f"{k[:40]}={kms:.4f}" for k, kms in kern[:3])
+               + f"), bound "
                f"{bound:.4f} ms ({by}){extra}, plain {plain_ms:.4f} ms, "
                f"{lib} " + (f"{lib_ms:.4f} ms" if lib_ms is not None
                             else "-") + f", max|d| {err:.3e}")
@@ -1380,10 +1514,43 @@ def packed_bytes(ctx, blk):
     return live * grid.mb * 8 * 8
 
 
+def cusparse_pair(ctx, blk, st):
+    """The cuSPARSE calls computing a block step's two products: for each
+    processor q, X_q w and X_q^T alpha_q by ``torch.mv`` on CSR copies of
+    its active tile (q, blk[q]) and of the tile's transpose, made here,
+    before any timing.  Never called by the port."""
+    import torch
+    from repro_torch.kernels import dso_sparse
+    grid = ctx["grid"]
+    p, mb, db = grid.p, grid.mb, grid.db
+    b = blk.long()
+    if ctx["layout"] == "sparse":
+        qi = torch.arange(p, device=blk.device)
+        cols, vals = grid.cols_g[qi, b], grid.vals_g[qi, b]
+    else:
+        cols, vals = dso_sparse.stage_bucketed(
+            grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt, b)
+    mats = []
+    for q in range(p):
+        live = vals[q] != 0
+        rows = torch.arange(mb, device=blk.device)[:, None].expand_as(
+            live)[live]
+        c, v = cols[q][live].long(), vals[q][live]
+        a = torch.sparse_coo_tensor(torch.stack([rows, c]), v, (mb, db))
+        at = torch.sparse_coo_tensor(torch.stack([c, rows]), v, (db, mb))
+        mats.append((a.coalesce().to_sparse_csr(),
+                     at.coalesce().to_sparse_csr(), int(b[q]), q))
+    return lambda: [(torch.mv(a, st["w_grid"][bb]),
+                     torch.mv(at, st["alpha"][q])) for a, at, bb, q in mats]
+
+
 def phase_times(ctx):
     """Phase 6 for one main-path layout: the block-step kernel and the
-    primal kernel at that shape, each beside its bound and plain version;
-    the comparison at this shape gives max_abs_err."""
+    primal kernel at that shape, each beside its bound and plain version,
+    the block step beside the cuSPARSE pair of its products; the
+    comparison at this shape gives max_abs_err.  On the hot route the
+    block step is also timed on the global route (asked for by name), in
+    turns: hot, global, global, hot."""
     import torch
     from repro_torch.kernels import dso_sparse, ops
     grid, layout, loss = ctx["grid"], ctx["layout"], ctx["loss"]
@@ -1394,21 +1561,39 @@ def phase_times(ctx):
     scal = scalars(loss, ctx["lam"], ctx["m"])
     err, ok = compare_step(layout, grid, st0, blk, scal, 1, loss, "l2")
     check(ok, f"{layout} kernel disagrees at the main-path shape: {err}")
-    st = {k: v.clone() for k, v in st0.items()}
-    ms = cuda_ms(lambda: run_step(layout, grid, st, blk, scal, 1, loss,
-                                  "l2", plain=False), 200)
-    busy, _ = device_ms_per_call(lambda: run_step(
-        layout, grid, st, blk, scal, 1, loss, "l2", plain=False), 50)
+    routes = [None]
+    if ctx.get("route") == "hot":
+        glob = global_route_step(grid, blk, scal, loss)
+        g_err, g_ok = compare_step(layout, grid, st0, blk, scal, 1, loss,
+                                   "l2", step=glob)
+        check(g_ok, f"the global route disagrees at the main-path shape: "
+                    f"{g_err}")
+        routes = [None, "global", "global", None]
+    times = {}
+    for route in routes:
+        st = {k: v.clone() for k, v in st0.items()}
+        if route is None:
+            step = lambda: run_step(layout, grid, st, blk, scal, 1,  # noqa
+                                    loss, "l2", plain=False)
+        else:
+            step = lambda: glob(st)  # noqa: E731
+        ms = cuda_ms(step, 200)
+        busy, kern = device_ms_per_call(step, 50)
+        times.setdefault(route, []).append((ms, busy, kern))
+    ms = sum(t[0] for t in times[None]) / len(times[None])
+    busy = sum(t[1] for t in times[None]) / len(times[None])
     st = {k: v.clone() for k, v in st0.items()}
     plain_ms = cuda_ms(lambda: run_step(layout, grid, st, blk, scal, 1,
                                         loss, "l2", plain=True), 20)
+    lib_ms = cuda_ms(cusparse_pair(ctx, blk, st0), 200)
     p, mb, db = grid.p, grid.mb, grid.db
     slots = packed_bytes(ctx, blk) // 8
     nbytes = slots * 8 + 28 * p * mb + 24 * p * db
     ops_n = 4 * slots + 20 * p * mb + 12 * p * db
     bound = max(nbytes / HBM_BYTES_S, ops_n / F32_OPS_S) * 1e3
     name = ctx["counter"]
-    step = dict(name=name, route="cuda",
+    row = name + "_hot" if ctx.get("route") == "hot" else name
+    step = dict(name=row, route="cuda",
                 source="src/repro_torch/csrc/dso_sparse.cu",
                 replaces={"sparse": "src/repro/kernels/dso_sparse.py:116",
                           "bucketed": "src/repro/kernels/dso_sparse.py:304"}
@@ -1416,11 +1601,28 @@ def phase_times(ctx):
                 launches=ctx["counts"][name], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_S
-                >= ops_n / F32_OPS_S else "operations", library_ms=None)
-    say(6, f"{name}: {ms:.4f} ms per call (A+B, {p} processors, "
+                >= ops_n / F32_OPS_S else "operations", library_ms=lib_ms)
+    say(6, f"{row}: {ms:.4f} ms per call (A+B, {p} processors, "
            f"{slots} packed slots; device time {busy:.4f} ms "
-           f"per call under the profiler) bound {bound:.4f} ms plain "
-           f"{plain_ms:.4f} ms max|d| {err:.3e}")
+           f"per call under the profiler: "
+           + ", ".join(f"{k[:44]}={kms * 1e3:.1f}us"
+                       for k, kms in times[None][0][2][:3])
+           + f") bound {bound:.4f} ms plain {plain_ms:.4f} ms cuSPARSE mv "
+             f"pair {lib_ms:.4f} ms max|d| {err:.3e}"
+           + (f"; turns (ms, device ms): "
+              + ", ".join(f"{r or 'hot'} {t[0]:.4f}/{t[1]:.4f}"
+                          for r in ("hot", "global")
+                          for t in times[None if r == "hot" else r])
+              if len(routes) > 1 else ""))
+    if len(routes) > 1:
+        g = times["global"]
+        say(6, f"{row} at this shape on the global route (its launchers, "
+               f"uncounted): {sum(t[0] for t in g) / len(g):.4f} ms per call, "
+               f"device {sum(t[1] for t in g) / len(g):.4f} ms per call "
+               f"(" + ", ".join(f"{k[:44]}={kms * 1e3:.1f}us"
+                                for k, kms in g[0][2][:3])
+               + f"), max|d| {g_err:.3e}; the hot route {busy:.4f} ms of "
+                 f"device time, bound {bound:.4f} ms")
 
     acc = torch.randn(p, db, device=dev, generator=torch.Generator(
         device=dev).manual_seed(1)) * 1e-2
@@ -1452,46 +1654,71 @@ def phase_times(ctx):
     return step, primal
 
 
-def bucketed_launch_a_times(ctx, routes):
-    """Phase 6, row 2's launch A alone at the logistic-real-sim shape
-    (p 4, mb 18,078, db 5,240, blocks [1, 2, 3, 0]), each route in
-    ``routes`` on two grids: the power-law grid of phase 5 and a K-bucketed
-    grid of phase 4's uniform svm-real-sim CSR.  Per (grid, route): ms per
-    launch by CUDA events over 200 back-to-back launches and the device ms
-    per launch under the profiler over 50, beside the bytes bound of its
-    live slots.  Launch A is called directly (no launch B, so the
-    accumulator keeps growing, which changes no work), and these launches
-    are not counted."""
+def launch_a_time(label, grid, route, hot, lam, m):
+    """The bucketed launch A alone on ``grid`` (blocks [1, 2, 3, 0]) by
+    ``route`` (the hot route with the table ``hot``): ms per launch by
+    CUDA events over 200 back-to-back launches and the device ms per
+    launch under the profiler over 50, beside the bytes bound of its live
+    slots.  Launch A is called directly (no launch B, so the accumulator
+    keeps growing, which changes no work), and these launches are not
+    counted."""
     import torch
     from repro_torch.kernels import dso_sparse
-    from repro_torch.sparse import bucketed_grid_from_csr
-    dev = ctx["grid"].yg.device
-    csr, y = realsim_csr(REALSIM_M, REALSIM_D, REALSIM_K, None, seed=4)
-    grids = {"power-law": ctx["grid"],
-             "uniform": bucketed_grid_from_csr(csr, y, P, 1, device=dev)}
+    dev = grid.yg.device
     blk = torch.tensor([1, 2, 3, 0], dtype=torch.int32, device=dev)
-    eta, _, m, _, _ = scalars("logistic", ctx["lam"], ctx["m"])
+    eta, _, m, _, _ = scalars("logistic", lam, m)
+    st = random_state(grid, "logistic", seed=6)
+    acc = torch.zeros_like(st["w_grid"])
+    slots = packed_bytes(dict(grid=grid, layout="bucketed"), blk) // 8
+    nbytes = slots * 8 + 28 * grid.p * grid.mb
+
+    def launch():
+        dso_sparse.launch_bucketed_dual_scatter(
+            grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt, blk,
+            grid.yg, st["w_grid"], st["alpha"], st["ga"],
+            grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0, grid.mb, eta, m,
+            "logistic", route=route, hot=hot)
+    ms = cuda_ms(launch, 200)
+    dev_ms, _ = device_ms_per_call(launch, 50)
+    say(6, f"bucketed launch A alone, {label} (buckets {grid.bucket_ks}, "
+           f"{slots} live slots), route {route}: {ms:.4f} ms per launch "
+           f"(events), device {dev_ms:.4f} ms per launch under the "
+           f"profiler; bytes bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms")
+    return dict(ms=ms, device_ms=dev_ms, slots=slots)
+
+
+def bucketed_launch_a_times(buck, news):
+    """Phase 6, the bucketed launch A alone: at the logistic-real-sim
+    shape (p 4, mb 18,078, db 5,240) the global and shared routes in turns
+    on the power-law grid of phase 5 and on a K-bucketed grid of phase 4's
+    uniform svm-real-sim CSR; at news20's shape (db 338,798) the global
+    and hot routes in turns, then the hot route with its slots per CTA the
+    SM's shared memory split 1 to 8 ways (``dso_sparse.hot_slots``)."""
+    from repro_torch.kernels import dso_sparse, ops
+    from repro_torch.sparse import bucketed_grid_from_csr
+    dev = buck["grid"].yg.device
+    csr, y = realsim_csr(REALSIM_M, REALSIM_D, REALSIM_K, None, seed=4)
+    grids = {"power-law grid": buck["grid"],
+             "uniform grid": bucketed_grid_from_csr(csr, y, P, 1,
+                                                    device=dev)}
     out = {}
     for gname, grid in grids.items():
-        st = random_state(grid, "logistic", seed=6)
-        acc = torch.zeros_like(st["w_grid"])
-        slots = packed_bytes(dict(grid=grid, layout="bucketed"), blk) // 8
-        nbytes = slots * 8 + 28 * grid.p * grid.mb
-        for route in routes:
-            def launch():
-                dso_sparse.launch_bucketed_dual_scatter(
-                    grid.cols_fl, grid.vals_fl, grid.chunk_lut,
-                    grid.chunk_cnt, blk, grid.yg, st["w_grid"], st["alpha"],
-                    st["ga"], grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0,
-                    grid.mb, eta, m, "logistic", route=route)
-            ms = cuda_ms(launch, 200)
-            dev_ms, _ = device_ms_per_call(launch, 50)
-            out[gname, route] = dict(ms=ms, device_ms=dev_ms, slots=slots)
-            say(6, f"bucketed launch A alone, {gname} grid "
-                   f"(buckets {grid.bucket_ks}, {slots} live slots), route "
-                   f"{route}: {ms:.4f} ms per launch (events), device "
-                   f"{dev_ms:.4f} ms per launch under the profiler; bytes "
-                   f"bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms")
+        for route in ("global", "shared", "shared", "global"):
+            out.setdefault((gname, route), []).append(launch_a_time(
+                gname, grid, route, None, buck["lam"], buck["m"]))
+    grid = news["grid"]
+    table = ops.grid_hot_table(grid.col_nnz, grid.p, grid.db)
+    for route in ("global", "hot", "hot", "global"):
+        out.setdefault(("news20", route), []).append(launch_a_time(
+            "news20 grid", grid, route, table if route == "hot" else None,
+            news["lam"], news["m"]))
+    for share in range(1, 9):
+        n, reached = dso_sparse.hot_slots(share)
+        hot = dso_sparse.hot_table(grid.col_nnz, grid.p, grid.db, n)
+        out["news20", f"hot, shared memory split {share} ways"] = [
+            launch_a_time(f"news20 grid, {n} hot slots (the SM's shared "
+                          f"memory split {share} ways; {reached} CTAs per "
+                          f"SM)", grid, "hot", hot, news["lam"], news["m"])]
     return out
 
 
@@ -1502,10 +1729,12 @@ def probe_times(dev):
     err = float((ops.sparse_probe(cols, w)
                  - dso_sparse.probe_plain(cols, w)).abs().max())
     ms = cuda_ms(lambda: ops.sparse_probe(cols, w), 200)
+    busy, _ = device_ms_per_call(lambda: ops.sparse_probe(cols, w), 50)
     plain_ms = cuda_ms(lambda: dso_sparse.probe_plain(cols, w), 200)
     nbytes = cols.numel() * 4 + 2 * w.numel() * 4
     torch.cuda.synchronize()
-    say(6, f"sparse_probe: {ms:.4f} ms bound "
+    say(6, f"sparse_probe: {ms:.4f} ms per call (device time {busy:.4f} ms "
+           f"per call under the profiler) bound "
            f"{nbytes / HBM_BYTES_S * 1e3:.2e} ms plain {plain_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                 bound_ms=nbytes / HBM_BYTES_S * 1e3)
@@ -1562,13 +1791,13 @@ def main() -> int:
                       route="shared")
     news = phase_main("5n", dev, loss="logistic", lam=1e-4, alpha0=0.0005,
                       powerlaw=1.3, expect="sparse_bucketed_pallas", seed=6,
-                      shape=(NEWS20_M, NEWS20_D, NEWS20_K), route="global")
+                      shape=(NEWS20_M, NEWS20_D, NEWS20_K), route="hot")
     dense = phase_dense_main(dev)
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
     n_step, _ = phase_times(news)
-    bucketed_launch_a_times(buck, ("global", "shared", "shared", "global"))
+    bucketed_launch_a_times(buck, news)
     d_rows = phase_dense_times(dense)
     t_row = phase_twopass_times(dense)
     lm = phase_lm_full(dev)
@@ -1605,17 +1834,24 @@ def main() -> int:
         dict(name="dso_tile_step_twopass", route="cuda",
              source="src/repro_torch/csrc/dso_twopass.cu",
              replaces="src/repro/kernels/dso_update.py:440", **t_row)]
-    for name, label, ref in (
-            ("swa_attention_tc", SWA_FULL[0][0], "swa_attention.py:81"),
-            ("swa_attention_tf32x3", SWA_FULL[2][0], "swa_attention.py:81"),
-            ("swa_attention", SWA_FULL[4][0], "swa_attention.py:81"),
-            ("ssd_scan", SSD_FULL[0][0], "ssd_scan.py:70")):
-        r = dict(lm[name, label])
+    # (row name, launch counter, phase-7 case, source, reference call);
+    # the packed route's row: its pack kernel and entry point (the
+    # attention is row 7's kernel)
+    for name, counter, label, src, ref in (
+            ("swa_attention_tc", "swa_attention_tc", SWA_FULL[0][0],
+             "swa_attention_tc.cu", "swa_attention.py:81"),
+            ("swa_attention_tf32x3", "swa_attention_tf32x3", SWA_FULL[2][0],
+             "swa_attention_tf32x3.cu", "swa_attention.py:81"),
+            ("swa_attention_packed", "swa_attention", SWA_FULL[4][0],
+             "swa_attention.cu", "swa_attention.py:81"),
+            ("ssd_scan", "ssd_scan", SSD_FULL[0][0], "ssd_scan.cu",
+             "ssd_scan.py:70")):
+        r = dict(lm[counter, label])
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
-                            if k == name)
+                            if k == counter)
         lm_rows.append(dict(name=name, route="cuda",
-                            source=f"src/repro_torch/csrc/{name}.cu",
+                            source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
     print(json.dumps({"kernels": [s_step, b_step, n_step, primal, probe_row]
                       + dense_rows + lm_rows}))

@@ -1,6 +1,6 @@
 // Loads and stores of the element types the LM kernels take (float32 and
 // bf16), converted to and from float32, the type they compute in.  Shared
-// by swa_attention.cu and ssd_scan.cu.
+// by ssd_scan.cu.
 
 #pragma once
 

@@ -1,14 +1,19 @@
 // Hand-written Hopper (sm_90a) kernel for sliding-window flash attention on
 // the tensor cores: the bf16 route of ops.swa_attention.
 //
-// Replaces, for bf16 q, k, v with a head size that is a multiple of 8, the
-// reference's Pallas TPU kernel
+// Replaces, for bf16 q, k, v, the reference's Pallas TPU kernel
 //   src/repro/kernels/swa_attention.py _swa_kernel (:32), launched by
 //   swa_attention (:81) through its pallas_call (:102).
-// float32 inputs and other head sizes stay on the CUDA-core kernel of
-// swa_attention.cu; kernels/swa_attention.py swa_route names the choice.
+// It reads q, k and v through TMA, which needs a 16-byte-aligned base and a
+// row stride that is a multiple of 16 bytes: rows of ld bf16 (ld a multiple
+// of 8, at least Dh), of which the first Dh are read.  Contiguous aligned
+// data with Dh a multiple of 8 is read in place (ld = Dh, the
+// "tensor_cores" route); any other bf16 data is first packed into such rows
+// by swa_attention.cu (the "packed" route), which then calls this kernel's
+// entry point.  float32 takes swa_attention_tf32x3.cu;
+// kernels/swa_attention.py swa_route names the choice.
 //
-// What it computes is what swa_attention.cu computes: for q (B, Hq, Tq, Dh)
+// What it computes: for q (B, Hq, Tq, Dh)
 // and k, v (B, Hkv, Tk, Dh), query row t (position q_offset + t) of head h
 // attends to the keys of kv head h / (Hq / Hkv) (GQA by index, no copy of K
 // or V) at positions kpos with
@@ -36,10 +41,11 @@
 //     filled by TMA (one thread of the producer warpgroup) and handed over
 //     by mbarriers: full[s] completes on the copy's bytes, empty[s] when
 //     the 8 consumer warps have finished reading the stage.  A 3-D tensor
-//     map (Dh, T, B*H) reads rows of Dh bf16 as boxes of 64 columns
-//     (128 B, 128-byte swizzle) and zero-fills columns past Dh and rows
-//     past T, so ragged Tq and Tk need no padded copy and Dh pads to a
-//     multiple of 16 for the wgmma depth with zeros.
+//     map (Dh, T, B*H) with rows ld bf16 apart reads rows of Dh bf16 as
+//     boxes of 64 columns (128 B, 128-byte swizzle) and zero-fills columns
+//     past Dh and rows past T, so ragged Tq and Tk need no padded copy and
+//     Dh pads to a multiple of 16 for the wgmma depth with zeros (an odd
+//     Dh too: the output is then stored one bf16 at a time).
 //   * Softmax stays in registers on the accumulator fragments: a thread
 //     holds 2 rows x 16 scores of a tile; row maxima need two quad
 //     shuffles, the normaliser stays a per-thread partial until the end.
@@ -490,17 +496,37 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv1 = m1 == NEG ? 0.0f : 1.0f / fmaxf(l1, 1e-30f);
   const int row0 = q0 + wg * WG_ROWS + r_lo;
   __nv_bfloat16* op = out + (long long)bh * Tq * Dh;
+  if ((Dh & 1) == 0) {                  // column pairs lie 4-byte aligned
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = 8 * j + 2 * t4;
-    if (col < Dh) {
-      if (row0 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * Dh + col) =
-            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      if (row0 + 8 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)(row0 + 8) * Dh +
-                                           col) =
-            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < Dh) {
+        if (row0 < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * Dh +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (row0 + 8 < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(op + (long long)(row0 + 8) * Dh +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j + 2] * inv1,
+                                    o[4 * j + 3] * inv1);
+      }
+    }
+  } else {                              // an odd Dh: one bf16 at a time
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e;
+        if (col < Dh) {
+          if (row0 < Tq)
+            op[(long long)row0 * Dh + col] =
+                __float2bfloat16_rn(o[4 * j + e] * inv0);
+          if (row0 + 8 < Tq)
+            op[(long long)(row0 + 8) * Dh + col] =
+                __float2bfloat16_rn(o[4 * j + 2 + e] * inv1);
+        }
+      }
     }
   }
 }
@@ -532,15 +558,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over (rows, T, Dh) bf16 seen as (Dh, T, rows), innermost
-// first: boxes of 64 columns x 64 positions of one row, 128-byte swizzle,
-// zeros outside the tensor.
+// A tensor map over (rows, T, Dh) bf16 with rows of ld elements, seen as
+// (Dh, T, rows), innermost first: boxes of 64 columns x 64 positions of one
+// row, 128-byte swizzle, zeros outside the tensor (columns ld - Dh past
+// each row are never read).
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
-              int T, int Dh) {
+              int T, int Dh, int ld) {
   const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)T,
                               (cuuint64_t)rows};
-  const cuuint64_t strides[2] = {(cuuint64_t)Dh * 2,
-                                 (cuuint64_t)T * Dh * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)T * ld * 2};
   const cuuint32_t box[3] = {BOX_COLS, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
@@ -553,22 +580,24 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
 
 extern "C" {
 
-// q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous
-// bf16 with 16-byte-aligned data; Dh a multiple of 8 up to 128,
-// Hq % Hkv == 0.
+// q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh) bf16 with rows ld elements
+// apart (ld a multiple of 8, at least Dh) and 16-byte-aligned data; out
+// like q, contiguous (rows Dh apart); 1 <= Dh <= 128, Hq % Hkv == 0.
 int swa_attention_tc_fwd(const void* q, const void* k, const void* v,
                          void* out, int B, int Hq, int Hkv, int Tq, int Tk,
-                         int Dh, long long window, int causal,
+                         int Dh, int ld, long long window, int causal,
                          long long q_offset, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
-  if (Dh <= 0 || Dh > 128 || Dh % 8 != 0 || Tk <= 0)
+  if (Dh <= 0 || Dh > 128 || ld % 8 != 0 || ld < Dh || Tk <= 0 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv;
-  if (!make_map(enc, &mq, q, B * Hq, Tq, Dh) ||
-      !make_map(enc, &mk, k, B * Hkv, Tk, Dh) ||
-      !make_map(enc, &mv, v, B * Hkv, Tk, Dh))
+  if (!make_map(enc, &mq, q, B * Hq, Tq, Dh, ld) ||
+      !make_map(enc, &mk, k, B * Hkv, Tk, Dh, ld) ||
+      !make_map(enc, &mv, v, B * Hkv, Tk, Dh, ld))
     return (int)cudaErrorInvalidValue;
   const int nbox = (Dh + BOX_COLS - 1) / BOX_COLS;
   const size_t smem = 1024 + (size_t)(N_WG + 2 * STAGES) * nbox * BOX_BYTES +

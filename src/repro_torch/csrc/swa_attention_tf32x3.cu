@@ -4,12 +4,12 @@
 // Replaces, for float32 q, k, v, the reference's Pallas TPU kernel
 //   src/repro/kernels/swa_attention.py _swa_kernel (:32), launched by
 //   swa_attention (:81) through its pallas_call (:102).
-// bf16 stays on swa_attention_tc.cu (Dh a multiple of 8, aligned) and
-// swa_attention.cu (the rest); kernels/swa_attention.py swa_route names the
-// choice.
+// bf16 takes swa_attention_tc.cu (in place for Dh a multiple of 8 and
+// aligned data, else on the copy swa_attention.cu packs);
+// kernels/swa_attention.py swa_route names the choice.
 //
-// What it computes is what swa_attention.cu computes: for q (B, Hq, Tq, Dh)
-// and k, v (B, Hkv, Tk, Dh), query row t (position q_offset + t) of head h
+// What it computes is what swa_attention_tc.cu computes: for q (B, Hq, Tq,
+// Dh) and k, v (B, Hkv, Tk, Dh), query row t (position q_offset + t) of head h
 // attends to the keys of kv head h / (Hq / Hkv) (GQA by index, no copy of K
 // or V) at positions kpos with
 //     kpos < Tk,  kpos > qpos - window,  and kpos <= qpos when causal,
@@ -67,7 +67,7 @@
 // Bound: operations.  4 Dh float32 operations per attended (query, key)
 // pair; taken as 3 TF32 products each, that is 12 Dh at the card's TF32
 // tensor-core rate (495 TFLOP/s), against 4 Dh at the float32 FMA rate
-// (67 TFLOP/s) for the CUDA-core kernel.  mma.sync does not reach the rate
+// (67 TFLOP/s) on the CUDA cores.  mma.sync does not reach the rate
 // wgmma does; wgmma takes TF32 operands K-major only, and V is MN-major as
 // stored, so P V would need a transposed V tile (later work).
 //

@@ -41,6 +41,10 @@ SIGNATURES = {
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
     "dso_bucketed_dual_scatter_shared":
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
+    "dso_bucketed_dual_scatter_hot":
+        [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P, _P, _I, _P],
+    "dso_bucketed_hot_slots":
+        [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "dso_primal_update":
         [_P] * 6 + [_I] * 4 + [_F] * 5 + [_I, _P],
     "dso_sparse_probe":
@@ -57,10 +61,10 @@ SIGNATURES = {
         [_P, _L, _I, _I] + [_P] * 7 + [_F, _F, _I, _P],
     # csrc/swa_attention.cu
     "swa_attention_fwd":
-        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
+        [_P] * 5 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/swa_attention_tc.cu
     "swa_attention_tc_fwd":
-        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
+        [_P] * 4 + [_I] * 7 + [_L, _I, _L, _F, _P],
     # csrc/swa_attention_tf32x3.cu
     "swa_attention_tf32x3_fwd":
         [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],

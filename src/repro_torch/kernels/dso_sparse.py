@@ -25,6 +25,8 @@ checks shapes, types and devices before calling them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels.build import check as _check
@@ -35,23 +37,63 @@ from repro_torch.kernels.dso_update import (LOSS_IDS, REG_IDS, _dual_update,
                                             active_block_stats)
 
 
-# Launch A of the K-bucketed step has two kernels, one per route:
+# Launch A of the K-bucketed step has three routes, two kernels:
 #   "shared": each CTA sums X^T alpha for its rows in a db-wide float32
 #             accumulator in shared memory, then adds each nonzero entry to
 #             acc[q] with one global atomic (hot columns meet in shared
 #             atomics, contended only inside one SM);
-#   "global": one global atomic per nonzero into acc[q], for any db.
+#   "hot":    the same kernel for blocks past the shared budget: each CTA
+#             sums the block's hottest columns (``hot_table``) in shared
+#             memory and every other column by a global atomic;
+#   "global": one global atomic per nonzero into acc[q], for any db;
+#             ``bucketed_route`` never picks it (the hot route's baseline).
 _BUCKETED_ENTRIES = {"shared": "dso_bucketed_dual_scatter_shared",
+                     "hot": "dso_bucketed_dual_scatter_hot",
                      "global": "dso_bucketed_dual_scatter"}
 BUCKETED_ROUTES = tuple(_BUCKETED_ENTRIES)
+# The hot route's slots per CTA: the float32 sums that fit the SM's shared
+# memory split this many ways (the C entry ``dso_bucketed_hot_slots``:
+# 11,417 on an H100; its kernel runs 2 CTAs per SM, as its registers
+# allow).  Every slot is zeroed and read once per CTA, so fewer cost less
+# until too many columns go to global atomics; chosen by measurement
+# (``chip_smoke.py`` phase 6 times shares 1 to 8 at news20's shape: 5 to 8
+# are level, 5 keeps the most slots).
+HOT_SMEM_SHARE = 5
 
 
 def bucketed_route(db: int, smem_limit: int) -> str:
     """The route of the bucketed launch A for column blocks of ``db``
     columns on a card whose CTAs may take ``smem_limit`` bytes of shared
-    memory: ``"shared"`` when the db float32 sums fit, else
-    ``"global"``."""
-    return "shared" if 4 * db <= smem_limit else "global"
+    memory: ``"shared"`` when the db float32 sums fit, else ``"hot"``."""
+    return "shared" if 4 * db <= smem_limit else "hot"
+
+
+def hot_table(col_nnz, p: int, db: int, slots: int):
+    """The hot route's table for a grid of p blocks of ``db`` columns whose
+    column counts are ``col_nnz`` (p * db,), on col_nnz's device: ``hot``
+    (p, db) int32 maps column c of block b to its slot in [0, h) when c is
+    among block b's h = min(slots, db) columns of largest count (ties to
+    the lower column index), else to -1; ``hot_cols`` (p, h) int32 is slot
+    -> column, hottest first.  Derived state: the grid's layout arrays are
+    not touched."""
+    h = min(int(slots), db)
+    order = torch.sort(col_nnz.reshape(p, db), dim=1, descending=True,
+                       stable=True).indices[:, :h]
+    hot = torch.full((p, db), -1, dtype=torch.int32, device=col_nnz.device)
+    hot.scatter_(1, order, torch.arange(h, dtype=torch.int32,
+                                        device=col_nnz.device).expand(p, h))
+    return hot, order.to(torch.int32).contiguous()
+
+
+def hot_slots(share: int = HOT_SMEM_SHARE) -> tuple[int, int]:
+    """The hot route's slots per CTA on the current card with the SM's
+    shared memory split ``share`` (1 to 8) ways, and the CTAs per SM its
+    kernel then reaches (registers included), from the C entry
+    ``dso_bucketed_hot_slots``."""
+    n, got = ctypes.c_int(0), ctypes.c_int(0)
+    _check("dso_bucketed_hot_slots", library().lib.dso_bucketed_hot_slots(
+        int(share), ctypes.byref(n), ctypes.byref(got)))
+    return n.value, got.value
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -77,18 +119,34 @@ def launch_sparse_dual_scatter(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
 def launch_bucketed_dual_scatter(cols_fl, vals_fl, lut, cnt, blk_ids, yg,
                                  w_grid, alpha, ga, trn_g, rn_g, acc,
                                  r0: int, rb: int, eta: float, m: float,
-                                 loss_name: str, *, route: str):
+                                 loss_name: str, *, route: str, hot=None):
     """Launch A on the flat chunk view for rows [r0, r0 + rb), by the
-    kernel of ``route`` (``bucketed_route``)."""
+    kernel of ``route`` (``BUCKETED_ROUTES``); the hot route takes the
+    grid's ``hot_table`` as ``hot``."""
+    if route not in _BUCKETED_ENTRIES:
+        raise ValueError(f"no bucketed route {route!r}; the routes are "
+                         f"{BUCKETED_ROUTES}")
+    if (route == "hot") != (hot is not None):
+        raise ValueError("the hot route, and only it, takes a hot table")
     p, n_chunks, mb, _ = cols_fl.shape
     n_kc = lut.shape[2]
     db = w_grid.shape[1]
     entry = _BUCKETED_ENTRIES[route]
+    extra = ()
+    if hot is not None:
+        table, cols = hot
+        if tuple(table.shape) != (p, db) or cols.dim() != 2 \
+                or cols.shape[0] != p or table.dtype != torch.int32 \
+                or cols.dtype != torch.int32:
+            raise ValueError(f"hot table must be int32 ({p}, {db}) and "
+                             f"({p}, slots), got {tuple(table.shape)} and "
+                             f"{tuple(cols.shape)}")
+        extra = (_ptr(table), _ptr(cols), cols.shape[1])
     _check(entry, getattr(library().lib, entry)(
         _ptr(cols_fl), _ptr(vals_fl), _ptr(lut), _ptr(cnt), _ptr(blk_ids),
         _ptr(yg), _ptr(w_grid), _ptr(alpha), _ptr(ga), _ptr(trn_g),
         _ptr(rn_g), _ptr(acc), p, mb, n_chunks, n_kc, db, r0, rb, eta, m,
-        LOSS_IDS[loss_name], _stream(acc)))
+        LOSS_IDS[loss_name], *extra, _stream(acc)))
 
 
 def launch_primal_update(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz,

@@ -13,9 +13,10 @@ Each wrapper counts its kernel launches in a plain int attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched:
 
     dso_sparse_block_step.launches    launch A, uniform block-ELL grid
-    dso_bucketed_block_step.launches  launch A, flat chunk view, the
-                                      global route (one global atomic per
-                                      nonzero; db past the shared budget)
+    dso_bucketed_block_step.launches  launch A, flat chunk view, db past
+                                      the shared budget: the hot route
+                                      (the block's hottest columns summed
+                                      in shared memory)
     _dso_bucketed_block_step_shared.launches
                                       ... its shared route (the sums in
                                       shared memory; listed as
@@ -28,8 +29,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
     dso_primal_update.launches        launch B (shared by all of them)
     sparse_probe.launches             the probe kernel
     swa_attention.launches            sliding-window attention, the
-                                      CUDA-core kernel (bf16 with another
-                                      Dh or alignment)
+                                      packed route (bf16 with another Dh
+                                      or alignment: q, k, v packed into an
+                                      aligned workspace, then the bf16
+                                      tensor-core kernel; one count per
+                                      call)
     _swa_attention_tc.launches        ... its bf16 tensor-core kernel (Dh a
                                       multiple of 8, aligned; listed as
                                       ``swa_attention_tc``)
@@ -48,6 +52,7 @@ two-pass form is the primal pass, B and the dual pass.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import torch
 
@@ -290,7 +295,9 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     chunks of its active tile.  Same truncation (ops.py:307-317) and
     in-place contract.  On the card ``dso_sparse.bucketed_route`` picks
     launch A's kernel from db and the card's shared-memory limit, with no
-    fallback; each route counts its own launches."""
+    fallback; each route counts its own launches.  The hot route's table
+    is built on the first step of a grid and kept for its later steps
+    (``grid_hot_table``)."""
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
                  tile_col_nnz_g, row_nnz_g, col_nnz, row_batches)
@@ -315,8 +322,9 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
             reg_name=reg_name)
         return
     _require_probe(yg.device, "sparse_bucketed_jnp")
-    route = dso_sparse.bucketed_route(w_grid.shape[1],
-                                      shared_memory_limit(yg.device))
+    db = w_grid.shape[1]
+    route = dso_sparse.bucketed_route(db, shared_memory_limit(yg.device))
+    hot = grid_hot_table(col_nnz, p, db) if route == "hot" else None
     rb = mb // row_batches
     acc = _take_acc(w_grid)
     for s in range(row_batches):
@@ -326,7 +334,8 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
         if route == "shared":
             _dso_bucketed_block_step_shared(*a_args)
         else:
-            dso_sparse.launch_bucketed_dual_scatter(*a_args, route="global")
+            dso_sparse.launch_bucketed_dual_scatter(*a_args, route="hot",
+                                                    hot=hot)
             dso_bucketed_block_step.launches += 1
         _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
                        col_nnz, s, scal, reg_name)
@@ -344,6 +353,35 @@ def _dso_bucketed_block_step_shared(*a_args):
 
 
 _dso_bucketed_block_step_shared.launches = 0
+
+# The hot tables of the grids on the card, by the id of the grid's col_nnz
+# tensor: (a weak reference to it, its version, the table).  An entry goes
+# when its tensor does, and a col_nnz changed in place is a new grid.
+_HOT: dict = {}
+
+
+def grid_hot_table(col_nnz, p: int, db: int):
+    """The hot route's table of the grid whose column counts are
+    ``col_nnz``: ``dso_sparse.hot_table`` at the card's ``hot_slots``,
+    built on its first step and kept while col_nnz lives unchanged."""
+    key = id(col_nnz)
+    hit = _HOT.get(key)
+    if hit is not None and hit[0]() is col_nnz \
+            and hit[1] == col_nnz._version:
+        return hit[2]
+    table = dso_sparse.hot_table(col_nnz, p, db, hot_slots(col_nnz.device))
+    _HOT[key] = (weakref.ref(col_nnz, lambda _, k=key: _HOT.pop(k, None)),
+                 col_nnz._version, table)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def hot_slots(device) -> int:
+    """The hot route's float32 sums per CTA on the card ``device``: its
+    SM's shared memory split ``dso_sparse.HOT_SMEM_SHARE`` ways, read once
+    per device."""
+    with torch.cuda.device(device):
+        return dso_sparse.hot_slots()[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -556,10 +594,10 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     themselves.  So ``causal=False`` with a Tk that 64 does not divide
     attends to no padded key, unlike the reference's padded call.  On the
     card the tensors must be contiguous and Dh at most 128, and
-    ``_swa.swa_route`` picks the kernel: split TF32 on the tensor cores
-    for float32, the bf16 tensor-core one for bf16 with Dh a multiple of 8
-    (16-byte-aligned data), the CUDA-core one for the rest; each counts
-    its own launches.
+    ``_swa.swa_route`` picks the route: split TF32 on the tensor cores
+    for float32, the bf16 tensor-core kernel on q, k, v in place for bf16
+    with Dh a multiple of 8 (16-byte-aligned data), the same kernel on a
+    packed, aligned copy for the rest; each route counts its own calls.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")

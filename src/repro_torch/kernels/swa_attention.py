@@ -1,5 +1,5 @@
-"""Sliding-window attention: the launches of its two CUDA kernels, the
-choice between them, and its plain PyTorch version (the torch counterpart
+"""Sliding-window attention: the launches of its CUDA kernels, the choice
+between its routes, and its plain PyTorch version (the torch counterpart
 of the reference's ``kernels/swa_attention.py``).
 
 q (B, Hq, Tq, Dh); k, v (B, Hkv, Tk, Dh) with Hq % Hkv == 0 (GQA: query
@@ -13,15 +13,18 @@ query with no key in its window gets 0.
 
 Replaces the reference's Pallas kernel ``_swa_kernel``
 (``src/repro/kernels/swa_attention.py:32``, pallas_call :102) by three
-kernels, one per route (``swa_route``):
+routes (``swa_route``):
 
 - ``"tf32x3"``: float32 q, k, v (any Dh up to 128, any alignment),
   ``csrc/swa_attention_tf32x3.cu`` (split TF32: three mma.sync TF32
   products per float32 product);
 - ``"tensor_cores"``: bf16 q, k, v with Dh a multiple of 8 and 16-byte
-  aligned data, ``csrc/swa_attention_tc.cu`` (wgmma products, TMA ring);
-- ``"cuda_cores"``: bf16 with another Dh or alignment,
-  ``csrc/swa_attention.cu`` (float32 FMAs).
+  aligned data, read in place by ``csrc/swa_attention_tc.cu`` (wgmma
+  products, TMA ring);
+- ``"packed"``: bf16 with another Dh or alignment:
+  ``csrc/swa_attention.cu`` packs q, k, v into a 16-byte-aligned
+  workspace of rows of ``packed_row(Dh)`` elements and runs the same
+  tensor-core kernel there, with the scale of the true Dh.
 
 Each kernel's note gives its design.
 """
@@ -35,20 +38,20 @@ from repro_torch.kernels.build import check, library, stream
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128          # the kernels' widest head
 # query rows per CTA of each route's kernel
-QUERY_TILES = {"tf32x3": 128, "tensor_cores": 128, "cuda_cores": 64}
+QUERY_TILES = {"tf32x3": 128, "tensor_cores": 128, "packed": 128}
 TC_HEAD_DIM_STEP = 8        # the tensor map's rows are 16-byte multiples
 # float32 score elements per chunk of queries in the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
 def swa_route(dtype, head_dim: int, aligned: bool = True) -> str:
-    """The kernel that takes attention of ``dtype`` and head size
+    """The route that takes attention of ``dtype`` and head size
     ``head_dim`` on the card: ``"tf32x3"`` for float32 (its copies fall to
     4-byte ones for a Dh that is not a multiple of 4 or unaligned data, so
     ``aligned`` does not matter there); for bf16 ``"tensor_cores"`` with a
     head size that is a multiple of 8 and 16-byte-aligned q, k, v
-    (``aligned``), else ``"cuda_cores"``.  Raises ``ValueError`` for a
-    head size that no kernel takes and ``TypeError`` for another dtype."""
+    (``aligned``), else ``"packed"``.  Raises ``ValueError`` for a head
+    size that no kernel takes and ``TypeError`` for another dtype."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the SWA kernels take float32 or bf16, got {dtype}")
     if not 1 <= head_dim <= MAX_HEAD_DIM:
@@ -58,29 +61,43 @@ def swa_route(dtype, head_dim: int, aligned: bool = True) -> str:
         return "tf32x3"
     if head_dim % TC_HEAD_DIM_STEP == 0 and aligned:
         return "tensor_cores"
-    return "cuda_cores"
+    return "packed"
+
+
+def packed_row(head_dim: int) -> int:
+    """Elements per row of the packed route's workspace: ``head_dim``
+    rounded up to a multiple of 8 (16 bytes of bf16)."""
+    return -(-head_dim // TC_HEAD_DIM_STEP) * TC_HEAD_DIM_STEP
 
 
 def launch_swa_attention(q, k, v, out, *, window: int, causal: bool,
                          q_offset: int, scale: float):
-    """The CUDA-core kernel on contiguous bf16 q, k, v and ``out`` (like
-    q)."""
+    """The packed route on contiguous bf16 q, k, v (any head size up to
+    128, any even address) and ``out`` (like q, 16-byte aligned): one pack
+    launch copies q, k, v into a workspace of rows of ``packed_row(Dh)``
+    elements that ``torch.empty`` allocates here, then the tensor-core
+    kernel runs on it."""
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
+    ws = torch.empty((B * Hq * Tq + 2 * B * Hkv * Tk) * packed_row(Dh),
+                     dtype=q.dtype, device=q.device)
     check("swa_attention_fwd", library().lib.swa_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-        Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale, stream(out)))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), B, Hq, Hkv, Tq, Tk, Dh, window, int(causal),
+        q_offset, scale, stream(out)))
 
 
 def launch_swa_attention_tc(q, k, v, out, *, window: int, causal: bool,
                             q_offset: int, scale: float):
     """The tensor-core kernel on contiguous, 16-byte-aligned bf16 q, k, v
-    and ``out`` (like q), Dh a multiple of 8."""
+    and ``out`` (like q), Dh a multiple of 8, read in place (row stride
+    Dh)."""
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     check("swa_attention_tc_fwd", library().lib.swa_attention_tc_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-        Hkv, Tq, Tk, Dh, window, int(causal), q_offset, scale, stream(out)))
+        Hkv, Tq, Tk, Dh, Dh, window, int(causal), q_offset, scale,
+        stream(out)))
 
 
 def launch_swa_attention_tf32x3(q, k, v, out, *, window: int,
@@ -97,16 +114,20 @@ def launch_swa_attention_tf32x3(q, k, v, out, *, window: int,
 
 
 def swa_attention_plain(q, k, v, *, window: int, causal: bool = True,
-                        q_offset: int = 0):
+                        q_offset: int = 0, scale: float | None = None):
     """Plain version: a float32 masked softmax taken over chunks of
     queries.  Each chunk meets only the keys its window can reach, and the
     query heads of one kv head are stacked as rows of one product, so no
     copy of K or V per query head is made and memory stays bounded at long
-    T.  Same masking, mask value and normaliser floor as the kernel."""
+    T.  Same masking, mask value and normaliser floor as the kernel.
+    ``scale`` defaults to ``1 / sqrt(Dh)``; the packed route computes this
+    call on q, k, v zero-padded to ``packed_row(Dh)`` columns at the scale
+    of the true Dh."""
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     rep = Hq // Hkv
-    scale = 1.0 / Dh ** 0.5
+    if scale is None:
+        scale = 1.0 / Dh ** 0.5
     out = torch.empty_like(q)
     span = min(Tk, window + 1024)       # keys a chunk meets, about
     chunk = max(1, min(Tq, _PLAIN_CHUNK_ELEMS // (B * Hq * span)))

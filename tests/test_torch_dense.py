@@ -23,7 +23,10 @@ Inputs are made with numpy from a seed and handed to both packages:
   Pallas kernels in interpret mode and of the port's fused step, for the
   six pairs;
 - the port's dense oracles ``dso_tile_step_ref`` and ``dso_block_step_ref``
-  within 1e-5 of the reference's.
+  within 1e-5 of the reference's;
+- ``solve`` on ``dense_jnp`` at the engine's corners (``CORNERS``: p 1, 3
+  and 5, shapes they do not divide, alpha0 0 and 0.3, row_batches 1 and
+  2) within 1e-5 of the reference's.
 
 The dense CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
@@ -480,3 +483,26 @@ def test_grid_and_state_carried_across_continue_like_the_reference():
                  lam=1e-3, m=tp.m, d=tp.d, p=P, epochs=3, eta0=0.5,
                  row_batches=3, alpha0=0.0005, device="cpu")
     _check("w from the carried grid", r.w, j3.w)
+
+
+# (p, m, d, alpha0, row_batches): as in tests/test_torch_engine.py
+CORNERS = [(p, m, d, a0, rb) for p in (1, 3, 5)
+           for m, d in ((121, 61), (37, 200))
+           for a0 in (0.0, 0.3) for rb in (1, 2)]
+
+
+@pytest.mark.parametrize("p,m,d,alpha0,row_batches", CORNERS)
+def test_dense_solve_corners_match_reference(p, m, d, alpha0, row_batches):
+    """logistic/l2 on dense_jnp, cyclic, 2 epochs, eta0 0.5; w, alpha and
+    the history within 1e-5."""
+    jp, tp = _pair("logistic", "l2", seed=3, m=m, d=d)
+    run = dict(backend="dense_jnp", schedule="cyclic", p=p, epochs=2,
+               eta0=0.5, alpha0=alpha0, row_batches=row_batches)
+    r_j, r_t = je.solve(jp, **run), te.solve(tp, device="cpu", **run)
+    _check("w", r_t.w, r_j.w)
+    _check("alpha", r_t.alpha, r_j.alpha)
+    assert len(r_t.history) == len(r_j.history)
+    for h_t, h_j in zip(r_t.history, r_j.history):
+        assert h_t.keys() == h_j.keys() and h_t["epoch"] == h_j["epoch"]
+        for k in h_j:
+            _check(k, h_t[k], h_j[k])

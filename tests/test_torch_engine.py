@@ -10,7 +10,9 @@ state carried across by ``state_from_arrays`` continuing one more epoch
 in the port; and the corners: ``use_adagrad=False`` on ``sparse_jnp`` and
 ``dense_jnp`` for the six pairs, ``eval_every=2`` over 5 epochs, and the
 evaluation hooks ``make_csr_primal_eval`` and ``pd_gap_eval_hook`` against
-the reference's.
+the reference's; and the corners of p, shape, alpha0 and row_batches
+(``CORNERS``) on ``sparse_jnp`` and ``sparse_bucketed_jnp`` (the dense
+corners are in ``tests/test_torch_dense.py``).
 """
 
 import numpy as np
@@ -260,3 +262,31 @@ def test_eval_hooks_match_reference(loss, reg):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+
+
+# Corners of the engine against the reference: p 1 (one processor), 3 and
+# 5, which the shapes' m and d do not divide (padded rows and columns),
+# m < d and m > d, a nonzero alpha0, and a second row batch with a
+# trailing row.  (p, m, d, alpha0, row_batches)
+CORNERS = [(p, m, d, a0, rb) for p in (1, 3, 5)
+           for m, d in ((121, 61), (37, 200))
+           for a0 in (0.0, 0.3) for rb in (1, 2)]
+
+
+@pytest.mark.parametrize("backend", ["sparse_jnp", "sparse_bucketed_jnp"])
+@pytest.mark.parametrize("p,m,d,alpha0,row_batches", CORNERS)
+def test_solve_corners_match_reference(p, m, d, alpha0, row_batches,
+                                       backend):
+    """logistic/l2, cyclic, 2 epochs, eta0 0.5; skewed columns for the
+    bucketed layout; w, alpha and the history within 1e-5."""
+    kw = dict(m=m, d=d, density=0.15, loss="logistic", lam=1e-3, seed=3,
+              reg="l2")
+    if backend == "sparse_bucketed_jnp":
+        jp = jsyn.make_skewed_classification(**kw, alpha=1.3)
+        tp = tsyn.make_skewed_classification(**kw, alpha=1.3, device="cpu")
+    else:
+        jp = jsyn.make_classification(**kw)
+        tp = tsyn.make_classification(**kw, device="cpu")
+    run = dict(backend=backend, schedule="cyclic", p=p, epochs=2, eta0=0.5,
+               alpha0=alpha0, row_batches=row_batches)
+    _assert_same_run(je.solve(jp, **run), te.solve(tp, device="cpu", **run))

@@ -216,14 +216,86 @@ def _check_bucketed_step(uni, grid, loss, reg, row_batches):
 @pytest.mark.parametrize("db,limit,route", [
     (1000, 4000, "shared"),              # at the budget
     (999, 4000, "shared"),               # below it
-    (1001, 4000, "global"),              # above it
+    # past the budget the global route was taken until the hot route came;
+    # these cases keep the ids they had then (their route is the 3rd value)
+    pytest.param(1001, 4000, "hot", id="1001-4000-global"),   # above it
     (5240, 232448, "shared"),            # real-sim's blocks on an H100
     (58112, 232448, "shared"),           # the widest that fits there
-    (338798, 232448, "global"),          # news20's blocks
+    pytest.param(338798, 232448, "hot",  # news20's blocks
+                 id="338798-232448-global"),
+    (58113, 232448, "hot"),              # one column past it
 ])
 def test_bucketed_route_by_db_and_the_cards_limit(db, limit, route):
     assert dso_sparse.bucketed_route(db, limit) == route
     assert route in dso_sparse.BUCKETED_ROUTES
+
+
+def _hot_table_numpy(cnt, p, db, slots):
+    """The hot table by numpy: per block, columns by count descending,
+    then index ascending; the first min(slots, db) get slots 0, 1, ..."""
+    h = min(slots, db)
+    hot = np.full((p, db), -1, np.int32)
+    cols = np.zeros((p, h), np.int32)
+    for b in range(p):
+        c = cnt[b * db:(b + 1) * db]
+        order = np.lexsort((np.arange(db), -c))[:h]
+        hot[b, order] = np.arange(h)
+        cols[b] = order
+    return hot, cols
+
+
+@pytest.mark.parametrize("p,db,slots,levels,seed", [
+    (4, 24, 5, 3, 0),          # few slots, many ties
+    (4, 24, 24, 3, 1),         # every column has a slot
+    (4, 24, 100, 50, 2),       # more slots than columns
+    (3, 1000, 64, 4, 3),       # heavy ties across the cut
+    (1, 7, 3, 1, 4),           # all counts equal: the lowest indices
+    (2, 5000, 777, 10000, 5),  # counts nearly distinct
+])
+def test_hot_table_matches_a_numpy_reference(p, db, slots, levels, seed):
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(1, levels + 1, p * db).astype(np.float32)
+    hot, cols = dso_sparse.hot_table(torch.from_numpy(cnt), p, db, slots)
+    want_hot, want_cols = _hot_table_numpy(cnt, p, db, slots)
+    h = min(slots, db)
+    assert hot.dtype == torch.int32 and cols.dtype == torch.int32
+    assert tuple(hot.shape) == (p, db) and tuple(cols.shape) == (p, h)
+    assert np.array_equal(hot.numpy(), want_hot)
+    assert np.array_equal(cols.numpy(), want_cols)
+    for b in range(p):
+        row = hot[b].numpy()
+        live = row >= 0
+        assert live.sum() == h                       # h slots per block
+        assert np.array_equal(np.sort(row[live]), np.arange(h))  # unique
+        assert np.array_equal(cols[b].numpy()[row[live]],
+                              np.flatnonzero(live))  # slot -> its column
+        c = cnt[b * db:(b + 1) * db]
+        if h < db:                                   # the hottest columns
+            assert c[live].min() >= c[~live].max()
+
+
+def test_bucketed_launch_refuses_an_unknown_route_or_a_bad_table():
+    """The launcher raises on a route that does not exist and on a hot
+    table given to the wrong route or of the wrong shape, before any
+    kernel is built or launched."""
+    _, bgrid = _grids(1)
+    st = _state(bgrid, "logistic")
+    a_args = (bgrid.cols_fl, bgrid.vals_fl, bgrid.chunk_lut, bgrid.chunk_cnt,
+              _blk_ids(), bgrid.yg, st["w_grid"], st["alpha"], st["ga"],
+              bgrid.tile_row_nnz_g, bgrid.row_nnz_g,
+              torch.zeros_like(st["w_grid"]), 0, bgrid.mb, 0.5, 124.0,
+              "logistic")
+    table = dso_sparse.hot_table(bgrid.col_nnz, P, bgrid.db, 8)
+    with pytest.raises(ValueError, match="no bucketed route"):
+        dso_sparse.launch_bucketed_dual_scatter(*a_args, route="cuda_cores")
+    with pytest.raises(ValueError, match="hot table"):
+        dso_sparse.launch_bucketed_dual_scatter(*a_args, route="hot")
+    with pytest.raises(ValueError, match="hot table"):
+        dso_sparse.launch_bucketed_dual_scatter(*a_args, route="shared",
+                                                hot=table)
+    with pytest.raises(ValueError, match="hot table must be"):
+        dso_sparse.launch_bucketed_dual_scatter(
+            *a_args, route="hot", hot=(table[0][:, :-1], table[1]))
 
 
 def test_primal_update_and_probe_plain_versions():

@@ -16,8 +16,11 @@ interpret mode, at the tolerances of the reference's own kernel tests
   ``ops.ssd_scan(interpret=True)``;
 - the port's oracles ``swa_attention_ref`` and ``ssd_scan_ref`` within
   1e-5 of the reference's;
-- ``swa_route``, the choice between the three attention kernels on the
+- ``swa_route``, the choice between the three attention routes on the
   card, by dtype, head size and alignment, or its refusal;
+- the packed route's arithmetic: the plain version on q, k, v zero-padded
+  to ``packed_row(Dh)`` columns at the scale of the true Dh equals the
+  unpadded call and the reference's oracle;
 - the float32 kernel's arithmetic (split TF32), emulated here bit for bit
   per operand: within the float32 tolerance of a float64 attention, where
   plain TF32 is not.
@@ -140,13 +143,38 @@ def test_swa_plain_rows_without_keys_next_to_rows_with_keys():
     assert torch.equal(got[:, :, 5:], torch.zeros_like(got[:, :, 5:]))
 
 
+@pytest.mark.parametrize("Dh", [1, 30, 33, 127])
+def test_swa_plain_on_packed_rows_matches_unpadded_and_reference(Dh):
+    """The packed route's arithmetic: q, k, v zero-padded from Dh to
+    ``packed_row(Dh)`` columns (the rows the tensor-core kernel reads,
+    its columns past Dh read as zeros) at the scale of the true Dh give
+    the unpadded call in the first Dh columns and zeros past them, and
+    match the reference's oracle."""
+    ld = tswa.packed_row(Dh)
+    assert ld % 8 == 0 and Dh <= ld < Dh + 8
+    arrays = _attn_inputs(1, 4, 2, 150, 150, Dh, seed=Dh)
+    j, t = _both(*arrays)
+    kw = dict(window=64, q_offset=0)
+    padded = [torch.nn.functional.pad(a, (0, ld - Dh)) for a in t]
+    got = tswa.swa_attention_plain(*padded, **kw, scale=1.0 / Dh ** 0.5)
+    assert got.shape == (1, 4, 150, ld)
+    assert torch.equal(got[..., Dh:], torch.zeros_like(got[..., Dh:]))
+    _close(got[..., :Dh], tswa.swa_attention_plain(*t, **kw), ORACLE_TOL)
+    _close(got[..., :Dh], jref.swa_attention_ref(*j, **kw), SWA_TOL)
+
+
 @pytest.mark.parametrize("dtype,head_dim,aligned,route", [
     (torch.bfloat16, 112, True, "tensor_cores"),
     (torch.bfloat16, 128, True, "tensor_cores"),
     (torch.bfloat16, 40, True, "tensor_cores"),
     (torch.bfloat16, 8, True, "tensor_cores"),
-    (torch.bfloat16, 36, True, "cuda_cores"),      # not a multiple of 8
-    (torch.bfloat16, 112, False, "cuda_cores"),    # no 16-byte tensor map
+    # bf16 off the in-place tensor-core kernel took the CUDA-core kernel
+    # until the packed route came; these cases keep the ids they had then
+    # (the route they assert is the 4th value)
+    pytest.param(torch.bfloat16, 36, True, "packed",     # not a multiple
+                 id="dtype4-36-True-cuda_cores"),        # of 8
+    pytest.param(torch.bfloat16, 112, False, "packed",   # no 16-byte
+                 id="dtype5-112-False-cuda_cores"),      # tensor map
     # float32 took the CUDA-core kernel until the split-TF32 kernel came;
     # these two cases keep the ids they had then, as a test whose check
     # rightly changes keeps its name (the route they assert is the 4th value)
@@ -163,7 +191,13 @@ def test_swa_plain_rows_without_keys_next_to_rows_with_keys():
     (torch.float32, 8, True, "tf32x3"),
     (torch.float32, 128, True, "tf32x3"),
     (torch.float32, 129, True, ValueError),
-    (torch.bfloat16, 8, False, "cuda_cores"),
+    pytest.param(torch.bfloat16, 8, False, "packed",
+                 id="dtype16-8-False-cuda_cores"),
+    # the packed route's head sizes: any up to 128, odd ones too
+    (torch.bfloat16, 1, True, "packed"),
+    (torch.bfloat16, 33, True, "packed"),
+    (torch.bfloat16, 127, True, "packed"),
+    (torch.bfloat16, 128, False, "packed"),
 ])
 def test_swa_route_picks_the_kernel_or_raises(dtype, head_dim, aligned,
                                               route):
