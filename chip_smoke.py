@@ -10,16 +10,23 @@ Phases, one line per result:
    source, started together) into one library in ``build/`` (seconds,
    ptxas registers / shared memory / spills per kernel).
 3. sparse kernels vs plain versions on the card: the probe, then both
-   sparse block-step kernels against their plain PyTorch versions on the
-   same inputs for six (loss, reg) pairs x row_batches {1, 3}, bound 1e-5
-   (rtol and atol; atomics reorder the scatter's sum), on five grids:
-   power-law columns, the same with column 0 in every row (a hot column),
-   and three wide ones (db 62,500: past the shared budget, the hot route):
-   power-law columns, the same columns under a random permutation (the
-   hot columns scattered over the block), and more distinct columns in a
-   block than the hot route has slots (its cold global atomics run).  The
-   bucketed launch A's route is picked by db and the card's shared-memory
-   limit; each route's launch count must equal the cases routed to it.
+   sparse block steps (one cooperative launch per row tile: launch A's
+   rows, a grid barrier, launch B's columns) against their plain PyTorch
+   versions on the same inputs for six (loss, reg) pairs x row_batches
+   {1, 3}, bound 1e-5 (rtol and atol; atomics reorder the scatter's sum),
+   on seven grids: power-law columns, the same with column 0 in every row
+   (a hot column), three wide ones (db 62,500: past the shared budget, the
+   hot route): power-law columns, the same columns under a random
+   permutation (the hot columns scattered over the block), and more
+   distinct columns in a block than the hot route has slots (its cold
+   global atomics run); and two for the block-ELL kernel's edges: uniform
+   columns (most slots padding), and rows of 0, 1, 16, 17 and K = 32 live
+   slots beside empty active tiles.  After every step the pooled
+   accumulator must be zero again.  The bucketed route is picked by db and
+   the card's shared-memory limit; each route's launch count must equal
+   the cases routed to it, and no step may launch launch B alone.  A
+   folded step with more processors than the card holds CTAs must be
+   refused by the cooperative launch and raise.
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
@@ -36,7 +43,8 @@ Phases, one line per result:
    svm-real-sim configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at
    LIBSVM real-sim's size (m 72,309, d 20,958, ~51 nnz per row), 10
    epochs with the device CSR primal every 2; the launch counts must equal
-   the design's, the primal must be finite and fall at every evaluation,
+   the design's (one folded launch per row tile, launch B alone never),
+   the primal must be finite and fall at every evaluation,
    and the plain twin run on the card must agree at every evaluation to
    1e-5 relative.  Then s/epoch of ``run_epochs`` alone (median, min, max
    over 5 repeats) for the kernel backend and its plain twin, and a
@@ -48,7 +56,8 @@ Phases, one line per result:
    configuration (dso_problems.py:29; the same loss and steps) on m
    19,996 rows and d 1,355,191 columns, 455 power-law draws per row; its
    db 338,798 is past the shared budget, so every bucketed launch A must
-   take the hot route (its table's bytes printed); same checks.
+   take the hot route (its table's bytes and the share of live columns,
+   those the folded primal phase steps, printed); same checks.
 5d. main path, dense: ``solve(problem, backend="auto")`` on the svm-ocr
    configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at ocr's width
    (d 1,156) with m 1,000,000 rows drawn on the card; ``auto`` must pick
@@ -85,12 +94,20 @@ Phases, one line per result:
    each round float32 sums that differ in order to bf16.
 6. times at the phase-4/5/5n/5d shapes with CUDA events: each kernel's ms
    per call beside its bound (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s float32), its plain version's ms and the library calls
-   computing the same two products (``torch.mv``, never called by the
-   port): cuBLAS for the dense kernel, cuSPARSE on CSR copies of the
-   active tiles and their transposes for the sparse ones; the probe's
-   device time.  At news20's shape the block step also on the global
-   route, in the same run.  Then the bucketed launch A alone: at the
+   TFLOP/s float32; the sparse steps' bytes are the live slots' and the
+   live columns'), its plain version's ms and the library calls computing
+   the same two products (``torch.mv``, never called by the port): cuBLAS
+   for the dense kernel, cuSPARSE on CSR copies of the active tiles and
+   their transposes for the sparse ones; the probe's device time.  Each
+   sparse folded step in turns with the step as it was before the fold
+   (folded, baseline, baseline, folded; block-ELL: the one-warp-per-row
+   launch A, the bucketed cells: the global route's, each then launch B
+   alone); the block-ELL launch A alone in turns with the one-warp-per-row
+   kernel (live, warp, warp, live), beside its live-slot and padded-slot
+   bounds; launch B's share of each folded step (its device time less
+   launch A's alone) beside its bound; launch B alone against its plain
+   version with a random acc on every column and w outside the box.  Then
+   the bucketed launch A alone: at the
    logistic-real-sim shape the shared and global routes in turn (global,
    shared, shared, global) on its power-law grid and on a K-bucketed grid
    of the uniform svm-real-sim CSR; at news20's shape the hot and global
@@ -417,20 +434,50 @@ def compare_step(kind, grid, st, blk, scal, rb, loss, reg, step=None):
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
-def global_route_step(grid, blk, scal, loss):
-    """``step(st)``: one block step (row_batches 1) of the bucketed grid
-    with launch A on the global route, by its launchers (uncounted): the
-    baseline the hot route is timed against, which no wrapper takes."""
+def launch_a_step(ctx, blk, scal, kernel):
+    """``(step(st), acc)``: launch A alone at the main path's grid (all
+    rows, row_batches 1) by the launchers (uncounted), into ``acc``, which
+    keeps growing (no launch B; that changes no work).  Block-ELL by
+    ``kernel``: "live", the main path's kernel without its primal phase,
+    into ``ELL_ACC_COPIES`` copies of the sums as there, or "warp", PR
+    11's; bucketed by the route ``kernel`` (the hot route with the grid's
+    table)."""
     import torch
-    from repro_torch.kernels import dso_sparse
-    acc = torch.zeros(grid.p, grid.db, device=grid.yg.device)
+    from repro_torch.kernels import dso_sparse, ops
+    grid, loss = ctx["grid"], ctx["loss"]
+    copies = dso_sparse.ELL_ACC_COPIES if kernel == "live" else 1
+    acc = torch.zeros(copies * grid.p, grid.db, device=grid.yg.device)
+    hot = ops.grid_hot_table(grid.col_nnz, grid.p, grid.db) \
+        if kernel == "hot" else None
 
     def step(st):
-        dso_sparse.launch_bucketed_dual_scatter(
-            grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt, blk,
-            grid.yg, st["w_grid"], st["alpha"], st["ga"],
-            grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0, grid.mb, scal[0],
-            scal[2], loss, route="global")
+        if ctx["layout"] == "sparse":
+            dso_sparse.launch_sparse_dual_scatter(
+                grid.cols_g, grid.vals_g, blk, grid.yg, st["w_grid"],
+                st["alpha"], st["ga"], grid.tile_row_nnz_g, grid.row_nnz_g,
+                acc, 0, grid.mb, scal[0], scal[2], loss, kernel=kernel)
+        else:
+            dso_sparse.launch_bucketed_dual_scatter(
+                grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt,
+                blk, grid.yg, st["w_grid"], st["alpha"], st["ga"],
+                grid.tile_row_nnz_g, grid.row_nnz_g, acc, 0, grid.mb,
+                scal[0], scal[2], loss, route=kernel, hot=hot)
+    return step, acc
+
+
+def baseline_step(ctx, blk, scal):
+    """``step(st)``: one block step (row_batches 1) of the main path's grid
+    as it was made before launch B was folded in, by the launchers
+    (uncounted): the layout's baseline launch A (block-ELL: the first
+    kernel, one warp per row over all K slots; bucketed: the global
+    route), then launch B alone.  No wrapper takes it."""
+    from repro_torch.kernels import dso_sparse
+    grid = ctx["grid"]
+    launch_a, acc = launch_a_step(
+        ctx, blk, scal, "warp" if ctx["layout"] == "sparse" else "global")
+
+    def step(st):
+        launch_a(st)
         dso_sparse.launch_primal_update(blk, st["w_grid"], st["gw_grid"],
                                         acc, grid.tile_col_nnz_g,
                                         grid.col_nnz, 0, scal, "l2")
@@ -493,20 +540,67 @@ def wide_csr(m, d, alpha, permute, seed):
     return csr, y
 
 
-# phase 3's CSRs: (name, m, d, alpha, seed, bucketed route expected,
-# generator, its flag: phase3_csr's hot column or wide_csr's permutation)
-PHASE3_CSRS = [("power-law", 1000, 512, 1.3, 5, "shared", phase3_csr, False),
-               ("hot column", 1000, 512, 1.3, 7, "shared", phase3_csr, True),
+def uniform_csr(m, d, alpha, flag, seed):
+    """A CSR of ``m`` rows over ``d`` columns by phase 4's recipe
+    (``realsim_csr``: 51 uniform draws per row; ``alpha`` and ``flag``
+    unused): the block-ELL grid's rows hold ~12.7 of its K slots."""
+    return realsim_csr(m, d, REALSIM_K, None, seed)
+
+
+# a row's live slots in a block of ``edge_csr`` cycle through these
+EDGE_ROW_NNZ = (0, 1, 16, 17, 32)
+
+
+def edge_csr(m, d, alpha, flag, seed):
+    """A CSR of ``m`` rows over ``d`` columns whose block-ELL tiles hold
+    rows of 0, 1, 16, 17 and 32 entries (32 = K: rows whose every slot is
+    live; ``EDGE_ROW_NNZ``, by (row + block) mod 5) and empty tiles: the
+    rows of processor q hold nothing in block (q + 2) mod P, so at phase
+    3's blocks [1, 3, 0, 2] processors 1 and 2 step an empty tile
+    (``alpha`` and ``flag`` unused).  ``d // P`` must be at least 32."""
+    import numpy as np
+    from repro_torch.sparse import CSRMatrix
+    rng = np.random.default_rng(seed)
+    mb, db = -(-m // P), -(-d // P)
+    rows = []
+    for r in range(m):
+        cols = [b * db + np.sort(rng.choice(min(db, d - b * db), k,
+                                            replace=False))
+                for b in range(P) if b != (r // mb + 2) % P
+                for k in [EDGE_ROW_NNZ[(r + b) % len(EDGE_ROW_NNZ)]]]
+        rows.append(np.concatenate(cols))
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=indptr[1:])
+    csr = CSRMatrix(indptr, np.concatenate(rows).astype(np.int32),
+                    rng.normal(0, 1, indptr[-1]).astype(np.float32), (m, d))
+    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    return csr, y
+
+
+# phase 3's CSRs: (name, m, d, alpha, seed, bucketed route expected, the
+# fewest K buckets its bucketed grid must have, generator, its flag:
+# phase3_csr's hot column or wide_csr's permutation)
+PHASE3_CSRS = [("power-law", 1000, 512, 1.3, 5, "shared", 3, phase3_csr,
+                False),
+               ("hot column", 1000, 512, 1.3, 7, "shared", 3, phase3_csr,
+                True),
                # db 62,500 at p 4: 250,000 B of sums, past the shared
                # budget; alpha 0.9 spreads its tiles over 4 K buckets
-               ("wide", 400, 250000, 0.9, 9, "hot", phase3_csr, False),
+               ("wide", 400, 250000, 0.9, 9, "hot", 3, phase3_csr, False),
                # the same kind of columns, permuted within each block:
                # the hot columns scattered
-               ("wide, permuted", 400, 250000, 0.9, 10, "hot", wide_csr,
+               ("wide, permuted", 400, 250000, 0.9, 10, "hot", 3, wide_csr,
                 True),
                # ~180 K draws: block 0 holds more distinct columns than
                # the hot route has slots, so some go to global atomics
-               ("wide, cold", 6000, 250000, 0.9, 11, "hot", wide_csr,
+               ("wide, cold", 6000, 250000, 0.9, 11, "hot", 3, wide_csr,
+                False),
+               # the block-ELL launch's edges: uniform columns (most
+               # slots padding), and rows of 0, 1, 16, 17 and K live slots
+               # beside empty tiles
+               ("uniform", 1000, 512, None, 12, "shared", 1, uniform_csr,
+                False),
+               ("edges", 1000, 512, None, 13, "shared", 1, edge_csr,
                 False)]
 
 
@@ -548,7 +642,7 @@ def phase_kernels(dev):
     worst = 0.0
     want = {r: 0 for r in ROUTE_COUNTERS}
     ops.reset_launch_counts()
-    for name, m, d, alpha, seed, route, draw, flag in PHASE3_CSRS:
+    for name, m, d, alpha, seed, route, n_b, draw, flag in PHASE3_CSRS:
         csr, y = draw(m, d, alpha, flag, seed)
         for rb in (1, 3):
             grids = {"sparse": sparse_grid_from_csr(csr, y, P, rb,
@@ -559,8 +653,10 @@ def phase_kernels(dev):
             got = dso_sparse.bucketed_route(bgrid.db, limit)
             check(got == route, f"{name}: db {bgrid.db} routes {got} on a "
                                 f"{limit} B limit, expected {route}")
-            check(len(bgrid.bucket_ks) >= 3,
+            check(len(bgrid.bucket_ks) >= n_b,
                   f"{name}: bucketed case has {bgrid.bucket_ks}")
+            if draw is edge_csr:
+                edge_tiles(name, grids["sparse"], blk)
             if name == "wide, cold":
                 most = block_distinct(bgrid)
                 say(3, f"{name}: up to {most} distinct columns in a block "
@@ -574,22 +670,73 @@ def phase_kernels(dev):
                                          scalars(loss, 1e-3, m), rb, loss,
                                          reg)
                     worst = max(worst, e)
+                    zeroed = all(bool((a == 0).all())
+                                 for a in ops._ACC.values())
                     if kind == "bucketed":
                         want[route] += rb
                     via = f"route={route} " if kind == "bucketed" else ""
                     say(3, f"{name} {kind:8s} {loss}/{reg} row_batches={rb} "
                            f"mb={grid.mb} db={grid.db} "
+                           f"K={getattr(grid, 'K', '-')} "
                            f"buckets={getattr(grid, 'bucket_ks', '-')} "
                            f"{via}max|d|={e:.3e} {'ok' if ok else 'FAIL'}")
                     check(ok, f"{name} {kind} {loss}/{reg} rb={rb}: kernel "
                               f"disagrees with its plain version (max|d| "
                               f"{e:.3e})")
+                    check(zeroed, f"{name} {kind} {loss}/{reg} rb={rb}: the "
+                                  f"folded step left the accumulator "
+                                  f"nonzero")
     counts = ops.launch_counts()
     got = {r: counts[c] for r, c in ROUTE_COUNTERS.items()}
     say(3, f"bucketed launch A by route {got} (cases routed: {want}; "
            f"shared-memory limit {limit} B, hot slots {slots})")
     check(got == want, f"bucketed routes {got} != {want}")
+    check(counts["dso_primal_update"] == 0,
+          f"the sparse steps launched launch B alone "
+          f"{counts['dso_primal_update']} times")
+    too_large(dev)
     return worst
+
+
+def edge_tiles(name, grid, blk):
+    """Check that ``edge_csr``'s block-ELL grid has what it is for: rows
+    whose every slot is live (trn = K), rows of 0, 1, 16 and 17 live
+    slots, and empty active tiles at ``blk``; say how many of each."""
+    import torch
+    trn = grid.tile_row_nnz_g.long()
+    q = torch.arange(grid.p, device=trn.device)
+    active = trn[q, blk.long()]                        # (p, mb)
+    counts = {k: int((active == k).sum()) for k in (0, 1, 16, 17, grid.K)}
+    empty = [int(x) for x in q[(active == 0).all(dim=1)]]
+    say(3, f"{name}: K {grid.K}; active tile rows by live slots {counts}; "
+           f"empty active tiles of processors {empty}")
+    check(grid.K == max(EDGE_ROW_NNZ) and all(counts.values()) and empty,
+          f"{name}: the grid lacks an edge: K {grid.K}, {counts}, {empty}")
+
+
+def too_large(dev):
+    """A folded block step whose grid the card cannot hold resident (more
+    processors, each at least one CTA, than the card holds CTAs of its
+    kernel: 4 * SMs + 1 at 512 threads a CTA) must be refused by the
+    cooperative launch and raise, not hang."""
+    import torch
+    from repro_torch.kernels import dso_sparse
+    p = 4 * torch.cuda.get_device_properties(dev).multi_processor_count + 1
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    ones = lambda *shape: torch.ones(shape, device=dev)  # noqa: E731
+    blk = torch.arange(p, dtype=torch.int32, device=dev)
+    try:
+        dso_sparse.launch_sparse_block_step(
+            torch.zeros(p, p, 1, 8, dtype=torch.int32, device=dev),
+            z(p, p, 1, 8), blk, ones(p, 1), z(p, 1), z(p, 1), z(p, 1),
+            z(p, 1), z(p, p, 1), ones(p, 1), z(p, 1, p), ones(p), z(p, 1),
+            0, 1, (0.5, 1e-4, float(p), -1.0, 1.0), "hinge", "l2")
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        say(3, f"a folded step of {p} processors (one CTA each at least) is "
+               f"refused: {e}")
+        return
+    raise SmokeFailure(f"a folded step of {p} processors was not refused")
 
 
 # the launch count of each route of the bucketed launch A that
@@ -663,8 +810,14 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
                        f"{b}: {cnt[b].sum() / cnt.sum():.4f}; "
                        f"{cnt[b, hc[b]].sum() / max(cnt[b].sum(), 1):.4f}"
                        for b in range(P)))
-    want = dict({k: 0 for k in counts}, sparse_probe=1,
-                dso_primal_update=n_step, **{counter: n_step})
+    if route == "hot":
+        say(phase, "live columns per block step (tcn > 0 in the row tile: "
+                   "the columns the folded primal phase steps) by inner "
+                   "iteration of the cyclic schedule: " + ", ".join(
+                       f"r{r} {share:.4f}"
+                       for r, share in enumerate(live_column_shares(grid))))
+    # one folded launch per row tile; launch B alone never runs
+    want = dict({k: 0 for k in counts}, sparse_probe=1, **{counter: n_step})
     say(phase, f"launch counts {counts} (design: {want}"
                + (f"; every bucketed launch A on the {route} route)"
                   if route else ")"))
@@ -707,6 +860,16 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
                 lam=lam, m=csr.m, state=res.state, counter=counter,
                 route=route)
+
+
+def live_column_shares(grid):
+    """For each inner iteration r of the cyclic schedule (blk[q] = (q + r)
+    mod p) the share of the p x db columns whose count in row tile 0 of
+    the active tile is nonzero (``live_columns``)."""
+    import torch
+    q = torch.arange(grid.p, device=grid.yg.device)
+    return [live_columns(grid, (q + r) % grid.p) / (grid.p * grid.db)
+            for r in range(grid.p)]
 
 
 def tile_cases(dev):
@@ -1504,14 +1667,27 @@ def phase_dense_times(ctx):
 
 
 def packed_bytes(ctx, blk):
-    """Bytes of the active tiles' packed slots read by one block step."""
+    """Bytes of the active tiles' live packed slots read by one block step
+    (block-ELL: the rows' first tile_row_nnz slots; bucketed: the live
+    chunks)."""
     import torch
     grid = ctx["grid"]
-    if ctx["layout"] == "sparse":
-        return grid.p * grid.mb * grid.K * 8
     q = torch.arange(grid.p, device=blk.device)
+    if ctx["layout"] == "sparse":
+        return int(grid.tile_row_nnz_g[q, blk.long()].sum()) * 8
     live = int(grid.chunk_cnt[q, blk.long()].sum())
     return live * grid.mb * 8 * 8
+
+
+def live_columns(grid, blk, s=0):
+    """Columns whose count in row tile ``s`` of the active tile is
+    nonzero, over the p processors at ``blk``: the columns the folded
+    primal phase steps."""
+    import torch
+    p, db = grid.p, grid.db
+    q = torch.arange(p, device=blk.device)
+    tcn = grid.tile_col_nnz_g[:, s].reshape(p, p, db)[q, blk.long()]
+    return int((tcn != 0).sum())
 
 
 def cusparse_pair(ctx, blk, st):
@@ -1545,12 +1721,19 @@ def cusparse_pair(ctx, blk, st):
 
 
 def phase_times(ctx):
-    """Phase 6 for one main-path layout: the block-step kernel and the
-    primal kernel at that shape, each beside its bound and plain version,
-    the block step beside the cuSPARSE pair of its products; the
-    comparison at this shape gives max_abs_err.  On the hot route the
-    block step is also timed on the global route (asked for by name), in
-    turns: hot, global, global, hot."""
+    """Phase 6 for one main-path layout: the folded block step at that
+    shape beside its bound, its plain version and the cuSPARSE pair of its
+    products; the comparison at this shape gives max_abs_err.  In turns
+    with the block step as it was before launch B was folded in
+    (``baseline_step``: block-ELL the one-warp-per-row launch A, bucketed
+    the global route, then launch B alone): folded, baseline, baseline,
+    folded.  Then launch A alone (block-ELL: the main path's kernel and
+    the one-warp-per-row one in turns, live, warp, warp, live) and launch
+    B's share of the folded step (its
+    device time less launch A's alone), each beside its bound; then launch
+    B alone (``ops.dso_primal_update``) against its plain version with a
+    random acc on every column and w entries outside the box."""
+    import math
     import torch
     from repro_torch.kernels import dso_sparse, ops
     grid, layout, loss = ctx["grid"], ctx["layout"], ctx["loss"]
@@ -1561,35 +1744,40 @@ def phase_times(ctx):
     scal = scalars(loss, ctx["lam"], ctx["m"])
     err, ok = compare_step(layout, grid, st0, blk, scal, 1, loss, "l2")
     check(ok, f"{layout} kernel disagrees at the main-path shape: {err}")
-    routes = [None]
-    if ctx.get("route") == "hot":
-        glob = global_route_step(grid, blk, scal, loss)
-        g_err, g_ok = compare_step(layout, grid, st0, blk, scal, 1, loss,
-                                   "l2", step=glob)
-        check(g_ok, f"the global route disagrees at the main-path shape: "
-                    f"{g_err}")
-        routes = [None, "global", "global", None]
-    times = {}
-    for route in routes:
+    check(all(bool((a == 0).all()) for a in ops._ACC.values()),
+          f"{layout}: the folded step left the accumulator nonzero")
+    base = baseline_step(ctx, blk, scal)
+    b_err, b_ok = compare_step(layout, grid, st0, blk, scal, 1, loss, "l2",
+                               step=base)
+    check(b_ok, f"the baseline step disagrees at the main-path shape: "
+                f"{b_err}")
+
+    def timed(step, label, into):
         st = {k: v.clone() for k, v in st0.items()}
-        if route is None:
-            step = lambda: run_step(layout, grid, st, blk, scal, 1,  # noqa
-                                    loss, "l2", plain=False)
-        else:
-            step = lambda: glob(st)  # noqa: E731
-        ms = cuda_ms(step, 200)
-        busy, kern = device_ms_per_call(step, 50)
-        times.setdefault(route, []).append((ms, busy, kern))
-    ms = sum(t[0] for t in times[None]) / len(times[None])
-    busy = sum(t[1] for t in times[None]) / len(times[None])
+        ms = cuda_ms(lambda: step(st), 200)
+        busy, kern = device_ms_per_call(lambda: step(st), 50)
+        into.setdefault(label, []).append((ms, busy, kern))
+
+    def fold(st):
+        run_step(layout, grid, st, blk, scal, 1, loss, "l2", plain=False)
+
+    times = {}
+    for label in ("folded", "baseline", "baseline", "folded"):
+        timed(fold if label == "folded" else base, label, times)
+    mean = lambda label, i: sum(  # noqa: E731
+        t[i] for t in times[label]) / len(times[label])
+    ms, busy = mean("folded", 0), mean("folded", 1)
     st = {k: v.clone() for k, v in st0.items()}
     plain_ms = cuda_ms(lambda: run_step(layout, grid, st, blk, scal, 1,
                                         loss, "l2", plain=True), 20)
     lib_ms = cuda_ms(cusparse_pair(ctx, blk, st0), 200)
     p, mb, db = grid.p, grid.mb, grid.db
     slots = packed_bytes(ctx, blk) // 8
-    nbytes = slots * 8 + 28 * p * mb + 24 * p * db
-    ops_n = 4 * slots + 20 * p * mb + 12 * p * db
+    cols = live_columns(grid, blk)
+    rows_b = slots * 8 + 28 * p * mb             # launch A: slots, rows
+    cols_b = 4 * p * db + 28 * cols              # launch B: tcn, live cols
+    nbytes = rows_b + cols_b
+    ops_n = 4 * slots + 20 * p * mb + 12 * cols
     bound = max(nbytes / HBM_BYTES_S, ops_n / F32_OPS_S) * 1e3
     name = ctx["counter"]
     row = name + "_hot" if ctx.get("route") == "hot" else name
@@ -1602,32 +1790,61 @@ def phase_times(ctx):
                 plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_S
                 >= ops_n / F32_OPS_S else "operations", library_ms=lib_ms)
-    say(6, f"{row}: {ms:.4f} ms per call (A+B, {p} processors, "
-           f"{slots} packed slots; device time {busy:.4f} ms "
-           f"per call under the profiler: "
+    turns = ", ".join(f"{label} {t[0]:.4f}/{t[1]:.4f}"
+                      for label in ("folded", "baseline")
+                      for t in times[label])
+    say(6, f"{row}: {ms:.4f} ms per call (one folded launch, {p} "
+           f"processors, {slots} live packed slots, {cols} live columns of "
+           f"{p * db}; device time {busy:.4f} ms per call under the "
+           f"profiler: "
            + ", ".join(f"{k[:44]}={kms * 1e3:.1f}us"
-                       for k, kms in times[None][0][2][:3])
+                       for k, kms in times["folded"][0][2][:3])
            + f") bound {bound:.4f} ms plain {plain_ms:.4f} ms cuSPARSE mv "
-             f"pair {lib_ms:.4f} ms max|d| {err:.3e}"
-           + (f"; turns (ms, device ms): "
-              + ", ".join(f"{r or 'hot'} {t[0]:.4f}/{t[1]:.4f}"
-                          for r in ("hot", "global")
-                          for t in times[None if r == "hot" else r])
-              if len(routes) > 1 else ""))
-    if len(routes) > 1:
-        g = times["global"]
-        say(6, f"{row} at this shape on the global route (its launchers, "
-               f"uncounted): {sum(t[0] for t in g) / len(g):.4f} ms per call, "
-               f"device {sum(t[1] for t in g) / len(g):.4f} ms per call "
-               f"(" + ", ".join(f"{k[:44]}={kms * 1e3:.1f}us"
-                                for k, kms in g[0][2][:3])
-               + f"), max|d| {g_err:.3e}; the hot route {busy:.4f} ms of "
-                 f"device time, bound {bound:.4f} ms")
+             f"pair {lib_ms:.4f} ms max|d| {err:.3e}")
+    say(6, f"{row} in turns with the baseline step ("
+           + ("the one-warp-per-row launch A" if layout == "sparse"
+              else "the global route's launch A")
+           + f" + launch B alone; max|d| "
+           f"{b_err:.3e}), ms/device ms per block step: {turns}; baseline "
+           f"{mean('baseline', 0):.4f} ms, device "
+           f"{mean('baseline', 1):.4f} ms ("
+           + ", ".join(f"{k[:44]}={kms * 1e3:.1f}us"
+                       for k, kms in times["baseline"][0][2][:3]) + ")")
+
+    padded = p * mb * getattr(grid, "K", 0) * 8 + 28 * p * mb   # all slots
+    kernels = ("live", "warp", "warp", "live") if layout == "sparse" \
+        else (ctx["route"], ctx["route"])
+    alone = {}
+    for kernel in kernels:
+        timed(launch_a_step(ctx, blk, scal, kernel)[0], kernel, alone)
+    a_bound = rows_b / HBM_BYTES_S * 1e3
+    a_dev = sum(t[1] for t in alone[kernels[0]]) / len(alone[kernels[0]])
+    line = ", ".join(f"{k} {t[0]:.4f}/{t[1]:.4f}" for k in dict.fromkeys(
+        kernels) for t in alone[k])
+    say(6, f"{row}: launch A alone (ms/device ms per launch, in turns): "
+           f"{line}; bytes bound of the live slots {a_bound:.4f} ms"
+           + (f", of all K slots (the one-warp-per-row kernel reads them) "
+              f"{padded / HBM_BYTES_S * 1e3:.4f} ms; the padded-slot bound "
+              f"of the block step, as rows 1 and 2 had it before: "
+              f"{(padded + 24 * p * db) / HBM_BYTES_S * 1e3:.4f} ms"
+              if layout == "sparse" else ""))
+    b_share = busy - a_dev
+    say(6, f"{row}: launch B's share of the folded step (its device time "
+           f"less launch A's alone): {b_share * 1e3:.2f} us; bound "
+           f"{cols_b / HBM_BYTES_S * 1e6:.2f} us (4 B of tcn per column, "
+           f"28 B per live column: {cols} of {p * db}, "
+           f"{cols / (p * db):.4f}); every column's 32 B: "
+           f"{32 * p * db / HBM_BYTES_S * 1e6:.2f} us")
 
     acc = torch.randn(p, db, device=dev, generator=torch.Generator(
         device=dev).manual_seed(1)) * 1e-2
-    a = {k: v.clone() for k, v in st0.items()}
-    b = {k: v.clone() for k, v in st0.items()}
+    stp = {k: v.clone() for k, v in st0.items()}
+    w_hi = scal[4]
+    if math.isfinite(w_hi):            # entries the step must clamp back
+        stp["w_grid"][:, ::7] = 2.0 * w_hi
+        stp["w_grid"][:, 3::7] = -2.0 * w_hi
+    a = {k: v.clone() for k, v in stp.items()}
+    b = {k: v.clone() for k, v in stp.items()}
     ops.dso_primal_update(blk, a["w_grid"], a["gw_grid"], acc.clone(),
                           grid.tile_col_nnz_g, grid.col_nnz, 0, scal,
                           reg_name="l2")
@@ -1647,7 +1864,8 @@ def phase_times(ctx):
         grid.col_nnz, 0, scal, "l2"), 50)
     p_bytes = 32 * p * db
     p_bound = max(p_bytes / HBM_BYTES_S, 12 * p * db / F32_OPS_S) * 1e3
-    say(6, f"dso_primal_update ({layout} shape): {p_ms:.4f} ms bound "
+    say(6, f"dso_primal_update ({layout} shape, random acc on every column, "
+           f"w outside the box on 2 of 7 columns): {p_ms:.4f} ms bound "
            f"{p_bound:.5f} ms plain {p_plain:.4f} ms max|d| {p_err:.3e}")
     primal = dict(ms=p_ms, plain_ms=p_plain, bound_ms=p_bound,
                   max_abs_err=p_err)

@@ -1,7 +1,8 @@
 """Where the hot route's launch A spends its time, on the card.
 
-The hot route of the K-bucketed launch A (``csrc/dso_sparse.cu``
-``bucketed_dual_scatter_shared_kernel<true>``) at news20's shape: p 4,
+The hot route of the K-bucketed launch A alone (``csrc/dso_sparse.cu``
+``sparse_step_kernel<HOT, false>``: the main path's kernel without its
+primal phase) at news20's shape: p 4,
 m 19,996, d 1,355,191 (db 338,798), 455 power-law (alpha 1.3) draws per
 row, blocks [1, 2, 3, 0].  This script builds copies of ``dso_sparse.cu``
 into ``build/``, each with one change, and times launch A alone (CUDA
@@ -42,14 +43,14 @@ SRC = build.CSRC / "dso_sparse.cu"
 # (name, [(text in dso_sparse.cu, its replacement)])
 VARIANTS = [
     ("one pass", [("constexpr int PASSES = 2;", "constexpr int PASSES = 1;")]),
-    ("3 CTAs per SM", [("__launch_bounds__(32 * SH_WARPS, 2)",
-                        "__launch_bounds__(32 * SH_WARPS, 3)")]),
+    ("3 CTAs per SM", [("constexpr int CTAS_PER_SM = 2;",
+                        "constexpr int CTAS_PER_SM = 3;")]),
     ("no atomics", [
-        ("if (slot[u] >= 0)\n"
-         "                atomicAdd(acc_s + slot[u], vk[u] * a_old);\n"
-         "              else\n"
-         "                atomicAdd(acc_q + ck[u], vk[u] * a_old);",
-         "if (slot[u] == -2) acc_s[0] = 1.0f;   // never: keeps the lookup"),
+        ("if (slot >= 0)\n"
+         "      atomicAdd(acc_s + slot, v);\n"
+         "    else\n"
+         "      atomicAdd(acc_q + col, v);",
+         "if (slot == -2) acc_s[0] = 1.0f;   // never: keeps the lookup"),
         ("if (v[u] != 0.0f) atomicAdd(acc_q + col[u], v[u]);",
          "if (v[u] != v[u]) atomicAdd(acc_q + col[u], v[u]);")]),
 ]
@@ -89,7 +90,7 @@ def load(name, proc, lib):
         raise RuntimeError(f"nvcc failed on the {name!r} copy:\n{log}")
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "shared_kernelILb1E" in line:
+        if "sparse_step_kernelILi2ELb0E" in line:
             print(f"[ptxas] {name}: " + " ".join(
                 x.strip() for x in lines[i + 1:i + 3]), flush=True)
     cdll = ctypes.CDLL(str(lib))

@@ -1,5 +1,6 @@
 // Device helpers shared by the DSO kernels (dso_sparse.cu, dso_update.cu):
-// the Eq.-8 loss/regulariser pieces, the dual step of one row, a warp sum.
+// the Eq.-8 loss/regulariser pieces, the dual step of one row, the primal
+// step of one column, a warp sum.
 //
 // Arithmetic follows the reference's order of operations.  AdaGrad's rsqrt
 // is computed as 1.0f / sqrtf(x) (both IEEE-rounded without fast-math), so
@@ -61,6 +62,22 @@ __device__ __forceinline__ void dual_update(int loss, float xw, float a_old,
   ga_new = ga_old + g_a * g_a;
   float da = eta * g_a * (1.0f / sqrtf(ga_new + ADA_EPS));
   a_new = project_alpha(loss, a_old + da, y);
+}
+
+// Primal half of the Eq.-8 step of one column from its operands: its
+// pre-update w and AdaGrad sum gw, its count tcn in the row tile, its
+// column count cn and its entry acc of X^T alpha; gives the new w and gw.
+// With tcn = 0 and acc = 0 the step is g_w = 0: a w inside [w_lo, w_hi]
+// and a gw >= 0 come out bit for bit unchanged.
+__device__ __forceinline__ void primal_update(int reg, float w, float gw,
+                                             float tcn, float cn, float acc,
+                                             float eta, float lam, float m,
+                                             float w_lo, float w_hi,
+                                             float& w_new, float& gw_new) {
+  float g_w = lam * reg_grad(reg, w) * tcn / cn - acc / m;
+  gw_new = gw + g_w * g_w;
+  float dw = eta * g_w * (1.0f / sqrtf(gw_new + ADA_EPS));
+  w_new = clampf(w - dw, w_lo, w_hi);
 }
 
 // The same for row r (alpha, ga at index r).

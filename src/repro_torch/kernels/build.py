@@ -37,12 +37,20 @@ SIGNATURES = {
     # csrc/dso_sparse.cu
     "dso_sparse_dual_scatter":
         [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
+    "dso_sparse_dual_scatter_live":
+        [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
+    "dso_sparse_block_step":
+        [_P] * 13 + [_I] * 9 + [_F] * 5 + [_I, _I, _P],
     "dso_bucketed_dual_scatter":
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
     "dso_bucketed_dual_scatter_shared":
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P],
     "dso_bucketed_dual_scatter_hot":
         [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P, _P, _I, _P],
+    "dso_bucketed_block_step_shared":
+        [_P] * 15 + [_I] * 9 + [_F] * 5 + [_I, _I, _P],
+    "dso_bucketed_block_step_hot":
+        [_P] * 15 + [_I] * 9 + [_F] * 5 + [_I, _I, _P, _P, _I, _P],
     "dso_bucketed_hot_slots":
         [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "dso_primal_update":

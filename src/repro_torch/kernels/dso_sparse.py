@@ -5,8 +5,10 @@ Replaces the reference's Pallas kernels ``dso_sparse_block_step_pallas``
 (``src/repro/kernels/dso_sparse.py:94``, pallas_call :116) and
 ``dso_bucketed_block_step_pallas`` (:247, pallas_call :304).  The source
 note in ``csrc/dso_sparse.cu`` says what bounds them on the card (bytes:
-the packed tile is streamed once) and how the design splits the step into
-a dual/scatter launch and a primal launch per row tile.
+the live packed slots are streamed once; in practice the rows' chains of
+dependent loads) and how one cooperative launch per row tile does the
+step: the dual/scatter half (launch A), a grid-wide barrier, and the
+primal half (launch B) on the columns the row tile holds.
 
 Every function here is *batched over the p processors* of one inner
 iteration: processor q runs its active block ``blk_ids[q]``, reading its
@@ -19,7 +21,8 @@ The plain versions (``*_plain``) run the reference's exact staged math:
 both mat-vecs read the pre-update (w, alpha) of each row tile; rows past
 ``(mb // row_batches) * row_batches`` pass through unchanged.  The
 ``launch_*`` functions launch one CUDA kernel each on the current stream
-and raise when ``cudaGetLastError`` reports a refused launch; ``ops``
+and raise when the entry point reports an error (a refused launch; for
+the folded steps also a grid the card cannot hold resident); ``ops``
 checks shapes, types and devices before calling them.
 """
 
@@ -47,10 +50,27 @@ from repro_torch.kernels.dso_update import (LOSS_IDS, REG_IDS, _dual_update,
 #             memory and every other column by a global atomic;
 #   "global": one global atomic per nonzero into acc[q], for any db;
 #             ``bucketed_route`` never picks it (the hot route's baseline).
+# The main path takes the shared and hot routes folded with launch B
+# (``launch_bucketed_block_step``); launch A alone, on any route, is for
+# the baselines and the benchmarks.
 _BUCKETED_ENTRIES = {"shared": "dso_bucketed_dual_scatter_shared",
                      "hot": "dso_bucketed_dual_scatter_hot",
                      "global": "dso_bucketed_dual_scatter"}
+_BUCKETED_STEP_ENTRIES = {"shared": "dso_bucketed_block_step_shared",
+                          "hot": "dso_bucketed_block_step_hot"}
 BUCKETED_ROUTES = tuple(_BUCKETED_ENTRIES)
+# Launch A alone on the uniform grid, by kernel: "live", the main path's
+# kernel without its primal phase (live slots only, several rows per
+# warp); "warp", the first kernel (one warp per row, all K slots), the
+# baseline.  The main path takes ``launch_sparse_block_step``.
+_SPARSE_ENTRIES = {"live": "dso_sparse_dual_scatter_live",
+                   "warp": "dso_sparse_dual_scatter"}
+SPARSE_KERNELS = tuple(_SPARSE_ENTRIES)
+# Copies of the (p, db) sums the block-ELL kernel scatters into: CTA x adds
+# into copy x mod ELL_ACC_COPIES and the primal phase sums them, so the
+# atomics on a column spread over as many L2 lines.  Chosen by measurement
+# (``python -m repro_torch.bench.fold`` times 1, 2, 4 and 8 copies).
+ELL_ACC_COPIES = 4
 # The hot route's slots per CTA: the float32 sums that fit the SM's shared
 # memory split this many ways (the C entry ``dso_bucketed_hot_slots``:
 # 11,417 on an H100; its kernel runs 2 CTAs per SM, as its registers
@@ -103,56 +123,128 @@ def _ptr(t: torch.Tensor) -> int:
 # ------------------------------------------------------------- launches --
 
 
+def _acc_copies(acc, p: int) -> int:
+    """How many copies of the (p, db) sums ``acc`` holds."""
+    copies, rest = divmod(acc.shape[0], p)
+    if rest or copies < 1:
+        raise ValueError(f"acc must hold whole copies of the {p} "
+                         f"processors' sums, got {tuple(acc.shape)}")
+    return copies
+
+
 def launch_sparse_dual_scatter(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
                                ga, trn_g, rn_g, acc, r0: int, rb: int,
-                               eta: float, m: float, loss_name: str):
-    """Launch A on the uniform grid for rows [r0, r0 + rb) of every
-    processor."""
+                               eta: float, m: float, loss_name: str, *,
+                               kernel: str):
+    """Launch A alone on the uniform grid for rows [r0, r0 + rb) of every
+    processor, by ``kernel`` (``SPARSE_KERNELS``); adds into ``acc``: "live"
+    into its copies of the (p, db) sums (``ELL_ACC_COPIES`` on the main
+    path), "warp" into (p, db)."""
+    if kernel not in _SPARSE_ENTRIES:
+        raise ValueError(f"no block-ELL kernel {kernel!r}; the kernels are "
+                         f"{SPARSE_KERNELS}")
     p, _, mb, K = cols_g.shape
     db = w_grid.shape[1]
-    _check("dso_sparse_dual_scatter", library().lib.dso_sparse_dual_scatter(
+    copies = _acc_copies(acc, p)
+    if kernel == "warp" and copies != 1:
+        raise ValueError("the warp kernel adds into one copy of the sums")
+    entry = _SPARSE_ENTRIES[kernel]
+    extra = (copies,) if kernel == "live" else ()
+    _check(entry, getattr(library().lib, entry)(
         _ptr(cols_g), _ptr(vals_g), _ptr(blk_ids), _ptr(yg), _ptr(w_grid),
         _ptr(alpha), _ptr(ga), _ptr(trn_g), _ptr(rn_g), _ptr(acc),
-        p, mb, K, db, r0, rb, eta, m, LOSS_IDS[loss_name], _stream(acc)))
+        p, mb, K, db, r0, rb, *extra, eta, m, LOSS_IDS[loss_name],
+        _stream(acc)))
+
+
+def launch_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, gw_grid,
+                             alpha, ga, trn_g, rn_g, tcn_g, col_nnz, acc,
+                             s: int, rb: int, scal, loss_name: str,
+                             reg_name: str):
+    """Row tile ``s`` (rows [s * rb, (s + 1) * rb)) of the uniform grid's
+    block step for every processor: launch A and launch B folded into one
+    cooperative launch.  ``acc`` (copies * p, db), copies of the sums
+    (``ELL_ACC_COPIES`` on the main path), must be zero; it is zero
+    after."""
+    p, _, mb, K = cols_g.shape
+    db = w_grid.shape[1]
+    eta, lam, m, w_lo, w_hi = scal
+    _check("dso_sparse_block_step", library().lib.dso_sparse_block_step(
+        _ptr(cols_g), _ptr(vals_g), _ptr(blk_ids), _ptr(yg), _ptr(w_grid),
+        _ptr(gw_grid), _ptr(alpha), _ptr(ga), _ptr(trn_g), _ptr(rn_g),
+        _ptr(tcn_g), _ptr(col_nnz), _ptr(acc), p, mb, K, db, tcn_g.shape[1],
+        s, s * rb, rb, _acc_copies(acc, p), eta, lam, m, w_lo, w_hi,
+        LOSS_IDS[loss_name], REG_IDS[reg_name], _stream(acc)))
+
+
+def _hot_args(route: str, hot, p: int, db: int) -> tuple:
+    """The hot table's arguments of a bucketed entry: the hot route, and
+    only it, takes the grid's ``hot_table`` as ``hot``."""
+    if (route == "hot") != (hot is not None):
+        raise ValueError("the hot route, and only it, takes a hot table")
+    if hot is None:
+        return ()
+    table, cols = hot
+    if tuple(table.shape) != (p, db) or cols.dim() != 2 \
+            or cols.shape[0] != p or table.dtype != torch.int32 \
+            or cols.dtype != torch.int32:
+        raise ValueError(f"hot table must be int32 ({p}, {db}) and "
+                         f"({p}, slots), got {tuple(table.shape)} and "
+                         f"{tuple(cols.shape)}")
+    return (_ptr(table), _ptr(cols), cols.shape[1])
 
 
 def launch_bucketed_dual_scatter(cols_fl, vals_fl, lut, cnt, blk_ids, yg,
                                  w_grid, alpha, ga, trn_g, rn_g, acc,
                                  r0: int, rb: int, eta: float, m: float,
                                  loss_name: str, *, route: str, hot=None):
-    """Launch A on the flat chunk view for rows [r0, r0 + rb), by the
-    kernel of ``route`` (``BUCKETED_ROUTES``); the hot route takes the
-    grid's ``hot_table`` as ``hot``."""
+    """Launch A alone on the flat chunk view for rows [r0, r0 + rb), by
+    the kernel of ``route`` (``BUCKETED_ROUTES``); the hot route takes the
+    grid's ``hot_table`` as ``hot``.  Adds into ``acc``."""
     if route not in _BUCKETED_ENTRIES:
         raise ValueError(f"no bucketed route {route!r}; the routes are "
                          f"{BUCKETED_ROUTES}")
-    if (route == "hot") != (hot is not None):
-        raise ValueError("the hot route, and only it, takes a hot table")
     p, n_chunks, mb, _ = cols_fl.shape
-    n_kc = lut.shape[2]
     db = w_grid.shape[1]
+    extra = _hot_args(route, hot, p, db)
     entry = _BUCKETED_ENTRIES[route]
-    extra = ()
-    if hot is not None:
-        table, cols = hot
-        if tuple(table.shape) != (p, db) or cols.dim() != 2 \
-                or cols.shape[0] != p or table.dtype != torch.int32 \
-                or cols.dtype != torch.int32:
-            raise ValueError(f"hot table must be int32 ({p}, {db}) and "
-                             f"({p}, slots), got {tuple(table.shape)} and "
-                             f"{tuple(cols.shape)}")
-        extra = (_ptr(table), _ptr(cols), cols.shape[1])
     _check(entry, getattr(library().lib, entry)(
         _ptr(cols_fl), _ptr(vals_fl), _ptr(lut), _ptr(cnt), _ptr(blk_ids),
         _ptr(yg), _ptr(w_grid), _ptr(alpha), _ptr(ga), _ptr(trn_g),
-        _ptr(rn_g), _ptr(acc), p, mb, n_chunks, n_kc, db, r0, rb, eta, m,
-        LOSS_IDS[loss_name], *extra, _stream(acc)))
+        _ptr(rn_g), _ptr(acc), p, mb, n_chunks, lut.shape[2], db, r0, rb,
+        eta, m, LOSS_IDS[loss_name], *extra, _stream(acc)))
+
+
+def launch_bucketed_block_step(cols_fl, vals_fl, lut, cnt, blk_ids, yg,
+                               w_grid, gw_grid, alpha, ga, trn_g, rn_g,
+                               tcn_g, col_nnz, acc, s: int, rb: int, scal,
+                               loss_name: str, reg_name: str, *, route: str,
+                               hot=None):
+    """Row tile ``s`` of the bucketed block step for every processor on
+    ``route`` ("shared" or "hot", the routes ``bucketed_route`` picks):
+    launch A and launch B folded into one cooperative launch; ``acc`` as
+    in ``launch_sparse_block_step``."""
+    if route not in _BUCKETED_STEP_ENTRIES:
+        raise ValueError(f"no folded bucketed route {route!r}; the routes "
+                         f"are {tuple(_BUCKETED_STEP_ENTRIES)}")
+    p, n_chunks, mb, _ = cols_fl.shape
+    db = w_grid.shape[1]
+    extra = _hot_args(route, hot, p, db)
+    eta, lam, m, w_lo, w_hi = scal
+    entry = _BUCKETED_STEP_ENTRIES[route]
+    _check(entry, getattr(library().lib, entry)(
+        _ptr(cols_fl), _ptr(vals_fl), _ptr(lut), _ptr(cnt), _ptr(blk_ids),
+        _ptr(yg), _ptr(w_grid), _ptr(gw_grid), _ptr(alpha), _ptr(ga),
+        _ptr(trn_g), _ptr(rn_g), _ptr(tcn_g), _ptr(col_nnz), _ptr(acc), p,
+        mb, n_chunks, lut.shape[2], db, tcn_g.shape[1], s, s * rb, rb, eta,
+        lam, m, w_lo, w_hi, LOSS_IDS[loss_name], REG_IDS[reg_name], *extra,
+        _stream(acc)))
 
 
 def launch_primal_update(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz,
                          s: int, scal, reg_name: str):
-    """Launch B: primal step of row tile ``s`` for every processor; zeroes
-    ``acc``."""
+    """Launch B alone: primal step of row tile ``s`` for every processor,
+    every column; zeroes ``acc``."""
     p, db = w_grid.shape
     n_rb = tcn_g.shape[1]
     eta, lam, m, w_lo, w_hi = scal

@@ -12,11 +12,14 @@ it fails the wrapper raises ``ValueError`` naming the plain backend.
 Each wrapper counts its kernel launches in a plain int attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched:
 
-    dso_sparse_block_step.launches    launch A, uniform block-ELL grid
-    dso_bucketed_block_step.launches  launch A, flat chunk view, db past
-                                      the shared budget: the hot route
-                                      (the block's hottest columns summed
-                                      in shared memory)
+    dso_sparse_block_step.launches    the folded block step (launch A and
+                                      launch B in one cooperative launch
+                                      per row tile), uniform block-ELL
+                                      grid
+    dso_bucketed_block_step.launches  the folded block step, flat chunk
+                                      view, db past the shared budget: the
+                                      hot route (the block's hottest
+                                      columns summed in shared memory)
     _dso_bucketed_block_step_shared.launches
                                       ... its shared route (the sums in
                                       shared memory; listed as
@@ -26,7 +29,9 @@ Each wrapper counts its kernel launches in a plain int attribute,
     _dso_tile_step_twopass.launches   the two-pass step's primal pass and
                                       its dual pass (two per step; listed
                                       as ``dso_tile_step_twopass``)
-    dso_primal_update.launches        launch B (shared by all of them)
+    dso_primal_update.launches        launch B alone (the dense steps'
+                                      and the wrapper's own; the sparse
+                                      steps fold it in)
     sparse_probe.launches             the probe kernel
     swa_attention.launches            sliding-window attention, the
                                       packed route (bf16 with another Dh
@@ -42,11 +47,13 @@ Each wrapper counts its kernel launches in a plain int attribute,
                                       ``swa_attention_tf32x3``)
     ssd_scan.launches                 the Mamba2 SSD scan
 
-One block step launches A then B once per row tile, so one inner
-iteration of the epoch is ``2 * row_batches`` launches for all p
-processors together, and one epoch ``2 * p * row_batches``.
-``dso_tile_step`` is one A and one B for one processor's tile; its
-two-pass form is the primal pass, B and the dual pass.
+A sparse block step makes one folded launch per row tile, so one inner
+iteration of the epoch is ``row_batches`` launches for all p processors
+together, and one epoch ``p * row_batches``; none of them counts on
+``dso_primal_update``.  A dense block step launches A then B once per row
+tile (``2 * row_batches`` per inner iteration).  ``dso_tile_step`` is one
+A and one B for one processor's tile; its two-pass form is the primal
+pass, B and the dual pass.
 """
 
 from __future__ import annotations
@@ -224,16 +231,20 @@ def _launch_primal(blk_ids, w_grid, gw_grid, acc, tcn_g, col_nnz, s, scal,
     dso_primal_update.launches += 1
 
 
-# Launch B leaves ``acc`` zeroed, so one (p, db) accumulator per device and
-# shape serves every block step on the current stream.  A step takes it out
+# Launch B, alone or folded, leaves ``acc`` zeroed, so one (p, db)
+# accumulator per device and shape serves every block step on the current
+# stream (the folded step needs it zero: it skips the columns its row tile
+# does not hold, whose acc it then leaves as it found it).  A step takes it out
 # while it runs and puts it back when it is done, so a step that raises
 # leaves no half-summed buffer behind.
 _ACC: dict = {}
 
 
-def _take_acc(w_grid):
-    acc = _ACC.pop((w_grid.device, w_grid.shape), None)
-    return torch.zeros_like(w_grid) if acc is None else acc
+def _take_acc(w_grid, copies: int = 1):
+    p, db = w_grid.shape
+    shape = torch.Size((copies * p, db))
+    acc = _ACC.pop((w_grid.device, shape), None)
+    return w_grid.new_zeros(shape) if acc is None else acc
 
 
 def _give_acc(acc):
@@ -250,7 +261,11 @@ def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
 
     Shapes as in ``dso_sparse.dso_sparse_block_step_plain``.  Rows past
     ``(mb // row_batches) * row_batches`` pass through unchanged (the
-    reference's truncation, ops.py:267-277).
+    reference's truncation, ops.py:267-277).  On the card: one
+    cooperative launch per row tile (``csrc/dso_sparse.cu``), launch A
+    on each row's live slots and launch B on the columns the row tile
+    holds; the others' w and gw stay as they are, which is the step's
+    result for any w inside its box (every state the engine makes).
     """
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
@@ -271,14 +286,13 @@ def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
         return
     _require_probe(yg.device, "sparse_jnp")
     rb = mb // row_batches
-    acc = _take_acc(w_grid)
+    acc = _take_acc(w_grid, dso_sparse.ELL_ACC_COPIES)
     for s in range(row_batches):
-        dso_sparse.launch_sparse_dual_scatter(
-            cols_g, vals_g, blk_ids, yg, w_grid, alpha, ga, tile_row_nnz_g,
-            row_nnz_g, acc, s * rb, rb, scal[0], scal[2], loss_name)
+        dso_sparse.launch_sparse_block_step(
+            cols_g, vals_g, blk_ids, yg, w_grid, gw_grid, alpha, ga,
+            tile_row_nnz_g, row_nnz_g, tile_col_nnz_g, col_nnz, acc, s, rb,
+            scal, loss_name, reg_name)
         dso_sparse_block_step.launches += 1
-        _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
-                       col_nnz, s, scal, reg_name)
     _give_acc(acc)
 
 
@@ -294,10 +308,11 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     (p, p, n_kc), chunk_cnt (p, p).  Each processor streams only the live
     chunks of its active tile.  Same truncation (ops.py:307-317) and
     in-place contract.  On the card ``dso_sparse.bucketed_route`` picks
-    launch A's kernel from db and the card's shared-memory limit, with no
-    fallback; each route counts its own launches.  The hot route's table
-    is built on the first step of a grid and kept for its later steps
-    (``grid_hot_table``)."""
+    the route from db and the card's shared-memory limit, with no
+    fallback; each route makes one cooperative launch per row tile, as
+    ``dso_sparse_block_step`` does, and counts its own launches.  The hot
+    route's table is built on the first step of a grid and kept for its
+    later steps (``grid_hot_table``)."""
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
                  tile_col_nnz_g, row_nnz_g, col_nnz, row_batches)
@@ -328,27 +343,26 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     rb = mb // row_batches
     acc = _take_acc(w_grid)
     for s in range(row_batches):
-        a_args = (cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg,
-                  w_grid, alpha, ga, tile_row_nnz_g, row_nnz_g, acc, s * rb,
-                  rb, scal[0], scal[2], loss_name)
+        args = (cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg, w_grid,
+                gw_grid, alpha, ga, tile_row_nnz_g, row_nnz_g,
+                tile_col_nnz_g, col_nnz, acc, s, rb, scal, loss_name,
+                reg_name)
         if route == "shared":
-            _dso_bucketed_block_step_shared(*a_args)
+            _dso_bucketed_block_step_shared(*args)
         else:
-            dso_sparse.launch_bucketed_dual_scatter(*a_args, route="hot",
-                                                    hot=hot)
+            dso_sparse.launch_bucketed_block_step(*args, route="hot",
+                                                  hot=hot)
             dso_bucketed_block_step.launches += 1
-        _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
-                       col_nnz, s, scal, reg_name)
     _give_acc(acc)
 
 
 dso_bucketed_block_step.launches = 0
 
 
-def _dso_bucketed_block_step_shared(*a_args):
-    """The shared route of the bucketed launch A on tensors
-    ``dso_bucketed_block_step`` has checked, counted on its own."""
-    dso_sparse.launch_bucketed_dual_scatter(*a_args, route="shared")
+def _dso_bucketed_block_step_shared(*args):
+    """A row tile of the bucketed block step on the shared route, on
+    tensors ``dso_bucketed_block_step`` has checked, counted on its own."""
+    dso_sparse.launch_bucketed_block_step(*args, route="shared")
     _dso_bucketed_block_step_shared.launches += 1
 
 

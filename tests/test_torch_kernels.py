@@ -18,7 +18,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import dso_sparse, ops, ref
+from repro_torch.kernels import build, dso_sparse, ops, ref
+from repro_torch.kernels.dso_update import _primal_update, active_block_stats
 from repro_torch.sparse.format import (CSRMatrix, bucketed_grid_from_csr,
                                        sparse_grid_from_csr)
 
@@ -28,12 +29,21 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 P, M_ROWS, D = 4, 124, 96          # mb = 31, db = 24
 
 
-def _grids(row_batches, hot=False):
+# rows of _grids(edges=True): a row's entries in one block (24 = K there)
+EDGE_ROW_NNZ = (0, 1, 16, 17, 24)
+
+
+def _grids(row_batches, hot=False, edges=False):
     """Uniform and bucketed grids of one power-law CSR (>= 3 buckets).
     ``hot``: column 0 lies in every row besides the power-law draws, the
     column on which the shared route of the bucketed launch A sums every
-    row's contribution in one CTA."""
-    rng = np.random.default_rng(12 if hot else 11)
+    row's contribution in one CTA.  ``edges``: the block-ELL launch's
+    edges instead: processors 0 and 3 hold nothing in their blocks at
+    ``_blk_ids()`` (empty active tiles), and row i < 5 of each processor
+    q's shard holds exactly ``EDGE_ROW_NNZ[i]`` entries, all in one block:
+    q's active block for processors 1 and 2, the next one for 0 and 3 (so
+    K = 24 = db: rows whose every slot is live)."""
+    rng = np.random.default_rng(13 if edges else 12 if hot else 11)
     pop = np.arange(1, D + 1, dtype=np.float64) ** -1.3
     pop /= pop.sum()
     ks = rng.integers(2, 40, M_ROWS)          # ragged rows: 3 tile widths
@@ -41,7 +51,18 @@ def _grids(row_batches, hot=False):
             for k in ks]
     if hot:
         rows = [np.union1d(r, [0]) for r in rows]
-        ks = np.array([len(r) for r in rows])
+    if edges:
+        mb, db = M_ROWS // P, D // P
+        blk = _blk_ids().tolist()
+        for r in range(M_ROWS):
+            q, i = divmod(r, mb)
+            if q in (0, 3):
+                rows[r] = rows[r][rows[r] // db != blk[q]]
+            if i < len(EDGE_ROW_NNZ):
+                b = blk[q] if q in (1, 2) else (blk[q] + 1) % P
+                rows[r] = b * db + np.sort(rng.choice(
+                    db, EDGE_ROW_NNZ[i], replace=False))
+    ks = np.array([len(r) for r in rows])
     cols = np.concatenate(rows)
     indptr = np.zeros(M_ROWS + 1, np.int64)
     np.cumsum(ks, out=indptr[1:])
@@ -112,7 +133,27 @@ def _args(grid, st):
 @pytest.mark.parametrize("row_batches", [1, 3])
 @pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
 def test_sparse_block_step_matches_reference(loss, reg, row_batches):
-    grid, _ = _grids(row_batches)
+    _check_sparse_step(_grids(row_batches)[0], loss, reg, row_batches)
+
+
+@pytest.mark.parametrize("row_batches", [1, 3])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_sparse_block_step_on_edge_rows_matches_reference(loss, reg,
+                                                          row_batches):
+    """Rows of 0, 1, 16, 17 and K live slots and empty active tiles: the
+    edges of the block-ELL kernel's live-slot read and of the folded
+    primal phase's skipped columns."""
+    grid, _ = _grids(row_batches, edges=True)
+    trn = grid.tile_row_nnz_g[torch.arange(P), _blk_ids().long()]
+    assert grid.K == grid.db == max(EDGE_ROW_NNZ)
+    assert {0, 1, 16, 17, grid.K} <= set(trn.long().unique().tolist())
+    assert bool((trn[0] == 0).all()) and bool((trn[3] == 0).all())
+    _check_sparse_step(grid, loss, reg, row_batches)
+
+
+def _check_sparse_step(grid, loss, reg, row_batches):
+    """The plain uniform-grid block step against the reference's
+    interpret-mode Pallas kernel and both packages' oracles."""
     old = _state(grid, loss)
     new = {k: v.clone() for k, v in old.items()}
     scal = _scalars(loss, M_ROWS)
@@ -308,7 +349,6 @@ def test_primal_update_and_probe_plain_versions():
     ops.dso_primal_update(blk, st["w_grid"], st["gw_grid"], acc.clone(),
                           grid.tile_col_nnz_g, grid.col_nnz, 1, scal,
                           reg_name="l2")
-    from repro_torch.kernels.dso_update import _primal_update
     for q in range(P):
         b = int(blk[q])
         sl = slice(b * grid.db, (b + 1) * grid.db)
@@ -322,6 +362,112 @@ def test_primal_update_and_probe_plain_versions():
     want = np.zeros(128, np.float32)
     np.add.at(want, cols.numpy().ravel(), w.numpy()[cols.numpy().ravel()])
     assert np.array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("reg", ["l2", "l1"])
+def test_primal_update_leaves_an_empty_column_bit_for_bit(reg):
+    """What the folded step's primal phase relies on when it skips a
+    column of count 0: with tcn = 0 and acc = 0 the step leaves w (0, the
+    box's ends, anywhere inside it) and gw (0 or not) bit for bit as they
+    were."""
+    scal = _scalars("hinge", M_ROWS)
+    w_hi = float(np.float32(scal[4]))
+    rng = np.random.default_rng(5)
+    w = torch.tensor(np.concatenate([[0.0, w_hi, -w_hi],
+                                     rng.uniform(-w_hi, w_hi, 61)]),
+                     dtype=torch.float32)
+    cn = torch.tensor(rng.integers(1, 50, w.numel()), dtype=torch.float32)
+    zero = torch.zeros_like(w)
+    for gw in (zero, torch.tensor(np.abs(rng.normal(0, 1, w.numel())),
+                                  dtype=torch.float32)):
+        w2, gw2 = _primal_update(reg, w, gw, zero, zero, cn,
+                                 scal[:3] + (-w_hi, w_hi))
+        assert torch.equal(w2.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(gw2.view(torch.int32), gw.view(torch.int32))
+
+
+@pytest.mark.parametrize("reg", ["l2", "l1"])
+def test_primal_update_of_the_live_columns_equals_the_full_one(reg):
+    """On a power-law grid, for every row tile: the primal step of only the
+    columns the tile holds (tcn > 0), the others kept, equals the step of
+    every column bit for bit, with acc = X^T alpha of the tile's rows (0
+    on the columns it does not hold)."""
+    grid, _ = _grids(3)
+    st = _state(grid, "logistic")
+    scal = _scalars("logistic", M_ROWS)
+    b = _blk_ids().long()
+    q = torch.arange(P)
+    cn, _, tcn = active_block_stats(grid.tile_row_nnz_g, grid.tile_col_nnz_g,
+                                    grid.col_nnz, b)
+    w, gw = st["w_grid"][b], st["gw_grid"][b]
+    rb = grid.mb // 3
+    for s in range(3):
+        rows = slice(s * rb, (s + 1) * rb)
+        c = grid.cols_g[q, b][:, rows].reshape(P, -1).long()
+        v = grid.vals_g[q, b][:, rows] * st["alpha"][:, rows, None]
+        acc = torch.zeros_like(w).scatter_add_(1, c, v.reshape(P, -1))
+        t = tcn[:, s]
+        live = t != 0
+        assert bool(live.any()) and not bool(live.all())
+        assert bool((acc[~live] == 0).all())
+        w_all, gw_all = _primal_update(reg, w, gw, acc, t, cn, scal)
+        w_live, gw_live = w.clone(), gw.clone()
+        w_live[live], gw_live[live] = _primal_update(
+            reg, w[live], gw[live], acc[live], t[live], cn[live], scal)
+        assert torch.equal(w_live.view(torch.int32), w_all.view(torch.int32))
+        assert torch.equal(gw_live.view(torch.int32),
+                           gw_all.view(torch.int32))
+
+
+class _FailingLibrary:
+    """A kernel library whose every entry point records its arguments and
+    returns cudaErrorCooperativeLaunchTooLarge (720)."""
+
+    def __init__(self):
+        self.calls = []
+        self.lib = self
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 720
+        return entry
+
+
+@pytest.mark.parametrize("route", ["block-ELL", "shared", "hot"])
+def test_folded_launchers_raise_on_an_error_from_their_entry(monkeypatch,
+                                                             route):
+    """A folded step whose cooperative launch the card refuses raises,
+    through ``build.check``: the launcher passes the entry point's error
+    on, with as many arguments as its signature has."""
+    failing = _FailingLibrary()
+    monkeypatch.setattr(dso_sparse, "library", lambda: failing)
+    monkeypatch.setattr(dso_sparse, "_stream", lambda t: 0)
+    uni, grid = _grids(1)
+    st = _state(grid, "hinge")
+    scal = _scalars("hinge", M_ROWS)
+    rows = (st["w_grid"], st["gw_grid"], st["alpha"], st["ga"],
+            grid.tile_row_nnz_g, grid.row_nnz_g, grid.tile_col_nnz_g,
+            grid.col_nnz)
+    if route == "block-ELL":
+        entry = "dso_sparse_block_step"
+        acc = torch.zeros(dso_sparse.ELL_ACC_COPIES * P, grid.db)
+        launch = lambda: dso_sparse.launch_sparse_block_step(  # noqa: E731
+            uni.cols_g, uni.vals_g, _blk_ids(), uni.yg, *rows, acc, 0,
+            uni.mb, scal, "hinge", "l2")
+    else:
+        entry = f"dso_bucketed_block_step_{route}"
+        hot = dso_sparse.hot_table(grid.col_nnz, P, grid.db, 8) \
+            if route == "hot" else None
+        launch = lambda: dso_sparse.launch_bucketed_block_step(  # noqa: E731
+            grid.cols_fl, grid.vals_fl, grid.chunk_lut, grid.chunk_cnt,
+            _blk_ids(), grid.yg, *rows, torch.zeros(P, grid.db), 0, grid.mb,
+            scal, "hinge", "l2", route=route, hot=hot)
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed "
+                                           f"with cudaError 720"):
+        launch()
+    [(name, args)] = failing.calls
+    assert name == entry and len(args) == len(build.SIGNATURES[entry])
 
 
 def test_wrappers_route_cpu_tensors_to_the_plain_version():

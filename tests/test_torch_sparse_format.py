@@ -117,6 +117,74 @@ def test_csr_builders_and_probes_equal_reference(p, row_batches):
     assert tc.density == jc.density and tc.nnz == jc.nnz
 
 
+# a row's entries in one block, for the block-ELL layout's edges: 32 = K
+EDGE_ROW_NNZ = (0, 1, 16, 17, 32)
+
+
+def _edge_rows_csr(kind, seed, p=4, mb=30, db=40):
+    """A CSR over p shards of ``mb`` rows and p blocks of ``db`` columns:
+    row i < 5 of shard q holds exactly ``EDGE_ROW_NNZ[i]`` columns, all in
+    block (q + i) mod p (so K = 32 and rows whose every slot is live); the
+    other rows 2-12 columns drawn ``kind``: "uniform", "power-law" (alpha
+    1.3) or "hot column" (power-law, and column 0 in every row)."""
+    rng = np.random.default_rng(seed)
+    m, d = p * mb, p * db
+    pop = None
+    if kind != "uniform":
+        pop = np.arange(1, d + 1, dtype=np.float64) ** -1.3
+        pop /= pop.sum()
+    rows = []
+    for r in range(m):
+        q, i = divmod(r, mb)
+        if i < len(EDGE_ROW_NNZ):
+            b = (q + i) % p
+            rows.append(b * db + np.sort(rng.choice(db, EDGE_ROW_NNZ[i],
+                                                    replace=False)))
+            continue
+        c = np.sort(rng.choice(d, rng.integers(2, 13), replace=False, p=pop))
+        rows.append(np.union1d(c, [0]) if kind == "hot column" else c)
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=indptr[1:])
+    idx = np.concatenate(rows).astype(np.int32)
+    val = rng.normal(0, 1, idx.size).astype(np.float32)
+    y = np.where(rng.random(m) < 0.5, 1.0, -1.0).astype(np.float32)
+    return indptr, idx, val, y, (m, d)
+
+
+@pytest.mark.parametrize("row_batches", [1, 3])
+@pytest.mark.parametrize("kind", ["uniform", "power-law", "hot column"])
+def test_block_ell_live_slots_are_a_prefix(kind, row_batches):
+    """What the block-ELL kernel's live-slot read relies on: each tile row
+    holds its entries in slots [0, tile_row_nnz) in column order, and every
+    slot at or past tile_row_nnz is (col 0, val 0.0); the live prefix
+    equals the reference's layout."""
+    indptr, idx, val, y, shape = _edge_rows_csr(kind, seed=row_batches)
+    p, db = 4, shape[1] // 4
+    t = tf.sparse_grid_from_csr(tf.CSRMatrix(indptr, idx, val, shape), y, p,
+                                row_batches, device="cpu")
+    j = jf.sparse_grid_from_csr(jf.CSRMatrix(indptr, idx, val, shape), y, p,
+                                row_batches)
+    trn = t.tile_row_nnz_g.numpy().astype(np.int64)        # (p, p, mb)
+    assert t.K == max(EDGE_ROW_NNZ)
+    assert set(EDGE_ROW_NNZ) <= set(np.unique(trn).tolist())
+    assert np.array_equal(trn, np.asarray(j.tile_row_nnz_g))
+    cols, vals = t.cols_g.numpy(), t.vals_g.numpy()
+    pad = np.arange(t.K) >= trn[..., None]                 # (p, p, mb, K)
+    assert (cols[pad] == 0).all() and (vals[pad] == 0.0).all()
+    assert np.array_equal(cols[~pad], np.asarray(j.cols_g)[~pad])
+    assert np.array_equal(vals[~pad], np.asarray(j.vals_g)[~pad])
+    mb = t.mb
+    for r in range(shape[0]):
+        q, i = divmod(r, mb)
+        c, v = idx[indptr[r]:indptr[r + 1]], val[indptr[r]:indptr[r + 1]]
+        for b in range(p):
+            sel = c // db == b
+            k = int(sel.sum())
+            assert trn[q, b, i] == k
+            assert np.array_equal(cols[q, b, i, :k], c[sel] - b * db)
+            assert np.array_equal(vals[q, b, i, :k], v[sel])
+
+
 def test_choose_k_and_assign_k_buckets_equal_reference():
     for k in [0, 1, 7, 8, 9, 51, 64, 65, 300]:
         for pow2 in (False, True):
