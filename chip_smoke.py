@@ -27,6 +27,15 @@ Phases, one line per result:
    the cases routed to it, and no step may launch launch B alone.  A
    folded step with more processors than the card holds CTAs must be
    refused by the cooperative launch and raise.
+3s. the paper-exact serial solver: ``solve_serial`` on the card for the
+   six (loss, reg) pairs x use_adagrad on ``make_classification(m=2000,
+   d=500, density=0.05)`` (~50 K nonzeros), 3 epochs, each epoch one
+   launch of the serial epoch kernel (``csrc/dso_serial.cu``; it replaces
+   no pallas_call) and nothing else; w, alpha and the history against
+   the plain version on a CPU copy with the same visit orders, bound
+   1e-5; then the kernel's ms per epoch (CUDA events) beside the plain
+   version's on the card, its bound (bytes) and the depth of the epoch's
+   dependency graph.
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
@@ -40,7 +49,8 @@ Phases, one line per result:
    view at misalignment 1); bound 1e-5; after every block step the pooled
    accumulator must be zero again (launch B's contract).
 4. main path, block-ELL: ``solve(grid, backend="auto")`` on the
-   svm-real-sim configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at
+   svm-real-sim configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4; phases
+   4-5d take these settings from ``repro_torch.configs.dso_problems``) at
    LIBSVM real-sim's size (m 72,309, d 20,958, ~51 nnz per row), 10
    epochs with the device CSR primal every 2; the launch counts must equal
    the design's (one folded launch per row tile, launch B alone never),
@@ -49,6 +59,16 @@ Phases, one line per result:
    1e-5 relative.  Then s/epoch of ``run_epochs`` alone (median, min, max
    over 5 repeats) for the kernel backend and its plain twin, and a
    profiled 2-epoch ``run_epochs`` for the device's busy and idle time.
+4i. the block-ELL main path from a libsvm file: phase 4's CSR and labels
+   written float32-exactly (``%.9g``) to a temporary file, read back by
+   ``ingest_libsvm(n_features=d, p=4, normalize_labels=True)`` bit for
+   bit; the tile-K skew of pass 1's ``ScanStats.k_per_tile`` under 4
+   picks block-ELL; ``sparse_grid_from_csr`` must equal phase 4's grid;
+   ``run_dso_grid_from_data(impl="auto")`` with the device CSR primal
+   every 2 epochs, 10 epochs: phase 4's launch design, the primal falling
+   at every evaluation, w within 1e-5 of phase 4's, and
+   ``csr_primal_objective`` on the card equal to the hook's last primal
+   (1e-6: atomics); the file's bytes and the passes' host times.
 5. main path, K-bucketed: the logistic-real-sim configuration (logistic,
    l2, lam 1e-4, alpha0 5e-4) on power-law columns (alpha 1.3); same
    checks, and every bucketed launch A must take the shared route.
@@ -58,6 +78,10 @@ Phases, one line per result:
    db 338,798 is past the shared budget, so every bucketed launch A must
    take the hot route (its table's bytes and the share of live columns,
    those the folded primal phase steps, printed); same checks.
+5i. phase 4i on phase 5n's news20-shaped CSR: the skew from
+   ``ScanStats.k_per_tile`` alone must be at least 4, the grid comes from
+   ``bucketed_grid_from_csr`` and must equal phase 5n's, every bucketed
+   launch A takes the hot route, and w is held against phase 5n's run.
 5d. main path, dense: ``solve(problem, backend="auto")`` on the svm-ocr
    configuration (hinge, l2, lam 1e-4, eta0 0.5, p 4) at ocr's width
    (d 1,156) with m 1,000,000 rows drawn on the card; ``auto`` must pick
@@ -139,7 +163,8 @@ Phases, one line per result:
    cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
    max|d| against the plain version.
 
-Prints the kernel table as one JSON line, the card's ``nvidia-smi`` line,
+Prints the kernel table as one JSON line (the serial epoch kernel's row
+last, with ``replaces`` null), the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA card it exits 2 before printing any result.
 """
@@ -263,7 +288,7 @@ def device_ms_per_call(fn, n):
     return sum(ms for _, ms in per), per
 
 
-def epoch_runner(grid, backend, *, loss, lam, m, alpha0):
+def epoch_runner(grid, backend, *, loss, lam, m, alpha0, eta0):
     """``(fresh, run)`` for timing ``run_epochs`` alone: ``fresh()`` makes
     a new state, ``run(state, n)`` runs ``n`` <= EPOCHS epochs on it with
     the cyclic schedule and step sizes made here, once."""
@@ -276,7 +301,7 @@ def epoch_runner(grid, backend, *, loss, lam, m, alpha0):
                                            0, EPOCHS, P)
     perms = torch.as_tensor(perms).to(device=grid.yg.device,
                                       dtype=torch.int32)
-    etas = eta_schedule(0.5, 0, EPOCHS, True)
+    etas = eta_schedule(eta0, 0, EPOCHS, True)
     lo, hi = w_bounds(loss, lam)
     args = (float(np.float32(lam)), float(np.float32(m)), lo, hi)
 
@@ -745,11 +770,12 @@ ROUTE_COUNTERS = {"shared": "dso_bucketed_block_step_shared",
                   "hot": "dso_bucketed_block_step"}
 
 
-def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
-               seed, shape=(REALSIM_M, REALSIM_D, REALSIM_K), route=None):
+def phase_main(phase, dev, cfg, *, powerlaw, expect, seed,
+               shape=(REALSIM_M, REALSIM_D, REALSIM_K), route=None):
     """Phases 4/5/5n: the main path through ``solve`` on a CSR of
-    ``shape`` (rows, columns, draws per row) drawn from ``seed``;
-    ``route``: the route every bucketed launch A must take."""
+    ``shape`` (rows, columns, draws per row) drawn from ``seed``, with the
+    settings (loss, lam, eta0, p, alpha0) of the ``DSOProblemConfig``
+    ``cfg``; ``route``: the route every bucketed launch A must take."""
     import numpy as np
     import torch
     from repro_torch.engine import (make_csr_primal_eval, resolve_backend,
@@ -758,6 +784,8 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
     from repro_torch.sparse import (bucketed_grid_from_csr, csr_k_per_tile,
                                     grid_nbytes, sparse_grid_from_csr,
                                     tile_k_skew)
+    loss, lam, alpha0 = cfg.loss, cfg.lam, cfg.alpha0
+    check(cfg.p == P, f"{cfg} is for p={cfg.p}, the phases run p={P}")
     t0 = time.perf_counter()
     csr, y = realsim_csr(*shape, powerlaw, seed=seed)
     skew = tile_k_skew(csr_k_per_tile(csr, P))
@@ -779,7 +807,7 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
                f"K={getattr(grid, 'K', getattr(grid, 'bucket_ks', None))} "
                f"mb={grid.mb} db={grid.db} "
                f"set-up {time.perf_counter() - t0:.1f} s")
-    kw = dict(p=P, epochs=EPOCHS, eta0=0.5, eval_every=EVAL_EVERY,
+    kw = dict(p=P, epochs=EPOCHS, eta0=cfg.eta0, eval_every=EVAL_EVERY,
               eval_hook=hook, loss_name=loss, reg_name="l2", lam=lam,
               m=csr.m, d=csr.d, alpha0=alpha0, device=dev)
 
@@ -842,7 +870,7 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
           f"kernel and plain twin disagree: {rel}")
 
     runners = {name: epoch_runner(grid, name, loss=loss, lam=lam,
-                                  m=csr.m, alpha0=alpha0)
+                                  m=csr.m, alpha0=alpha0, eta0=cfg.eta0)
                for name in (be.name, plain_name)}
     for name, (fresh, run) in runners.items():
         t = epoch_seconds(fresh, run)
@@ -859,7 +887,241 @@ def phase_main(phase, dev, *, loss, lam, alpha0, powerlaw, expect,
                + ", ".join(f"{k[:48]}={us:.1f}" for k, us, _ in kernels[:6]))
     return dict(grid=grid, layout=be.layout, counts=counts, loss=loss,
                 lam=lam, m=csr.m, state=res.state, counter=counter,
-                route=route)
+                route=route, csr=csr, y=y, w=res.w.clone(), expect=expect,
+                phase=phase)
+
+
+def write_libsvm(path, csr, y) -> int:
+    """Write ``csr`` and its labels as a libsvm file that reads back bit for
+    bit (``%.9g`` holds every float32; ``dump_libsvm`` writes ``%.6g`` and
+    densifies X, 6.06 GB at real-sim's size); returns the file's bytes."""
+    import os
+    with open(path, "w") as f:
+        for i in range(csr.m):
+            lo, hi = int(csr.indptr[i]), int(csr.indptr[i + 1])
+            f.write(f"{y[i]:g} " + " ".join(
+                f"{j + 1}:{v:.9g}" for j, v in zip(
+                    csr.indices[lo:hi].tolist(),
+                    csr.values[lo:hi].tolist())) + "\n")
+    return os.path.getsize(path)
+
+
+def grids_equal(a, b) -> bool:
+    """Two grids of one layout hold equal arrays, field by field (tensors
+    by ``torch.equal``, host arrays by ``np.array_equal``, dtypes too)."""
+    import numpy as np
+    import torch
+    if type(a) is not type(b):
+        return False
+    for x, z in zip(a, b):
+        if isinstance(x, tuple):
+            if len(x) != len(z) or not all(grids_equal((u,), (v,))
+                                           for u, v in zip(x, z)):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(z, torch.Tensor) and x.dtype == z.dtype
+                    and torch.equal(x, z)):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not (x.dtype == z.dtype and np.array_equal(x, z)):
+                return False
+        elif x != z:
+            return False
+    return True
+
+
+def phase_ingest(phase, dev, ctx, cfg):
+    """Phases 4i/5i: the main path from a libsvm file.  Phase 4's (5n's)
+    CSR and labels go to a file float32-exactly; ``ingest_libsvm`` reads it
+    back (pass 1 also timed alone, ``scan_libsvm``), bit for bit; the
+    layout follows ``tile_k_skew`` of pass 1's ``k_per_tile``; the grid
+    must equal that phase's; ``run_dso_grid_from_data(impl="auto")`` then
+    runs the configuration with the device CSR primal every 2 epochs,
+    with the counts set to 0 just before and read just after, and must
+    agree with that phase's run."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.dso import run_dso_grid_from_data
+    from repro_torch.engine import make_csr_primal_eval, resolve_backend
+    from repro_torch.kernels import dso_sparse, ops
+    from repro_torch.sparse import (BUCKET_SKEW_THRESHOLD,
+                                    bucketed_grid_from_csr, csr_k_per_tile,
+                                    csr_primal_objective, ingest_libsvm,
+                                    scan_libsvm, sparse_grid_from_csr,
+                                    tile_k_skew)
+    csr, y = ctx["csr"], ctx["y"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.libsvm")
+        t0 = time.perf_counter()
+        nbytes = write_libsvm(path, csr, y)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scanned = scan_libsvm(path, n_features=csr.d, p=P)
+        t_pass1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, y_in, stats = ingest_libsvm(path, n_features=csr.d, p=P,
+                                         return_stats=True,
+                                         normalize_labels=True)
+        t_both = time.perf_counter() - t0
+    say(phase, f"libsvm file {nbytes} B ({csr.m} rows, {csr.nnz} nnz) "
+               f"written in {t_write:.2f} s; pass 1 (scan_libsvm alone) "
+               f"{t_pass1:.2f} s; ingest_libsvm (both passes) {t_both:.2f} "
+               f"s, so pass 2 ~{t_both - t_pass1:.2f} s; "
+               f"{nbytes / t_both / 1e6:.1f} MB/s, "
+               f"{csr.nnz / t_both:.4e} nnz/s through both passes "
+               f"(host clock)")
+    same = (got.shape == csr.shape and all(
+        a.dtype == b.dtype and np.array_equal(a.view(np.uint8),
+                                              b.view(np.uint8))
+        for a, b in ((got.indptr, csr.indptr), (got.indices, csr.indices),
+                     (got.values, csr.values), (y_in, y))))
+    check(same, "the ingested CSR or labels differ from those written")
+    check(all(np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+              for a, b in zip(scanned, stats)),
+          "scan_libsvm alone and ingest_libsvm's pass 1 disagree")
+    check(stats.malformed == 0 and np.array_equal(
+        stats.k_per_tile, csr_k_per_tile(got, P)),
+          "pass 1's k_per_tile differs from the CSR's")
+    skew = tile_k_skew(stats.k_per_tile)
+    layout = "bucketed" if skew >= BUCKET_SKEW_THRESHOLD else "sparse"
+    be = resolve_backend("auto", got.density, k_skew=skew,
+                         device_type=dev.type)
+    say(phase, f"ingested CSR and labels equal the written ones bit for "
+               f"bit; tile-K skew from ScanStats.k_per_tile {skew:.2f} -> "
+               f"{layout}, auto resolves {be.name}")
+    check(layout == ctx["layout"] and be.name == ctx["expect"],
+          f"skew {skew:.2f} picks {layout} / {be.name}, phase expects "
+          f"{ctx['layout']} / {ctx['expect']}")
+    build = {"sparse": sparse_grid_from_csr,
+             "bucketed": bucketed_grid_from_csr}[layout]
+    grid = build(got, y_in, P, 1, device=dev)
+    check(grids_equal(grid, ctx["grid"]),
+          "the grid of the ingested CSR differs from the phase's grid")
+    if layout == "bucketed":
+        route = dso_sparse.bucketed_route(grid.db,
+                                          ops.shared_memory_limit(dev))
+        check(route == ctx["route"], f"db {grid.db} routes {route}")
+    hook = make_csr_primal_eval(got, y_in, cfg.lam, cfg.loss, "l2",
+                                device=dev)
+    ops.sparse_kernel_error.cache_clear()
+    ops.reset_launch_counts()
+    w, alpha, hist = run_dso_grid_from_data(
+        grid, loss_name=cfg.loss, reg_name="l2", lam=cfg.lam, m=got.m,
+        d=got.d, epochs=EPOCHS, eta0=cfg.eta0, alpha0=cfg.alpha0,
+        impl="auto", eval_every=EVAL_EVERY, eval_hook=hook, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = dict({k: 0 for k in counts}, sparse_probe=1,
+                **{ctx["counter"]: EPOCHS * P})
+    say(phase, f"launch counts {counts} (design: {want})")
+    check(counts == want, f"launch counts {counts} != design {want}")
+    primal = [h["primal"] for h in hist]
+    say(phase, "primal per eval " + " ".join(
+        f"e{h['epoch']}={h['primal']:.6f}" for h in hist))
+    check(all(np.isfinite(primal)) and all(
+        b < a for a, b in zip(primal, primal[1:])),
+          f"primal did not fall at every evaluation: {primal}")
+    err, ok = max_rel_err(w, ctx["w"])
+    say(phase, f"w against phase {ctx['phase']}'s run: max|d| {err:.3e}")
+    check(ok, f"w differs from phase {ctx['phase']}'s run by {err:.3e}")
+    # index_add_ on the card sums by atomics, so two evaluations of one w
+    # may differ in the last bits
+    p_obj = csr_primal_objective(got, y_in, w, cfg.lam, cfg.loss, "l2",
+                                 device=dev)
+    rel = abs(p_obj - primal[-1]) / abs(primal[-1])
+    say(phase, f"csr_primal_objective {p_obj:.8f} against the hook's last "
+               f"primal {primal[-1]:.8f}: rel {rel:.2e}")
+    check(rel <= 1e-6, f"csr_primal_objective disagrees: rel {rel:.2e}")
+    return dict(bytes=nbytes, rows=csr.m, nnz=csr.nnz, write_s=t_write,
+                pass1_s=t_pass1, both_s=t_both)
+
+
+SERIAL_SHAPE = dict(m=2000, d=500, density=0.05)   # ~50 K nonzeros
+SERIAL_EPOCHS = 3
+
+
+def phase_serial(dev):
+    """Phase 3s: ``solve_serial`` on the card, the serial epoch kernel
+    once per epoch, against the plain version on a CPU copy with the same
+    visit orders (the same seed), for the six pairs x use_adagrad; then
+    the kernel's ms per epoch (CUDA events) beside the plain version's on
+    the card and its bound.  Returns the kernel table's row."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.engine import prob_meta, solve_serial
+    from repro_torch.engine.driver import _coords
+    from repro_torch.kernels import dso_serial, ops
+    worst, launches = 0.0, 0
+    for loss, reg in LOSS_REG_PAIRS:
+        for ada in (True, False):
+            kw = dict(SERIAL_SHAPE, loss=loss, reg=reg, seed=21)
+            prob = make_classification(**kw, device=dev)
+            cpu = make_classification(**kw, device="cpu")
+            skw = dict(epochs=SERIAL_EPOCHS, eta0=0.5, seed=0,
+                       use_adagrad=ada)
+            ops.reset_launch_counts()
+            res = solve_serial(prob, **skw, device=dev)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check(counts["dso_serial_epoch"] == SERIAL_EPOCHS
+                  and sum(counts.values()) == SERIAL_EPOCHS,
+                  f"solve_serial launch counts {counts}, expected "
+                  f"{SERIAL_EPOCHS} dso_serial_epoch")
+            launches += counts["dso_serial_epoch"]
+            ref = solve_serial(cpu, **skw, device="cpu")
+            e_w, ok_w = max_rel_err(res.w.cpu(), ref.w)
+            e_a, ok_a = max_rel_err(res.alpha.cpu(), ref.alpha)
+            rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                      for a, b in zip(res.history, ref.history)
+                      for k in ("primal", "gap"))
+            worst = max(worst, e_w, e_a)
+            say("3s", f"{loss}/{reg} adagrad={ada} nnz={int(prob.nnz)}: "
+                      f"max|d| w {e_w:.3e} alpha {e_a:.3e}, history rel "
+                      f"{rel:.3e}; primal e{SERIAL_EPOCHS}="
+                      f"{res.history[-1]['primal']:.6f}")
+            check(ok_w and ok_a and rel <= TOL
+                  and len(res.history) == len(ref.history),
+                  f"{loss}/{reg} adagrad={ada}: the serial kernel "
+                  f"disagrees with its plain version")
+    prob = make_classification(**SERIAL_SHAPE, seed=21, device=dev)
+    ii, jj, vv = _coords(prob)
+    nnz, m, d = ii.numel(), prob.m, prob.d
+    order = torch.randperm(nnz, generator=torch.Generator().manual_seed(0))
+    order = order.to(device=dev, dtype=torch.int32)
+    lam, m_f, _, _, _, lo, hi = prob_meta(prob)
+    scal = (0.5, lam, m_f, lo, hi)
+
+    def state():
+        return [torch.zeros(d, device=dev), torch.zeros(m, device=dev),
+                torch.zeros(d, device=dev), torch.zeros(m, device=dev)]
+
+    st = state()
+    args = (prob.y, prob.row_nnz, prob.col_nnz, scal)
+    kw = dict(loss_name="hinge", reg_name="l2", use_adagrad=True)
+    ms = cuda_ms(lambda: ops.dso_serial_epoch(ii, jj, vv, order, *st,
+                                              *args, **kw), 5, warm=1)
+    pst = state()
+    plain_ms = cuda_ms(lambda: dso_serial.serial_epoch_plain(
+        ii, jj, vv, order, *pst, *args[:3], scal, "hinge", "l2", True),
+        3, warm=1)
+    waves = len(set(dso_serial.serial_waves(
+        ii[order.long()].tolist(), jj[order.long()].tolist(), m, d)))
+    nbytes = 16 * nnz + 24 * m + 20 * d
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    say("3s", f"serial_epoch_kernel at m {m}, d {d}, nnz {nnz} (hinge/l2, "
+              f"AdaGrad): {ms:.4f} ms per epoch ({ms * 1e6 / nnz:.1f} ns "
+              f"per nonzero, one thread); plain version on the card "
+              f"{plain_ms:.4f} ms ({waves} waves); bound {bound_ms:.2e} ms "
+              f"(bytes: {nbytes} B once); the dependency graph is "
+              f"{waves} steps deep")
+    return dict(name="serial_epoch", route="cuda",
+                source="src/repro_torch/csrc/dso_serial.cu", replaces=None,
+                launches=launches, max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
 
 
 def live_column_shares(grid):
@@ -1506,8 +1768,11 @@ def phase_dense_main(dev):
     from repro_torch.engine import make_grid_data, resolve_backend, solve
     from repro_torch.kernels import ops
     from repro_torch.sparse import density
+    from repro_torch.configs.dso_problems import SVM_OCR as cfg
+    check(cfg.p == P and cfg.loss == "hinge",
+          f"{cfg}: phase 5d draws hinge labels for p={P}")
     t0 = time.perf_counter()
-    lam = 1e-4
+    lam = cfg.lam
     prob = ocr_problem(OCR_M, OCR_D, lam, seed=13, dev=dev)
     be = resolve_backend("auto", density(prob), device_type=dev.type)
     torch.cuda.synchronize()
@@ -1517,8 +1782,8 @@ def phase_dense_main(dev):
               f"{time.perf_counter() - t0:.1f} s")
     check(be.name == "dense_pallas_block",
           f"auto picked {be.name}, expected dense_pallas_block")
-    kw = dict(p=P, epochs=EPOCHS, eta0=0.5, eval_every=EVAL_EVERY,
-              device=dev)
+    kw = dict(p=P, epochs=EPOCHS, eta0=cfg.eta0, eval_every=EVAL_EVERY,
+              alpha0=cfg.alpha0, device=dev)
     n_step = EPOCHS * P * 1          # epochs x inner iterations x row tiles
     zero = {k: 0 for k in ops.launch_counts()}
     runs = {}
@@ -1556,7 +1821,8 @@ def phase_dense_main(dev):
 
     grid = make_grid_data(prob, P, 1)
     runners = {name: epoch_runner(grid, name, loss="hinge", lam=lam,
-                                  m=prob.m, alpha0=0.0)
+                                  m=prob.m, alpha0=cfg.alpha0,
+                                  eta0=cfg.eta0)
                for name in ("dense_pallas_block", "dense_jnp")}
     for name, (fresh, run) in runners.items():
         ts = epoch_seconds(fresh, run)
@@ -2002,14 +2268,19 @@ def main() -> int:
               + ", ".join(f"{k} {'bf16' if bf else 'float32'} {e:.3e}"
                           for (k, bf), e in worst_l.items()))
 
-    uni = phase_main(4, dev, loss="hinge", lam=1e-4, alpha0=0.0,
-                     powerlaw=None, expect="sparse_pallas", seed=4)
-    buck = phase_main(5, dev, loss="logistic", lam=1e-4, alpha0=0.0005,
-                      powerlaw=1.3, expect="sparse_bucketed_pallas", seed=5,
+    from repro_torch.configs.dso_problems import ALL as CONFIGS
+    serial = phase_serial(dev)
+
+    uni = phase_main(4, dev, CONFIGS["svm-real-sim"], powerlaw=None,
+                     expect="sparse_pallas", seed=4)
+    ingest = {"4i": phase_ingest("4i", dev, uni, CONFIGS["svm-real-sim"])}
+    buck = phase_main(5, dev, CONFIGS["logistic-real-sim"], powerlaw=1.3,
+                      expect="sparse_bucketed_pallas", seed=5,
                       route="shared")
-    news = phase_main("5n", dev, loss="logistic", lam=1e-4, alpha0=0.0005,
-                      powerlaw=1.3, expect="sparse_bucketed_pallas", seed=6,
+    news = phase_main("5n", dev, CONFIGS["logistic-news20"], powerlaw=1.3,
+                      expect="sparse_bucketed_pallas", seed=6,
                       shape=(NEWS20_M, NEWS20_D, NEWS20_K), route="hot")
+    ingest["5i"] = phase_ingest("5i", dev, news, CONFIGS["logistic-news20"])
     dense = phase_dense_main(dev)
 
     s_step, s_primal = phase_times(uni)
@@ -2071,8 +2342,9 @@ def main() -> int:
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
+    say("3s", f"serial_epoch row: {serial}; ingest: {ingest}")
     print(json.dumps({"kernels": [s_step, b_step, n_step, primal, probe_row]
-                      + dense_rows + lm_rows}))
+                      + dense_rows + lm_rows + [serial]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,6 +99,13 @@ def duality_gap(prob: Problem, w, alpha) -> torch.Tensor:
     return primal_objective(prob, w) - dual_objective(prob, alpha)
 
 
+def argmin_w(prob: Problem, alpha) -> torch.Tensor:
+    """Closed-form minimizer of f(., alpha) for the L2 regularizer."""
+    if prob.reg_name != "l2":
+        raise ValueError("closed-form argmin_w only for l2")
+    return (prob.X.T @ alpha) / (2.0 * prob.lam * prob.m)
+
+
 def project_w(prob: Problem, w) -> torch.Tensor:
     """App. B box projection on w (loss-dependent)."""
     box = prob.loss.w_box
@@ -110,3 +117,37 @@ def project_w(prob: Problem, w) -> torch.Tensor:
 
 def project_alpha(prob: Problem, alpha) -> torch.Tensor:
     return prob.loss.project_alpha(alpha, prob.y)
+
+
+def stochastic_grads(prob: Problem, w_j, alpha_i, y_i, x_ij, row_nnz_i,
+                     col_nnz_j):
+    """The per-(i,j) primal/dual stochastic (sub)gradients of Eq. (8).
+
+    Returns (g_w, g_alpha) such that the update is
+        w_j     <- w_j     - eta * g_w
+        alpha_i <- alpha_i + eta * g_alpha
+    Broadcasts over any leading shape.
+    """
+    m = prob.m
+    g_w = prob.lam * prob.reg.grad(w_j) / col_nnz_j - alpha_i * x_ij / m
+    g_a = (-prob.loss.dual_grad(alpha_i, y_i) / (m * row_nnz_i)
+           - w_j * x_ij / m)
+    return g_w, g_a
+
+
+def grads_tile(prob: Problem, X_tile, y_tile, w_blk, alpha_blk,
+               row_nnz_tile, col_nnz_blk, tile_col_nnz, tile_row_nnz):
+    """Aggregated Eq.-(8) gradients for a dense tile.
+
+    Summing the pointwise gradients over every nonzero of the tile:
+      g_w[j]  = lam phi'(w_j) * n_j / |Omega-bar_j| - (X^T alpha)_j / m
+      g_a[i]  = -l*'(-alpha_i) * n_i / (m |Omega_i|) - (X w)_i / m
+    where n_j / n_i count the tile's nonzeros in column j / row i.
+    """
+    m = prob.m
+    g_w = (prob.lam * prob.reg.grad(w_blk) * tile_col_nnz / col_nnz_blk
+           - (X_tile.T @ alpha_blk) / m)
+    g_a = (-prob.loss.dual_grad(alpha_blk, y_tile) * tile_row_nnz
+           / (m * row_nnz_tile)
+           - (X_tile @ w_blk) / m)
+    return g_w, g_a

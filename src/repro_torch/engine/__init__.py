@@ -25,6 +25,9 @@
                                    v  (DSOState updated in place)
       solve() -> SolveResult(w, alpha, history, state); evaluation hooks
       in evaluate.py (Problem objectives, device CSR primal).
+
+      solve_serial(): the paper-exact p = 1 epochs, one
+      ops.dso_serial_epoch (csrc/dso_serial.cu) per epoch.
 """
 
 from repro_torch.engine.backends import (LEGACY_IMPLS, TileBackend,
@@ -36,13 +39,16 @@ from repro_torch.engine.backends import (LEGACY_IMPLS, TileBackend,
 from repro_torch.engine.data import (DSOState, GridData, TileData,
                                      as_tile_data, check_tile_stats,
                                      eta_schedule, gather_alpha, gather_w,
-                                     init_state_data, make_grid_data,
+                                     init_state, init_state_data,
+                                     make_grid_data,
                                      prob_meta, state_from_arrays,
                                      tile_data_from_arrays, tile_dims)
 from repro_torch.engine.driver import (SolveResult, epoch_body,
                                        inner_iteration,
-                                       resolve_backend_and_build, run_epochs,
-                                       solve, stage_block, staged_step)
+                                       resolve_backend_and_build, run_epoch,
+                                       run_epochs, solve, solve_serial,
+                                       stage_block, staged_step,
+                                       warn_ragged_eval)
 from repro_torch.engine.evaluate import (make_csr_primal_eval,
                                          pd_gap_eval_hook, problem_eval_hook)
 from repro_torch.engine.schedules import (SCHEDULES, Schedule, cyclic_perms,
@@ -56,12 +62,13 @@ __all__ = [
     "register_backend", "registered_backends", "resolve_backend",
     "resolve_backend_for_layout",
     "DSOState", "GridData", "TileData", "as_tile_data", "check_tile_stats",
-    "eta_schedule", "gather_alpha", "gather_w", "init_state_data",
+    "eta_schedule", "gather_alpha", "gather_w", "init_state",
+    "init_state_data",
     "make_grid_data", "prob_meta", "state_from_arrays",
     "tile_data_from_arrays", "tile_dims",
     "SolveResult", "epoch_body", "inner_iteration",
-    "resolve_backend_and_build", "run_epochs", "solve", "stage_block",
-    "staged_step",
+    "resolve_backend_and_build", "run_epoch", "run_epochs", "solve",
+    "solve_serial", "stage_block", "staged_step", "warn_ragged_eval",
     "make_csr_primal_eval", "pd_gap_eval_hook", "problem_eval_hook",
     "SCHEDULES", "Schedule", "cyclic_perms", "fixed_schedule",
     "get_schedule", "lpt_latin_square",

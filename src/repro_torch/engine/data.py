@@ -155,6 +155,11 @@ def make_grid_data(prob, p: int, row_batches: int = 1) -> GridData:
         tile_col_nnz_g=tile_col_nnz, tile_row_nnz_g=tile_row_nnz)
 
 
+def init_state(prob, data, alpha0: float = 0.0) -> DSOState:
+    """``init_state_data`` with the loss read from the ``Problem``."""
+    return init_state_data(prob.loss_name, data, alpha0)
+
+
 def init_state_data(loss_name: str, data, alpha0: float = 0.0) -> DSOState:
     """Fresh state on the grid's device: w = 0, alpha = alpha0 projected
     onto the loss's domain (0 on padding rows), AdaGrad sums 0."""

@@ -79,6 +79,9 @@ SIGNATURES = {
     # csrc/ssd_scan.cu
     "ssd_scan_fwd":
         [_P] * 8 + [_I] * 7 + [_P],
+    # csrc/dso_serial.cu
+    "dso_serial_epoch":
+        [_P] * 4 + [_I] + [_P] * 7 + [_F] * 5 + [_I] * 3 + [_P],
 }
 
 

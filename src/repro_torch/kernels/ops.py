@@ -46,6 +46,9 @@ Each wrapper counts its kernel launches in a plain int attribute,
                                       (split TF32; listed as
                                       ``swa_attention_tf32x3``)
     ssd_scan.launches                 the Mamba2 SSD scan
+    dso_serial_epoch.launches         the paper-exact serial epoch (one
+                                      launch per epoch; replaces no
+                                      pallas_call)
 
 A sparse block step makes one folded launch per row tile, so one inner
 iteration of the epoch is ``row_batches`` launches for all p processors
@@ -64,7 +67,7 @@ import weakref
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import dso_sparse, dso_update
+from repro_torch.kernels import dso_serial, dso_sparse, dso_update
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import swa_attention as _swa
 
@@ -718,11 +721,53 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
 
 ssd_scan.launches = 0
 
+# ---------------------------------------------------------------- serial --
+
+
+def dso_serial_epoch(ii, jj, vv, order, w, alpha, gw, ga, y, row_nnz,
+                     col_nnz, scalars, *, loss_name: str, reg_name: str,
+                     use_adagrad: bool = True):
+    """One paper-exact serial epoch (Algorithm 1 at p = 1), in place on
+    ``w``, ``gw`` (d,) and ``alpha``, ``ga`` (m,): the nonzeros (ii, jj,
+    vv) (nnz,) visited in ``order`` (nnz,), a permutation of 0..nnz-1,
+    each taking the Eq.-8 step; ``scalars`` = (eta, lam, m, w_lo, w_hi).
+    On the card one launch of ``csrc/dso_serial.cu``; the indices are not
+    checked there, so they must lie in range."""
+    nnz, (m, d) = ii.numel(), (alpha.numel(), w.numel())
+    for name, t, dtype, n in (("ii", ii, torch.int32, nnz),
+                              ("jj", jj, torch.int32, nnz),
+                              ("vv", vv, torch.float32, nnz),
+                              ("order", order, torch.int32, nnz),
+                              ("w", w, torch.float32, d),
+                              ("gw", gw, torch.float32, d),
+                              ("col_nnz", col_nnz, torch.float32, d),
+                              ("alpha", alpha, torch.float32, m),
+                              ("ga", ga, torch.float32, m),
+                              ("y", y, torch.float32, m),
+                              ("row_nnz", row_nnz, torch.float32, m)):
+        _expect(name, t, dtype, (n,))
+    if loss_name not in dso_update.LOSS_IDS \
+            or reg_name not in dso_update.REG_IDS:
+        raise ValueError(f"unknown loss/reg {loss_name!r}/{reg_name!r}")
+    scal = _scalars(scalars)
+    args = (ii, jj, vv, order, w, alpha, gw, ga, y, row_nnz, col_nnz)
+    if not _route(*args):
+        dso_serial.serial_epoch_plain(*args, scal, loss_name, reg_name,
+                                      use_adagrad)
+        return
+    dso_serial.launch_serial_epoch(*args, scal, loss_name, reg_name,
+                                   use_adagrad)
+    dso_serial_epoch.launches += 1
+
+
+dso_serial_epoch.launches = 0
+
+
 _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             dso_bucketed_block_step, _dso_bucketed_block_step_shared,
             dso_block_step, dso_tile_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
-            _swa_attention_tf32x3, ssd_scan)
+            _swa_attention_tf32x3, ssd_scan, dso_serial_epoch)
 
 
 def reset_launch_counts():

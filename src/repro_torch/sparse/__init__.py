@@ -1,5 +1,6 @@
-"""Block-sparse data layouts: CSR, padded block-ELL grid tiles and the
-K-bucketed ragged grid (``repro_torch.sparse.format``)."""
+"""Block-sparse data subsystem: CSR, padded block-ELL grid tiles and the
+K-bucketed ragged grid (``repro_torch.sparse.format``), and the streaming
+two-pass libsvm ingest (``repro_torch.sparse.ingest``: file -> CSR)."""
 
 from repro_torch.sparse.format import (BUCKET_SKEW_THRESHOLD,
                                        BucketedGridData, CSRMatrix, K_CHUNK,
@@ -13,6 +14,9 @@ from repro_torch.sparse.format import (BUCKET_SKEW_THRESHOLD,
                                        packed_bytes_per_step, pad_to_multiple,
                                        problem_k_per_tile,
                                        sparse_grid_from_csr, tile_k_skew)
+from repro_torch.sparse.ingest import (MalformedLine, ScanStats,
+                                       csr_primal_objective, ingest_libsvm,
+                                       iter_csr_shards, scan_libsvm)
 
 __all__ = [
     "BUCKET_SKEW_THRESHOLD", "BucketedGridData", "CSRMatrix", "K_CHUNK",
@@ -21,4 +25,6 @@ __all__ = [
     "csr_k_per_tile", "density", "grid_nbytes", "make_bucketed_grid_data",
     "make_sparse_grid_data", "packed_bytes_per_step", "pad_to_multiple",
     "problem_k_per_tile", "sparse_grid_from_csr", "tile_k_skew",
+    "MalformedLine", "ScanStats", "csr_primal_objective", "ingest_libsvm",
+    "iter_csr_shards", "scan_libsvm",
 ]
