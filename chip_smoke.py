@@ -33,9 +33,9 @@ Phases, one line per result:
    launch of the serial epoch kernel (``csrc/dso_serial.cu``; it replaces
    no pallas_call) and nothing else; w, alpha and the history against
    the plain version on a CPU copy with the same visit orders, bound
-   1e-5; then the kernel's ms per epoch (CUDA events) beside the plain
-   version's on the card, its bound (bytes) and the depth of the epoch's
-   dependency graph.
+   1e-5; then the kernel's ms per epoch (CUDA events) and its device ms
+   per epoch (profiler) beside the plain version's on the card, its bound
+   (bytes) and the depth of the epoch's dependency graph.
 3d. dense kernel vs plain versions on the card: the dense launch A + B
    through ``ops.dso_block_step`` for row_batches {1, 2, 3} x the six
    pairs on a narrow grid (db 289, rows and columns padded, a trailing row
@@ -89,6 +89,38 @@ Phases, one line per result:
    (the per-tile path, ``ops.dso_tile_step``), each in its own launch
    count window; same checks against ``dense_jnp``, plus the peak device
    memory.
+8r. the elastic runtime (``repro_torch.runtime``) on phase 4's
+   (svm-real-sim, block-ELL), phase 5n's (logistic-news20, hot route) and
+   phase 5d's (svm-ocr, dense) grids: 10 epochs with
+   ``checkpoint_every=2`` into ``SnapshotStore(async_writes=True)`` (every
+   file passes ``verify_pytree``); a run stopped at epoch 6 and continued
+   by ``runtime.resume``, w and alpha within 1e-5 of the uninterrupted
+   run's, printed beside two uninterrupted runs' max|d| (the atomics'
+   own noise); the snapshot's bytes and the host seconds of ``save()``
+   with and without ``async_writes``.
+8h. health on svm-real-sim, 20 epochs: a ``NaNInjector`` poisons w at
+   epoch 4, the ``HealthGuard`` rolls back to the snapshot at 4 with eta
+   backed off by 0.9 (and, measured only, 0.7), and the final primal
+   lands within 1e-3 relative of the clean run's (the ledger printed); ``max_retries=0`` with
+   ``on_exhausted="serial"`` on phase 3s's problem degrades to
+   ``solve_serial`` and its kernel.
+8s. reshard on svm-real-sim: p 4 -> 4 leaves the grid and the state as
+   they are; p 4 -> 2 from phase 8r's last snapshot (``reshard``: the
+   grid re-tiled on the host, its seconds printed), then 4 epochs on the
+   card with the primal falling.
+8o. obs and telemetry on logistic-real-sim (shared route): a
+   ``RunRecorder``'s spans (epoch_chunk, eval per chunk) and its nnz/s
+   and eval.primal gauges; a ``TelemetrySpec``'s rows and nnz equal to
+   the tile statistics, nonfinite 0, the update norms within 1e-5 of the
+   plain twin's on a CPU copy; obs and telemetry on against off, w
+   within 1e-5; ``solve``'s s/epoch with each on and off.
+8w. the legacy switch on logistic-real-sim:
+   ``sparse_bucketed_pallas_switch`` (the block-ELL kernel on each active
+   tile's bucket rectangle, p launches per inner iteration) against
+   ``sparse_bucketed_pallas`` and ``sparse_bucketed_jnp_switch`` on the
+   card, w within 1e-5; launches per epoch and s/epoch of each.
+   Phases 8r-8w run right after 5d, each run in its own launch-count
+   window, which must hold the design's launches.
 3t. the two-pass tile step (``ops.dso_tile_step(twopass=True)``) against
    its plain version and against the fused ``ops.dso_tile_step`` on the
    same inputs, six pairs at M 999, D 1,155, contiguous (row kernels) and
@@ -1103,6 +1135,8 @@ def phase_serial(dev):
     kw = dict(loss_name="hinge", reg_name="l2", use_adagrad=True)
     ms = cuda_ms(lambda: ops.dso_serial_epoch(ii, jj, vv, order, *st,
                                               *args, **kw), 5, warm=1)
+    dev_ms, _ = device_ms_per_call(lambda: ops.dso_serial_epoch(
+        ii, jj, vv, order, *st, *args, **kw), 3)
     pst = state()
     plain_ms = cuda_ms(lambda: dso_serial.serial_epoch_plain(
         ii, jj, vv, order, *pst, *args[:3], scal, "hinge", "l2", True),
@@ -1113,7 +1147,8 @@ def phase_serial(dev):
     bound_ms = nbytes / HBM_BYTES_S * 1e3
     say("3s", f"serial_epoch_kernel at m {m}, d {d}, nnz {nnz} (hinge/l2, "
               f"AdaGrad): {ms:.4f} ms per epoch ({ms * 1e6 / nnz:.1f} ns "
-              f"per nonzero, one thread); plain version on the card "
+              f"per nonzero, one thread), device {dev_ms:.4f} ms per epoch "
+              f"(profiler, 3 epochs); plain version on the card "
               f"{plain_ms:.4f} ms ({waves} waves); bound {bound_ms:.2e} ms "
               f"(bytes: {nbytes} B once); the dependency graph is "
               f"{waves} steps deep")
@@ -1122,6 +1157,383 @@ def phase_serial(dev):
                 launches=launches, max_abs_err=worst, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=None)
+
+
+# ------------------------------------------- runtime, health, obs, switch --
+
+
+def check_counts(phase, counts, want):
+    """The launch counts of a run must equal the design ``want`` on the
+    counters it names and be 0 on every other counter but the probe's
+    (cached per device, so it may or may not run again)."""
+    got = {k: v for k, v in counts.items() if v and k != "sparse_probe"}
+    want = {k: v for k, v in want.items() if v}
+    say(phase, f"launch counts {got} (design {want})")
+    check(got == want, f"launch counts {got} != design {want}")
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after: (result, counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def grid_on(grid, dev):
+    """A copy of a grid with every tensor field on ``dev`` (host arrays
+    and the per-bucket rectangles as they are)."""
+    import torch
+    return grid._replace(**{k: v.to(dev) for k, v in grid._asdict().items()
+                            if isinstance(v, torch.Tensor)})
+
+
+def grid_kw(ctx, cfg, dev):
+    """``solve`` keywords for a phase's pre-built grid."""
+    d = OCR_D if ctx["layout"] == "dense" else ctx["csr"].d
+    return dict(p=P, eta0=cfg.eta0, loss_name=ctx["loss"], reg_name="l2",
+                lam=ctx["lam"], m=ctx["m"], d=d, alpha0=cfg.alpha0,
+                device=dev)
+
+
+def save_seconds(state, key, cfg, tmp, async_writes, reps=3):
+    """Host seconds of ``SnapshotStore.save`` (median of ``reps``; async:
+    the call alone, then its ``flush``) and the file's bytes."""
+    import os
+    from repro_torch.runtime import SnapshotStore
+    store = SnapshotStore(os.path.join(tmp, f"save_{int(async_writes)}"),
+                          async_writes=async_writes)
+    calls, flushes = [], []
+    for ep in range(1, reps + 1):
+        t = time.perf_counter()
+        path = store.save(state=state, key=key, epochs_done=ep, history=[],
+                          config=cfg)
+        calls.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        store.flush()
+        flushes.append(time.perf_counter() - t)
+    calls.sort()
+    flushes.sort()
+    return calls[reps // 2], flushes[reps // 2], os.path.getsize(path)
+
+
+def phase_runtime(dev, cells):
+    """Phase 8r: the elastic runtime on the card.  For each cell (a phase's
+    grid and configuration): 10 epochs with ``checkpoint_every=2`` into an
+    async ``SnapshotStore`` (every file must pass ``verify_pytree``), a
+    second uninterrupted run (their max|d| is the atomics' own noise), a
+    run stopped at epoch 6 and continued by ``runtime.resume`` (w and
+    alpha within 1e-5 of the uninterrupted run's); each run in its own
+    launch-count window.  Then the snapshot's bytes and the host seconds
+    of ``save()`` with and without ``async_writes``.  Returns per cell the
+    snapshot store and the numbers."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.engine import solve
+    from repro_torch.runtime import SnapshotStore, resume, verify_pytree
+    out = {}
+    for name, (ctx, cfg, counter) in cells.items():
+        kw = grid_kw(ctx, cfg, dev)
+        n_step = EPOCHS * P
+        design = {counter: n_step}
+        if counter == "dso_block_step":
+            design["dso_primal_update"] = n_step
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_8r_")
+        store = SnapshotStore(os.path.join(tmp, "run"), async_writes=True)
+        full, counts = counted(lambda: solve(
+            ctx["grid"], backend="auto", epochs=EPOCHS, checkpoint_every=2,
+            store=store, **kw))
+        check_counts("8r", counts, design)
+        eps = store.epochs()
+        check(eps == [2, 4, 6, 8, 10], f"{name}: snapshots at {eps}")
+        for ep in eps:
+            check(verify_pytree(store.path(ep)) == "verified",
+                  f"{name}: snapshot {ep} does not verify")
+        again = solve(ctx["grid"], backend="auto", epochs=EPOCHS, **kw)
+        noise_w, _ = max_rel_err(again.w, full.w)
+        noise_a, _ = max_rel_err(again.alpha, full.alpha)
+        stopped = SnapshotStore(os.path.join(tmp, "stopped"))
+        solve(ctx["grid"], backend="auto", epochs=6, checkpoint_every=2,
+              store=stopped, **kw)
+        res, counts = counted(lambda: resume(
+            ctx["grid"], stopped, epochs=EPOCHS, device=dev))
+        check_counts("8r", counts, {k: v * 4 // EPOCHS
+                                    for k, v in design.items()})
+        e_w, ok_w = max_rel_err(res.w, full.w)
+        e_a, ok_a = max_rel_err(res.alpha, full.alpha)
+        say("8r", f"{name}: snapshots at {eps}, every file verified; "
+                  f"resumed at 6 -> {EPOCHS} vs uninterrupted: max|d| w "
+                  f"{e_w:.3e} alpha {e_a:.3e} (two uninterrupted runs: w "
+                  f"{noise_w:.3e} alpha {noise_a:.3e})")
+        check(ok_w and ok_a, f"{name}: the resumed run differs from the "
+                             f"uninterrupted one by {max(e_w, e_a):.3e}")
+        snap = store.load()
+        sync_s, _, nbytes = save_seconds(full.state, snap.key, snap.config,
+                                         tmp, False)
+        call_s, flush_s, _ = save_seconds(full.state, snap.key, snap.config,
+                                          tmp, True)
+        say("8r", f"{name}: snapshot {nbytes} B; save() host s: sync "
+                  f"{sync_s:.4f}, async call {call_s:.4f} (the copy off the "
+                  f"card) + flush {flush_s:.4f}")
+        out[name] = dict(store=store, full=full, bytes=nbytes,
+                         sync_s=sync_s, async_s=call_s, flush_s=flush_s,
+                         resume_err=max(e_w, e_a),
+                         noise=max(noise_w, noise_a))
+    return out
+
+
+HEALTH_EPOCHS = 20
+#: the rollback's eta backoffs: the first is held to 1e-3 of the clean run's
+#: final primal; the others are measured (0.7 ends 2.4e-3 off after 20
+#: epochs at real-sim's size: AdaGrad is far from converged there)
+HEALTH_DECAYS = (0.9, 0.7)
+
+
+def phase_health(dev, ctx, cfg):
+    """Phase 8h: a ``NaNInjector`` poisons w block 1 entering epoch 4 of
+    the svm-real-sim run (``HEALTH_EPOCHS`` epochs); the guard must roll
+    back to the snapshot at 4 with the step size backed off by each of
+    ``HEALTH_DECAYS``, and with the first the final primal land within
+    1e-3 relative of the clean run's.  Then ``max_retries=0`` with
+    ``on_exhausted="serial"`` on ``make_classification(m 2,000, d 500,
+    density 0.05)`` must degrade to ``solve_serial`` and its kernel."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.engine import make_csr_primal_eval, solve
+    from repro_torch.runtime import (HealthGuard, NaNInjector,
+                                     SnapshotStore, render_ledger)
+    kw = grid_kw(ctx, cfg, dev)
+    hook = make_csr_primal_eval(ctx["csr"], ctx["y"], ctx["lam"],
+                                ctx["loss"], "l2", device=dev)
+    kw.update(backend="auto", epochs=HEALTH_EPOCHS, eval_every=EVAL_EVERY,
+              eval_hook=hook)
+    clean = solve(ctx["grid"], **kw)
+    b = clean.history[-1]["primal"]
+    rels = {}
+    for decay in HEALTH_DECAYS:
+        guard = HealthGuard(eta_decay=decay,
+                            injector=NaNInjector({4: ("w", 1)}))
+        store = SnapshotStore(tempfile.mkdtemp(prefix="chip_smoke_8h_"))
+        res, counts = counted(lambda: solve(
+            ctx["grid"], checkpoint_every=2, store=store, health=guard,
+            **kw))
+        # epochs 0-6, the rollback to 4, then 4-20: two epochs run twice
+        check_counts("8h", counts,
+                     {"dso_sparse_block_step": (HEALTH_EPOCHS + 2) * P})
+        say("8h", f"eta_decay {decay} ledger:\n"
+                  + render_ledger(guard.ledger))
+        ev = guard.ledger
+        check(len(ev) == 1 and ev[0]["action"] == "rollback"
+              and ev[0]["resumed_from"] == 4 and ev[0]["epochs_lost"] == 2
+              and abs(ev[0]["eta0"] - cfg.eta0 * decay) < 1e-12,
+              f"unexpected ledger {[e.to_dict() for e in ev]}")
+        check(torch.isfinite(res.w).all(), "non-finite w after rollback")
+        a = res.history[-1]["primal"]
+        rels[decay] = abs(a - b) / abs(b)
+        say("8h", f"eta_decay {decay}: final primal after the rollback "
+                  f"{a:.8f}, clean run {b:.8f}: rel {rels[decay]:.3e}")
+    rel = rels[HEALTH_DECAYS[0]]
+    check(rel <= 1e-3, f"the rolled-back run (eta_decay "
+                       f"{HEALTH_DECAYS[0]}) ends {rel:.3e} off the clean "
+                       f"run (bound 1e-3)")
+    prob = make_classification(**SERIAL_SHAPE, seed=22, device=dev)
+    guard = HealthGuard(max_retries=0, on_exhausted="serial",
+                        injector=NaNInjector({0: ("w", 0)}))
+    res, counts = counted(lambda: solve(
+        prob, backend="auto", p=P, epochs=SERIAL_EPOCHS, eta0=0.5,
+        eval_every=1, checkpoint_every=1,
+        store=SnapshotStore(tempfile.mkdtemp(prefix="chip_smoke_8h_")),
+        health=guard, device=dev))
+    check([e["action"] for e in guard.ledger] == ["degrade_serial"],
+          f"ledger {[e.to_dict() for e in guard.ledger]}")
+    # the poisoned first epoch on auto's grid kernel, then the serial run
+    grid_runs = {k: v for k, v in counts.items()
+                 if v and k not in ("dso_serial_epoch", "sparse_probe")}
+    check(list(grid_runs.values()) == [P],
+          f"the first epoch's launches {grid_runs}, expected {P} of one "
+          f"block-step kernel")
+    check_counts("8h", counts, dict(grid_runs,
+                                    dso_serial_epoch=SERIAL_EPOCHS))
+    check(res.state is None and torch.isfinite(res.w).all()
+          and len(res.history) == SERIAL_EPOCHS,
+          "the degraded run is not solve_serial's")
+    say("8h", f"exhausted -> degrade_serial: solve_serial ran "
+              f"{counts['dso_serial_epoch']} serial epochs; final primal "
+              f"{res.history[-1]['primal']:.6f}")
+    return dict(rel=rel)
+
+
+def phase_reshard(dev, ctx, cfg, snap_store):
+    """Phase 8s: p 4 -> 4 on svm-real-sim must give the same grid arrays
+    and the same state exactly; p 4 -> 2 through ``reshard`` (the grid
+    re-tiled on the host: ``regrid_direct`` when the padded sizes agree,
+    else ``grid_to_csr`` and the tiler) from phase 8r's last snapshot, then
+    4 more epochs on the card, whose primal must fall below the
+    snapshot's and at every evaluation."""
+    import torch
+    from repro_torch.engine import make_csr_primal_eval, solve
+    from repro_torch.runtime import reshard, reshard_state, retile
+    grid, m, d = ctx["grid"], ctx["m"], ctx["csr"].d
+    snap = snap_store.load()
+    same = retile(grid, m, d, P)
+    st = reshard_state(snap.state, m, d, P)
+    check(grids_equal(same, grid), "p 4 -> 4 changed the grid")
+    check(all(torch.equal(getattr(st, f), getattr(snap.state, f))
+              for f in ("w_grid", "gw_grid", "alpha", "ga")),
+          "p 4 -> 4 changed the state")
+    t = time.perf_counter()
+    snap2, grid2 = reshard(snap, 2, data=grid)
+    retile_s = time.perf_counter() - t
+    hook = make_csr_primal_eval(ctx["csr"], ctx["y"], ctx["lam"],
+                                ctx["loss"], "l2", device=dev)
+    start = hook.primal(snap.state.w_grid.reshape(-1)[:d].to(dev))
+    kw = grid_kw(ctx, cfg, dev)
+    kw.update(p=2, epochs=snap.epochs_done + 4, eval_every=2,
+              eval_hook=hook)
+    res, counts = counted(lambda: solve(grid2, backend="auto", init=snap2,
+                                        **kw))
+    check_counts("8s", counts, {"dso_sparse_block_step": 4 * 2})
+    primal = [float(start)] + [h["primal"] for h in res.history]
+    say("8s", f"p 4 -> 4: grid and state unchanged; p 4 -> 2 at epoch "
+              f"{snap.epochs_done}: retile on the host {retile_s:.2f} s "
+              f"(mb {grid2.mb}, db {grid2.db}, K {grid2.K}); primal "
+              + " ".join(f"{v:.6f}" for v in primal))
+    check(all(b < a for a, b in zip(primal, primal[1:])),
+          f"the primal did not fall after the reshard: {primal}")
+    return dict(retile_s=retile_s)
+
+
+def timed_solve(fn, reps=3):
+    """Median host seconds of ``fn()`` (synchronised) over ``reps``, after
+    one unrecorded call."""
+    import torch
+    fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    return sorted(ts)[reps // 2]
+
+
+def phase_obs(dev, ctx, cfg):
+    """Phase 8o: obs and telemetry on logistic-real-sim (the shared
+    route).  A ``RunRecorder`` on ``solve`` (span order, the nnz/s and
+    eval.primal gauges); a ``TelemetrySpec`` (rows and nnz equal to the
+    tile statistics exactly, nonfinite 0, dw_norm and dalpha_norm within
+    1e-5 of the same run's plain twin on a CPU copy of the grid, w within
+    1e-5 of the run without telemetry); then s/epoch of ``solve`` (10
+    epochs, primal every 2) with telemetry and obs each on and off."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import make_csr_primal_eval, solve
+    from repro_torch.engine.schedules import cyclic_perms
+    from repro_torch.obs import RunRecorder, TelemetrySpec
+    grid = ctx["grid"]
+    hook = make_csr_primal_eval(ctx["csr"], ctx["y"], ctx["lam"],
+                                ctx["loss"], "l2", device=dev)
+    kw = grid_kw(ctx, cfg, dev)
+    kw.update(backend="auto", epochs=EPOCHS, eval_every=EVAL_EVERY,
+              eval_hook=hook)
+    rec = RunRecorder(profiler_annotations=True)
+    off = solve(grid, **kw)
+    on, counts = counted(lambda: solve(grid, obs=rec, **kw))
+    check_counts("8o", counts, {ctx["counter"]: EPOCHS * P})
+    spans = [e["name"] for e in rec.events if e["type"] == "span"]
+    check(spans == ["epoch_chunk", "eval"] * (EPOCHS // EVAL_EVERY),
+          f"span order {spans}")
+    g = {e["name"]: e["value"] for e in rec.events if e["type"] == "metric"}
+    e_w, ok = max_rel_err(on.w, off.w)
+    say("8o", f"RunRecorder: {len(rec.events)} events, spans "
+              f"{spans[:4]}... x{EPOCHS // EVAL_EVERY}; last nnz_per_s "
+              f"{g['nnz_per_s']:.4e}, eval.primal {g['eval.primal']:.6f}; "
+              f"obs on vs off: max|d| w {e_w:.3e}")
+    check(ok and np.isfinite(g["eval.primal"]), "obs changed the run")
+    spec = TelemetrySpec()
+    tel, counts = counted(lambda: solve(grid, telemetry=spec, **kw))
+    check_counts("8o", counts, {ctx["counter"]: EPOCHS * P})
+    buf = np.concatenate([c.buf for c in spec.chunks])   # (E, p, p, F)
+    trn = grid.tile_row_nnz_g.cpu().numpy()
+    perm = cyclic_perms(1, P)[0].numpy()
+    want_rows = np.stack([[(trn[q, perm[r, q]] > 0).sum() for q in range(P)]
+                          for r in range(P)])
+    want_nnz = np.stack([[trn[q, perm[r, q]].sum() for q in range(P)]
+                         for r in range(P)])
+    check(np.array_equal(buf[..., 2], np.broadcast_to(want_rows,
+                                                      buf.shape[:3]))
+          and np.array_equal(buf[..., 3], np.broadcast_to(want_nnz,
+                                                          buf.shape[:3])),
+          "telemetry rows/nnz differ from the tile statistics")
+    check(spec.nonfinite_total() == 0, "telemetry saw a nonfinite value")
+    cpu_spec = TelemetrySpec()
+    cpu_kw = dict(kw, device="cpu", backend="sparse_bucketed_jnp",
+                  eval_hook=None)
+    solve(grid_on(grid, torch.device("cpu")), telemetry=cpu_spec, **cpu_kw)
+    cbuf = torch.tensor(np.concatenate([c.buf for c in cpu_spec.chunks]))
+    e_n, ok_n = max_rel_err(torch.tensor(buf[..., :2]), cbuf[..., :2])
+    e_t, ok_t = max_rel_err(tel.w, off.w)
+    say("8o", f"TelemetrySpec: {len(spec.chunks)} chunks of {buf.shape[1:]}"
+              f"; rows/nnz equal the tile statistics; nonfinite 0; "
+              f"dw_norm/dalpha_norm vs the plain twin on a CPU copy: "
+              f"max|d| {e_n:.3e} (mean dw_norm {buf[..., 0].mean():.4e}); "
+              f"telemetry on vs off: max|d| w {e_t:.3e}")
+    check(ok_n and ok_t, "telemetry norms or trajectory off by > 1e-5")
+    times = {}
+    for label, extra in (("off", {}),
+                         ("telemetry", {"telemetry": None}),
+                         ("obs", {"obs": None})):
+        def run(extra=extra):
+            x = dict(extra)
+            if "telemetry" in x:
+                x["telemetry"] = TelemetrySpec()
+            if "obs" in x:
+                x["obs"] = RunRecorder()
+            solve(grid, **kw, **x)
+        times[label] = timed_solve(run) / EPOCHS
+    say("8o", "solve s/epoch (10 epochs, primal every 2, median of 3): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in times.items()))
+    return times
+
+
+def phase_switch(dev, ctx, cfg):
+    """Phase 8w: the legacy bucket switch on logistic-real-sim:
+    ``sparse_bucketed_pallas_switch`` (the block-ELL kernel on each active
+    tile's bucket rectangle, one launch per processor and inner
+    iteration) against ``sparse_bucketed_pallas`` and against
+    ``sparse_bucketed_jnp_switch`` on the card, w within 1e-5; launches
+    per epoch and s/epoch of each."""
+    from repro_torch.engine import solve
+    grid = ctx["grid"]
+    kw = grid_kw(ctx, cfg, dev)
+    kw.update(epochs=EPOCHS, eval_hook=None)
+    runs, out = {}, {}
+    for name, design in (
+            ("sparse_bucketed_pallas_switch",
+             {"dso_sparse_block_step": EPOCHS * P * P}),
+            ("sparse_bucketed_pallas", {ctx["counter"]: EPOCHS * P}),
+            ("sparse_bucketed_jnp_switch", {})):
+        res, counts = counted(lambda: solve(grid, backend=name, **kw))
+        check_counts("8w", counts, design)
+        runs[name] = res
+        sec = timed_solve(lambda: solve(grid, backend=name, **kw)) / EPOCHS
+        out[name] = dict(launches_per_epoch=sum(design.values()) / EPOCHS,
+                         s_per_epoch=sec)
+        say("8w", f"{name}: {sum(design.values()) // EPOCHS} launches per "
+                  f"epoch, s/epoch {sec:.6f}")
+    sw = runs["sparse_bucketed_pallas_switch"]
+    for other in ("sparse_bucketed_pallas", "sparse_bucketed_jnp_switch"):
+        err, ok = max_rel_err(sw.w, runs[other].w)
+        say("8w", f"pallas_switch vs {other}: max|d| w {err:.3e}")
+        check(ok, f"the switch differs from {other} by {err:.3e}")
+    return out
 
 
 def live_column_shares(grid):
@@ -2282,6 +2694,20 @@ def main() -> int:
                       shape=(NEWS20_M, NEWS20_D, NEWS20_K), route="hot")
     ingest["5i"] = phase_ingest("5i", dev, news, CONFIGS["logistic-news20"])
     dense = phase_dense_main(dev)
+
+    t8 = time.perf_counter()
+    runtime = phase_runtime(dev, {
+        "svm-real-sim": (uni, CONFIGS["svm-real-sim"], uni["counter"]),
+        "logistic-news20": (news, CONFIGS["logistic-news20"],
+                            news["counter"]),
+        "svm-ocr": (dense, CONFIGS["svm-ocr"], "dso_block_step")})
+    phase_health(dev, uni, CONFIGS["svm-real-sim"])
+    phase_reshard(dev, uni, CONFIGS["svm-real-sim"],
+                  runtime["svm-real-sim"]["store"])
+    phase_obs(dev, buck, CONFIGS["logistic-real-sim"])
+    phase_switch(dev, buck, CONFIGS["logistic-real-sim"])
+    say(8, f"phases 8r, 8h, 8s, 8o, 8w passed in "
+           f"{time.perf_counter() - t8:.1f} s")
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)

@@ -8,7 +8,8 @@
                                    | as_tile_data
                                    v
       TileData (arrays = (Xg,) | (cols_g, vals_g) |
-                (cols_fl, vals_fl, lut, cnt))
+                (cols_fl, vals_fl, lut, cnt) | per-bucket (cols, vals)...
+                + (bucket_id, bucket_pos) for the *_switch backends)
                                    |
       schedules.py: perms (n_epochs, p, p) --> driver.py: run_epochs
                                                  epoch_body: p inner
@@ -20,7 +21,9 @@
                                                        (plain PyTorch)
                    dense_pallas_block | dense_pallas_fused |
                    sparse_pallas | sparse_bucketed_pallas (CUDA kernels,
-                   kernels/ops.py -> csrc/dso_update.cu, dso_sparse.cu)
+                   kernels/ops.py -> csrc/dso_update.cu, dso_sparse.cu);
+                   sparse_bucketed_{jnp,pallas}_switch (the legacy
+                   per-bucket dispatch onto the block-ELL steps)
                                    |
                                    v  (DSOState updated in place)
       solve() -> SolveResult(w, alpha, history, state); evaluation hooks
@@ -28,6 +31,11 @@
 
       solve_serial(): the paper-exact p = 1 epochs, one
       ops.dso_serial_epoch (csrc/dso_serial.cu) per epoch.
+
+      solve()'s duck-typed seams: checkpoint_every / store / init / health
+      (repro_torch.runtime: snapshots, resume, rollback), obs and
+      telemetry (repro_torch.obs: spans, gauges, run_epochs_telemetry's
+      device-side buffers).  This package imports neither.
 """
 
 from repro_torch.engine.backends import (LEGACY_IMPLS, TileBackend,
@@ -46,7 +54,8 @@ from repro_torch.engine.data import (DSOState, GridData, TileData,
 from repro_torch.engine.driver import (SolveResult, epoch_body,
                                        inner_iteration,
                                        resolve_backend_and_build, run_epoch,
-                                       run_epochs, solve, solve_serial,
+                                       run_epochs, run_epochs_telemetry,
+                                       solve, solve_serial,
                                        stage_block, staged_step,
                                        warn_ragged_eval)
 from repro_torch.engine.evaluate import (make_csr_primal_eval,
@@ -67,7 +76,8 @@ __all__ = [
     "make_grid_data", "prob_meta", "state_from_arrays",
     "tile_data_from_arrays", "tile_dims",
     "SolveResult", "epoch_body", "inner_iteration",
-    "resolve_backend_and_build", "run_epoch", "run_epochs", "solve",
+    "resolve_backend_and_build", "run_epoch", "run_epochs",
+    "run_epochs_telemetry", "solve",
     "solve_serial", "stage_block", "staged_step", "warn_ragged_eval",
     "make_csr_primal_eval", "pd_gap_eval_hook", "problem_eval_hook",
     "SCHEDULES", "Schedule", "cyclic_perms", "fixed_schedule",

@@ -1,4 +1,4 @@
-"""TileBackend registry: one ``block_step`` contract, seven implementations.
+"""TileBackend registry: one ``block_step`` contract, nine implementations.
 
 A backend pairs a *layout* (dense row shards "dense", uniform block-ELL
 "sparse" or K-bucketed "bucketed") with a *kernel*.  Its ``block_step(meta,
@@ -26,12 +26,24 @@ wrapper runs the kernel's plain version).
   sparse_bucketed_jnp    — the flat-chunk staging + staged math in plain
                            PyTorch (kernels/dso_sparse.py)
   sparse_bucketed_pallas — the bucketed block-step CUDA kernel
+  sparse_bucketed_jnp_switch / sparse_bucketed_pallas_switch
+                         — the legacy bucket dispatch (the reference's
+                           ``lax.switch``): each processor's active tile
+                           is looked up in the (p, p) bucket maps and its
+                           (mb, K_k) bucket rectangle stepped by
+                           ``sparse_jnp`` / ``sparse_pallas`` at p = 1, so
+                           the CUDA switch makes one block-ELL launch per
+                           processor and row tile, ``p * p * row_batches``
+                           per epoch (the one-kernel pair: ``p *
+                           row_batches``).  Kept for parity, not speed.
+
+``TileBackend.payload`` ("flat" | "buckets") names the bucketed payload a
+backend reads; the driver passes it to ``as_tile_data``.
 
 ``auto`` keeps the reference's layout rules (``SPARSE_DENSITY_THRESHOLD``,
 ``BUCKET_SKEW_THRESHOLD``) and then, unlike the reference (which always
 picks jnp), picks the layout's kernel backend when the data lives on a
-CUDA device and the plain twin on the CPU.  The ``*_switch`` bucket
-dispatch is not ported yet: asking for it raises ``NotImplementedError``.
+CUDA device and the plain twin on the CPU; it never picks a switch.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.engine.data import DSOState, TileData
 from repro_torch.engine.update import block_tile_step, sparse_tile_step
 from repro_torch.kernels import dso_sparse, ops
 from repro_torch.kernels.dso_update import active_block_stats, active_slab
@@ -51,6 +64,7 @@ class TileBackend(NamedTuple):
     name: str
     layout: str             # "dense" | "sparse" | "bucketed"
     block_step: Callable    # see module docstring
+    payload: str = "flat"   # bucketed payload: "flat" | "buckets"
 
 
 def _needs_adagrad(meta, name):
@@ -167,18 +181,46 @@ def _make_bucketed_block_step(step, name):
     return block_step
 
 
+def _make_switch_block_step(sparse_step):
+    """The legacy bucket dispatch over a block-ELL block step: for each
+    processor q, look up its active tile's (bucket k, slot s) in the
+    ``"buckets"`` payload's maps and step that (mb, K_k) rectangle with
+    ``sparse_step`` as a grid of one processor, on views of the state
+    (its w/gw block row, its alpha/ga row), so the step writes in place.
+    The tile's column statistics are the one copy (a strided slice)."""
+
+    def block_step(meta, data, state, blk_ids, eta_t, row_batches):
+        *rects, bucket_id, bucket_pos = data.arrays
+        p = data.yg.shape[0]
+        db = data.col_nnz.shape[0] // p
+        bid, pos = bucket_id.tolist(), bucket_pos.tolist()
+        zero = torch.zeros(1, dtype=torch.int32, device=blk_ids.device)
+        for q, b in enumerate(blk_ids.tolist()):
+            k, s = bid[q][b], pos[q][b]
+            cols = slice(b * db, (b + 1) * db)
+            tile = TileData(
+                arrays=(rects[2 * k][q, s][None, None],
+                        rects[2 * k + 1][q, s][None, None]),
+                yg=data.yg[q:q + 1], row_nnz_g=data.row_nnz_g[q:q + 1],
+                col_nnz=data.col_nnz[cols],
+                row_valid=data.row_valid[q:q + 1],
+                tile_col_nnz_g=data.tile_col_nnz_g[q:q + 1, :, cols]
+                .contiguous(),
+                tile_row_nnz_g=data.tile_row_nnz_g[q:q + 1, b:b + 1])
+            sub = DSOState(w_grid=state.w_grid[b:b + 1],
+                           gw_grid=state.gw_grid[b:b + 1],
+                           alpha=state.alpha[q:q + 1],
+                           ga=state.ga[q:q + 1], epoch=state.epoch)
+            sparse_step(meta, tile, sub, zero, eta_t, row_batches)
+
+    return block_step
+
+
 _BACKENDS: dict[str, TileBackend] = {}
 
 #: legacy ``impl`` selectors -> canonical backends
 LEGACY_IMPLS = {"jnp": "dense_jnp", "pallas": "dense_pallas_block",
                 "sparse": "sparse_jnp", "sparse_pallas": "sparse_pallas"}
-
-#: registered in the reference, ported by a later slice
-NOT_YET_PORTED = {
-    "sparse_bucketed_jnp_switch": "a later slice (the legacy bucket switch)",
-    "sparse_bucketed_pallas_switch": "a later slice (the legacy bucket "
-                                     "switch)",
-}
 
 
 def register_backend(backend: TileBackend) -> TileBackend:
@@ -197,10 +239,6 @@ def get_backend(name) -> TileBackend:
     """Canonical-name lookup; pass-through for ``TileBackend`` instances."""
     if isinstance(name, TileBackend):
         return name
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet; it comes with "
-            f"{NOT_YET_PORTED[name]}")
     try:
         return _BACKENDS[name]
     except KeyError:
@@ -272,15 +310,15 @@ def resolve_backend_for_layout(impl, layout: str, *,
     return backend
 
 
+_sparse_jnp_block_step = _make_jnp_block_step(_sparse_tile, sparse_tile_step)
+
 register_backend(TileBackend(
     "dense_jnp", "dense", _make_jnp_block_step(_dense_tile, block_tile_step)))
 register_backend(TileBackend("dense_pallas_fused", "dense",
                              _dense_pallas_fused_block_step))
 register_backend(TileBackend("dense_pallas_block", "dense",
                              _dense_pallas_block_step))
-register_backend(TileBackend(
-    "sparse_jnp", "sparse",
-    _make_jnp_block_step(_sparse_tile, sparse_tile_step)))
+register_backend(TileBackend("sparse_jnp", "sparse", _sparse_jnp_block_step))
 register_backend(TileBackend("sparse_pallas", "sparse",
                              _sparse_pallas_block_step))
 register_backend(TileBackend(
@@ -291,3 +329,9 @@ register_backend(TileBackend(
     "sparse_bucketed_pallas", "bucketed",
     _make_bucketed_block_step(ops.dso_bucketed_block_step,
                               "the bucketed CUDA kernel")))
+register_backend(TileBackend(
+    "sparse_bucketed_jnp_switch", "bucketed",
+    _make_switch_block_step(_sparse_jnp_block_step), payload="buckets"))
+register_backend(TileBackend(
+    "sparse_bucketed_pallas_switch", "bucketed",
+    _make_switch_block_step(_sparse_pallas_block_step), payload="buckets"))

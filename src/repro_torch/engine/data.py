@@ -6,8 +6,9 @@ The p x p DSO grid exists in three layouts: dense row shards
 ``as_tile_data`` turns any of them into a ``TileData`` whose ``arrays``
 field carries the layout payload — ``(Xg,)`` dense, ``(cols_g, vals_g)``
 block-ELL, the flat chunk view ``(cols_fl, vals_fl, chunk_lut,
-chunk_cnt)`` K-bucketed — next to the labels, scaling statistics and
-padding masks.
+chunk_cnt)`` K-bucketed (or, for the ``*_switch`` backends, the
+per-bucket rectangles and the (p, p) bucket maps) — next to the labels,
+scaling statistics and padding masks.
 
 ``state_from_arrays`` / ``tile_data_from_arrays`` take dicts of numpy
 arrays under the reference's field names, so a JAX run's state or grid
@@ -59,12 +60,12 @@ class TileData(NamedTuple):
 
     @property
     def layout(self) -> str:
-        layout = {1: "dense", 2: "sparse", 4: "bucketed"}.get(
-            len(self.arrays))
-        if layout is None:
-            raise ValueError(f"no layout has a {len(self.arrays)}-array "
-                             f"payload")
-        return layout
+        n = len(self.arrays)
+        if n in (1, 2):
+            return ("dense", "sparse")[n - 1]
+        if n >= 4 and n % 2 == 0:
+            return "bucketed"     # the flat chunk view or the rectangles
+        raise ValueError(f"no layout has a {n}-array payload")
 
 
 class DSOState(NamedTuple):
@@ -79,13 +80,31 @@ class DSOState(NamedTuple):
     epoch: int
 
 
-def as_tile_data(data) -> TileData:
+def as_tile_data(data, *, bucketed_payload: str = "flat") -> TileData:
     """``GridData`` | ``SparseGridData`` | ``BucketedGridData`` |
-    ``TileData`` -> ``TileData``."""
+    ``TileData`` -> ``TileData``.
+
+    ``bucketed_payload`` picks the bucketed layout's payload (each backend
+    names its own, ``TileBackend.payload``): ``"flat"``, the flat chunk
+    view the one-kernel backends stream; ``"buckets"``, the per-bucket
+    rectangles ``(cols_0, vals_0, ..., cols_{n-1}, vals_{n-1})`` (uploaded
+    here from their host numpy form to the grid's device) followed by
+    ``bucket_id`` and ``bucket_pos``, which the ``*_switch`` backends
+    dispatch over."""
     if isinstance(data, TileData):
         return data
     if isinstance(data, BucketedGridData):
-        arrays = (data.cols_fl, data.vals_fl, data.chunk_lut, data.chunk_cnt)
+        if bucketed_payload == "flat":
+            arrays = (data.cols_fl, data.vals_fl, data.chunk_lut,
+                      data.chunk_cnt)
+        elif bucketed_payload == "buckets":
+            dev = data.yg.device
+            arrays = tuple(torch.as_tensor(a, device=dev)
+                           for cv in zip(data.cols_b, data.vals_b)
+                           for a in cv) + (data.bucket_id, data.bucket_pos)
+        else:
+            raise ValueError(f"bucketed_payload must be 'flat' or "
+                             f"'buckets', got {bucketed_payload!r}")
     elif isinstance(data, SparseGridData):
         arrays = (data.cols_g, data.vals_g)
     elif isinstance(data, GridData):

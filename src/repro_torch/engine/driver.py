@@ -16,10 +16,18 @@ With a block-step kernel backend (``sparse_pallas``,
 launch per row tile, every processor in each), so one epoch is
 ``2 * p * row_batches`` launches; ``dense_pallas_fused`` launches per
 processor, ``2 * p * p * row_batches``.
+
+``solve``'s seams, all duck-typed (the engine imports neither
+``repro_torch.runtime`` nor ``repro_torch.obs``): ``checkpoint_every`` /
+``store`` / ``init`` (snapshots and resume), ``health`` (the finite probe,
+rollback with eta backoff, degradation to ``solve_serial``), ``obs`` (spans
+and gauges; ``None`` is a true no-op) and ``telemetry`` (the device-side
+lane, ``run_epochs_telemetry``; ``None`` leaves ``run_epochs`` as it is).
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Any, NamedTuple
 
@@ -35,7 +43,8 @@ from repro_torch.engine.backends import (TileBackend, get_backend,
 from repro_torch.engine.data import (DSOState, as_tile_data,
                                      check_tile_stats, eta_schedule,
                                      gather_alpha, gather_w, init_state_data,
-                                     make_grid_data, prob_meta, tile_dims)
+                                     make_grid_data, prob_meta,
+                                     state_from_arrays, tile_dims)
 from repro_torch.engine.evaluate import problem_eval_hook
 from repro_torch.engine.schedules import get_schedule
 from repro_torch.kernels import ops
@@ -100,14 +109,69 @@ def inner_iteration(backend: TileBackend, meta, data, state: DSOState,
                 eta_t, row_batches)
 
 
+# ------------------------------------------------------ telemetry lane --
+#
+# Kept literally in sync with repro_torch.obs.telemetry.TELEMETRY_FIELDS:
+# the engine never imports repro_torch.obs (the telemetry= seam is
+# duck-typed like obs=/store=), so the buffer layout is defined on both
+# sides and a test pins the tuples equal (and equal to the reference's).
+
+TELEMETRY_FIELDS = ("dw_norm", "dalpha_norm", "rows", "nnz", "nonfinite")
+
+
+def telemetry_row(w_old, w_new, a_old, a_new, gw_new, ga_new, trn_blk):
+    """The ``TELEMETRY_FIELDS`` of one inner iteration, one row per
+    processor (leading axis; the last axis is the block / shard):
+    ``trn_blk`` is each active tile's per-row nnz (``tile_row_nnz_g[q,
+    blk_q]``), so rows/nnz count the tile's real work, not its padded
+    shape.  Reads before/after values only; never feeds the trajectory."""
+    dw = torch.sqrt(torch.sum(torch.square(w_new - w_old), dim=-1))
+    da = torch.sqrt(torch.sum(torch.square(a_new - a_old), dim=-1))
+    rows = torch.sum((trn_blk > 0).to(torch.float32), dim=-1)
+    nnz = torch.sum(trn_blk, dim=-1)
+    finite = (torch.isfinite(w_new).all(-1) & torch.isfinite(a_new).all(-1)
+              & torch.isfinite(gw_new).all(-1)
+              & torch.isfinite(ga_new).all(-1))
+    return torch.stack([dw, da, rows, nnz,
+                        1.0 - finite.to(torch.float32)], dim=-1)
+
+
 def epoch_body(backend: TileBackend, data, state: DSOState, perm, eta_t,
-               meta, *, row_batches: int, p: int) -> DSOState:
+               meta, *, row_batches: int, p: int, telemetry: bool = False):
     """One epoch under a ``(p, p)`` permutation schedule, ``perm[r, q]`` =
-    block of processor q at inner iteration r."""
+    block of processor q at inner iteration r.
+
+    ``telemetry=True`` also fills the per-(r, q) ``TELEMETRY_FIELDS``
+    buffer (p, p, F) on the grid's device and returns ``(state, buf)``.
+    The steps are in place, so it copies the active w blocks and alpha
+    before each inner iteration; the update itself is the same."""
+    if not telemetry:
+        for r in range(p):
+            inner_iteration(backend, meta, data, state, perm[r], eta_t,
+                            row_batches)
+        return state._replace(epoch=state.epoch + 1)
+    buf = torch.empty((p, p, len(TELEMETRY_FIELDS)), dtype=torch.float32,
+                      device=data.yg.device)
+    qs = torch.arange(p, device=data.yg.device)
     for r in range(p):
+        b = perm[r].long()
+        w_old, a_old = state.w_grid[b], state.alpha.clone()
         inner_iteration(backend, meta, data, state, perm[r], eta_t,
                         row_batches)
-    return state._replace(epoch=state.epoch + 1)
+        buf[r] = telemetry_row(w_old, state.w_grid[b], a_old, state.alpha,
+                               state.gw_grid[b], state.ga,
+                               data.tile_row_nnz_g[qs, b])
+    return state._replace(epoch=state.epoch + 1), buf
+
+
+def _chunk(data, perms, backend):
+    """(backend, tile data in its payload, p, perms on the grid's device)
+    of a chunk of epochs."""
+    be = get_backend(backend)
+    tile = as_tile_data(data, bucketed_payload=be.payload)
+    perms = torch.as_tensor(perms).to(device=tile.yg.device,
+                                      dtype=torch.int32)
+    return be, tile, tile.yg.shape[0], perms
 
 
 def run_epochs(data, state: DSOState, perms, etas, lam: float, m: float,
@@ -117,16 +181,32 @@ def run_epochs(data, state: DSOState, perms, etas, lam: float, m: float,
     """``len(etas)`` epochs; ``perms`` (n_epochs, p, p).  Updates the state
     tensors in place (the reference donates them) and returns the state
     with its epoch count advanced."""
-    be = get_backend(backend)
-    tile = as_tile_data(data)
-    p = tile.yg.shape[0]
-    perms = torch.as_tensor(perms).to(device=tile.yg.device,
-                                      dtype=torch.int32)
     meta = (lam, m, loss_name, reg_name, use_adagrad, w_lo, w_hi)
+    be, tile, p, perms = _chunk(data, perms, backend)
     for k, eta_t in enumerate(etas):
         state = epoch_body(be, tile, state, perms[k], float(eta_t), meta,
                            row_batches=row_batches, p=p)
     return state
+
+
+def run_epochs_telemetry(data, state: DSOState, perms, etas, lam: float,
+                         m: float, w_lo: float, w_hi: float, *, backend,
+                         loss_name: str, reg_name: str,
+                         use_adagrad: bool = True, row_batches: int = 1):
+    """``run_epochs`` with the telemetry lane: the same steps, plus the
+    per-(epoch, r, q) ``TELEMETRY_FIELDS`` buffer (n_epochs, p, p, F) on
+    the grid's device, returned as ``(state, buf)`` for the caller to
+    drain.  A sibling of ``run_epochs`` (not a flag on it), so a run
+    without telemetry makes no copy and no extra launch."""
+    meta = (lam, m, loss_name, reg_name, use_adagrad, w_lo, w_hi)
+    be, tile, p, perms = _chunk(data, perms, backend)
+    bufs = []
+    for k, eta_t in enumerate(etas):
+        state, buf = epoch_body(be, tile, state, perms[k], float(eta_t),
+                                meta, row_batches=row_batches, p=p,
+                                telemetry=True)
+        bufs.append(buf)
+    return state, torch.stack(bufs)
 
 
 def run_epoch(data, state: DSOState, perm, eta_t: float, lam: float,
@@ -169,13 +249,85 @@ def _next_multiple(t: int, k: int) -> int:
     return (t // k + 1) * k
 
 
-_LATER = {
-    "store": "the elastic runtime (ROADMAP queue 1: runtime)",
-    "init": "the elastic runtime (ROADMAP queue 1: runtime)",
-    "health": "the elastic runtime (ROADMAP queue 1: runtime)",
-    "obs": "observability (ROADMAP queue 1: obs)",
-    "telemetry": "observability (ROADMAP queue 1: obs)",
-}
+def _sync(dev: torch.device):
+    """Wait for the device's queued work (a span then times completed
+    epochs, not their launches)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# ------------------------------------------------- observability (obs=) --
+#
+# The obs seam is duck-typed like store=/health=: the engine never imports
+# repro_torch.obs.  Everything below runs ONLY under ``if obs is not
+# None``: with obs None the chunk loop does no obs work and allocates
+# nothing for it (the metrics-off contract).
+
+
+def _obs_throughput(obs, *, rows: float, nnz: float, payload_bytes: float):
+    """Bind the static per-epoch work totals once per run; returns the
+    per-chunk callback recording the throughput gauges."""
+    g_rows = obs.metrics.gauge("rows_per_s")
+    g_nnz = obs.metrics.gauge("nnz_per_s")
+    g_bytes = obs.metrics.gauge("packed_bytes_per_s")
+    g_eta = obs.metrics.gauge("eta")
+    h_epoch = obs.metrics.histogram("epoch_s")
+
+    def record(n: int, dt: float, eta: float):
+        dt = max(dt, 1e-12)
+        g_rows.set(rows * n / dt)
+        g_nnz.set(nnz * n / dt)
+        g_bytes.set(payload_bytes * n / dt)
+        g_eta.set(eta)
+        h_epoch.observe(dt / n)
+
+    return record
+
+
+def _obs_eval(obs, entry):
+    """Record every numeric field of an evaluation-history entry as an
+    ``eval.<key>`` gauge; non-dict entries (custom hooks) are left alone."""
+    if not isinstance(entry, dict):
+        return
+    for k, v in entry.items():
+        if k != "epoch" and isinstance(v, (int, float)):
+            obs.metrics.gauge(f"eval.{k}").set(v)
+
+
+# ------------------------------------------------ snapshots (init=, ...) --
+
+
+def _state_copy(state, dev: torch.device) -> DSOState:
+    """A fresh copy of a snapshot's state on ``dev``, through
+    ``state_from_arrays``: the run updates its state in place, and the
+    caller's snapshot must come through it unchanged."""
+    return state_from_arrays(
+        {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+         for k, v in state._asdict().items()}, device=dev)
+
+
+def _schedule_key(key, sched) -> torch.Generator:
+    """The schedule's ``torch.Generator`` from a snapshot's key: a
+    Generator, or the uint8 state ``get_state()`` gives (as the port's
+    snapshots store it).  Another kind of key (the JAX package's uint32[2]
+    ``jax.random`` key) serves only schedules that draw nothing from it;
+    ``random`` refuses it."""
+    gen = torch.Generator()
+    if isinstance(key, torch.Generator):
+        gen.set_state(key.get_state())
+        return gen
+    arr = (key.detach().cpu().numpy() if isinstance(key, torch.Tensor)
+           else np.asarray(key))
+    if arr.dtype == np.uint8 and arr.ndim == 1:
+        gen.set_state(torch.from_numpy(arr.copy()))
+        return gen
+    if sched.name == "random":
+        raise ValueError(
+            f"the snapshot's schedule key is a {arr.dtype}{list(arr.shape)} "
+            f"array, not a torch.Generator state (uint8): the 'random' "
+            f"schedule cannot continue its stream from it (a uint32[2] key "
+            f"is a jax.random key, from a snapshot of the JAX package)")
+    return gen
 
 
 def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
@@ -184,8 +336,9 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
           seed: int = 0, eval_hook="auto", scan_epochs: bool = True,
           loss_name: str | None = None, reg_name: str | None = None,
           lam: float | None = None, m: int | None = None,
-          d: int | None = None, store=None, init=None, health=None,
-          obs=None, telemetry=None, device="cuda") -> SolveResult:
+          d: int | None = None, checkpoint_every: int = 0, store=None,
+          init=None, health=None, obs=None, telemetry=None,
+          device="cuda") -> SolveResult:
     """The epoch driver.
 
     ``source`` is a ``Problem`` (the grid is built here, laid out for the
@@ -204,18 +357,52 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
     epoch of a chunk as its own ``run_epoch`` call (the reference's
     one-dispatch-per-epoch baseline); the math is the same.
 
-    ``store``, ``init``, ``health``, ``obs`` and ``telemetry`` keep the
-    reference's signature; any of them not ``None`` raises
-    ``NotImplementedError`` naming the slice that brings it.
+    Elastic-runtime seam (``repro_torch.runtime``, duck-typed):
+    ``checkpoint_every=k`` adds chunk boundaries at every k-th epoch, and
+    ``store`` (e.g. ``SnapshotStore``) receives ``store.save(state=, key=,
+    epochs_done=, history=, config=)`` at each of them and ``flush()`` at
+    the end; the state is live, so the store copies it before returning.
+    ``init`` (a ``DSOSnapshot``) resumes from a snapshot: its state is
+    copied onto ``device`` (the snapshot survives the run), its key
+    seeds the schedule's generator and its cursor the step sizes.
+
+    Health seam (``repro_torch.runtime.health``): ``health`` (e.g.
+    ``HealthGuard``) is called at every chunk boundary —
+    ``health.inject(state, t)`` before the chunk, ``check_state`` (before
+    the evaluation, so a poisoned state is never evaluated or saved) and
+    ``check_history`` after it.  A failed check rolls back to the latest
+    valid snapshot of ``store`` (else ``init``, else a fresh start), backs
+    ``eta0`` off by ``health.eta_decay`` and retries; past
+    ``health.max_retries`` rollbacks ``health.exhausted`` raises or asks
+    for the paper-exact ``solve_serial`` (Problem sources only).
+
+    Observability seam (``repro_torch.obs``): ``obs`` (e.g.
+    ``RunRecorder``) receives a ``meta`` event, per chunk a
+    ``span("epoch_chunk")`` (the device synchronised inside it) with the
+    rows/s, nnz/s, packed bytes/s and eta gauges and the ``epoch_s``
+    histogram; ``span("eval")``, ``span("snapshot_save")`` and
+    ``span("restore")`` around those steps; every evaluation field as an
+    ``eval.<key>`` gauge; and the health guard's ledger (when the guard
+    has no recorder of its own).  ``obs=None`` is a true no-op.
+
+    Telemetry seam (``repro_torch.obs.telemetry``): ``telemetry`` (e.g.
+    ``TelemetrySpec``) runs each chunk through ``run_epochs_telemetry``
+    and receives its buffer through ``telemetry.drain(buf, t0=, etas=,
+    perms=, db=, transport=, wall_s=)`` at every chunk boundary
+    ("ring" for the cyclic schedule, "p2p" otherwise).  The trajectory
+    is the same as without it; needs ``scan_epochs=True``.
     """
-    for name, val in (("store", store), ("init", init), ("health", health),
-                      ("obs", obs), ("telemetry", telemetry)):
-        if val is not None:
-            raise NotImplementedError(
-                f"solve({name}=...) is not ported yet; it comes with "
-                f"{_LATER[name]}")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    if telemetry is not None and not scan_epochs:
+        raise ValueError("telemetry requires scan_epochs=True (the lane "
+                         "rides the chunk's run_epochs call)")
+    if checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    if store is not None and checkpoint_every < 1:
+        raise ValueError("a snapshot store needs checkpoint_every >= 1 to "
+                         "know its boundaries")
     dev = resolve_device(device)
     sched = get_schedule(schedule)
     if isinstance(source, Problem):
@@ -255,8 +442,8 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
         if eval_hook == "auto":
             eval_hook = None
     check_tile_stats(data, row_batches)
-    tile = as_tile_data(data)
-    p_, _, _ = tile_dims(tile)
+    tile = as_tile_data(data, bucketed_payload=be.payload)
+    p_, mb_, db = tile_dims(tile)
     kw = dict(backend=be, loss_name=loss_name, reg_name=reg_name,
               use_adagrad=use_adagrad, row_batches=row_batches)
     chunk = eval_every if eval_hook is not None else epochs
@@ -264,27 +451,160 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
         warn_ragged_eval(epochs, chunk)
     sched_ctx = ({"tile_nnz": tile.tile_row_nnz_g.sum(-1).cpu().numpy()}
                  if sched.balanced else {})
-    state = init_state_data(loss_name, data, alpha0)
-    key = torch.Generator().manual_seed(int(seed))
-    t, history = 0, []
+    # the complete run record a snapshot carries (runtime.resume rebuilds
+    # the call from it; runtime.reshard rewrites p/mb/db)
+    cfg = dict(backend=be.name, schedule=sched.name, p=p_, mb=mb_, db=db,
+               m=int(m), d=int(d), loss_name=loss_name, reg_name=reg_name,
+               lam=float(lam_f), row_batches=row_batches, eta0=float(eta0),
+               use_adagrad=bool(use_adagrad), alpha0=float(alpha0),
+               seed=int(seed), eval_every=int(eval_every),
+               checkpoint_every=int(checkpoint_every), layout=be.layout,
+               inner_iteration=0)
+    if health is not None:   # the backoff rides in every snapshot too
+        cfg.update(eta_decay=float(health.eta_decay),
+                   max_retries=int(health.max_retries))
+    if init is not None:
+        got = tuple(init.state.w_grid.shape)
+        if got != (p_, db):
+            raise ValueError(
+                f"snapshot state has w grid {got}, this run's grid is "
+                f"({p_}, {db}) — resuming across a different p needs "
+                f"repro_torch.runtime.reshard first")
+        state = _state_copy(init.state, dev)
+        key = _schedule_key(init.key, sched)
+        t = int(init.epochs_done)
+        history = list(init.history)
+    else:
+        state = init_state_data(loss_name, data, alpha0)
+        key = torch.Generator().manual_seed(int(seed))
+        t, history = 0, []
+    eta_live = float(eta0)   # backed off per rollback under a health guard
+    if obs is not None:
+        # static per-epoch work totals: every epoch touches every nonzero
+        # once and streams the layout payload once
+        obs.record(type="meta", phase="solve", epochs=int(epochs), **cfg)
+        record_chunk = _obs_throughput(
+            obs, rows=float(m),
+            nnz=float((tile.row_nnz_g * tile.row_valid).sum()),
+            payload_bytes=float(sum(a.nbytes for a in tile.arrays)))
+        if health is not None and getattr(health, "obs", None) is None:
+            health.obs = obs   # ledger events join the same stream
     while t < epochs:
+        if health is not None:
+            state = health.inject(state, t)
         stops = [epochs]
         if eval_hook is not None:
             stops.append(_next_multiple(t, chunk))
+        if checkpoint_every:
+            stops.append(_next_multiple(t, checkpoint_every))
         n = min(stops) - t
         key, perms = sched.draw(key, t, n, p_, **sched_ctx)
-        etas = eta_schedule(eta0, t, n, use_adagrad)
-        if scan_epochs:
+        etas = eta_schedule(eta_live, t, n, use_adagrad)
+        # manual enter/exit (not contextlib) so the obs-off loop body
+        # allocates nothing
+        span = obs.span("epoch_chunk", t0=t, epochs=n) \
+            if obs is not None else None
+        if span is not None:
+            span.__enter__()
+            t_chunk = time.perf_counter()
+        if telemetry is not None:
+            t_tel = time.perf_counter()
+            state, tbuf = run_epochs_telemetry(tile, state, perms, etas,
+                                               lam_f, m_f, w_lo, w_hi, **kw)
+        elif scan_epochs:
             state = run_epochs(tile, state, perms, etas, lam_f, m_f, w_lo,
                                w_hi, **kw)
         else:
             for k in range(n):
                 state = run_epoch(tile, state, perms[k], etas[k], lam_f,
                                   m_f, w_lo, w_hi, **kw)
-        t += n
-        if eval_hook is not None and (t % chunk == 0 or t == epochs):
-            history.append(eval_hook(t, gather_w(state, d),
-                                     gather_alpha(state, m)))
+        if span is not None:
+            _sync(dev)
+            record_chunk(n, time.perf_counter() - t_chunk, eta_live)
+            span.__exit__(None, None, None)
+        if telemetry is not None:
+            # drained outside the span: the copy to the host is obs work
+            _sync(dev)
+            telemetry.drain(tbuf, t0=t, etas=etas, perms=perms, db=db,
+                            transport="ring" if sched.ring else "p2p",
+                            wall_s=time.perf_counter() - t_tel)
+        t_new = t + n
+        failure = None
+        if health is not None:
+            # the state first: a poisoned iterate must never reach the
+            # evaluation hook or the store
+            failure = health.check_state(state)
+        if failure is None and eval_hook is not None and (
+                t_new % chunk == 0 or t_new == epochs):
+            span = obs.span("eval", epoch=t_new) if obs is not None else None
+            if span is not None:
+                span.__enter__()
+            entry = eval_hook(t_new, gather_w(state, d),
+                              gather_alpha(state, m))
+            history.append(entry)
+            if span is not None:
+                _obs_eval(obs, entry)
+                span.__exit__(None, None, None)
+            if health is not None:
+                failure = health.check_history(history)
+        if failure is not None:
+            health.retries += 1
+            if health.retries > health.max_retries:
+                if health.exhausted(failure=failure, epoch=t_new,
+                                    eta0=eta_live,
+                                    can_degrade=isinstance(source, Problem)
+                                    ) == "serial":
+                    return solve_serial(source, epochs=epochs,
+                                        eta0=eta_live, seed=seed,
+                                        use_adagrad=use_adagrad,
+                                        alpha0=alpha0,
+                                        eval_every=eval_every, obs=obs,
+                                        device=dev)
+            span = obs.span("restore", epoch=t_new, failure=failure) \
+                if obs is not None else None
+            if span is not None:
+                span.__enter__()
+            snap = None
+            if store is not None:
+                try:
+                    snap = store.load()   # latest-VALID-wins
+                except FileNotFoundError:
+                    snap = None
+            if snap is None:
+                snap = init               # may still be None: fresh start
+            eta_live *= health.eta_decay
+            cfg["eta0"] = eta_live
+            if snap is not None:
+                state = _state_copy(snap.state, dev)
+                key = _schedule_key(snap.key, sched)
+                resumed = int(snap.epochs_done)
+                history = list(snap.history)
+            else:
+                state = init_state_data(loss_name, data, alpha0)
+                key = torch.Generator().manual_seed(int(seed))
+                resumed, history = 0, []
+            health.note(kind="health", epoch=t_new, action="rollback",
+                        epochs_lost=t_new - resumed, retry=health.retries,
+                        failure=failure, resumed_from=resumed,
+                        eta0=eta_live)
+            if span is not None:
+                span.__exit__(None, None, None)
+            t = resumed
+            continue
+        t = t_new
+        if store is not None and (t % checkpoint_every == 0 or t == epochs):
+            span = obs.span("snapshot_save", epoch=t) \
+                if obs is not None else None
+            if span is not None:
+                span.__enter__()
+            store.save(state=state, key=key, epochs_done=t,
+                       history=list(history), config=cfg)
+            if span is not None:
+                span.__exit__(None, None, None)
+    if store is not None and hasattr(store, "flush"):
+        # an async store's writes overlap the chunks; drain them (and
+        # surface any failure) before the run counts as durable
+        store.flush()
     return SolveResult(gather_w(state, d), gather_alpha(state, m), history,
                        state)
 
@@ -341,13 +661,9 @@ def solve_serial(prob: Problem, epochs: int = 10, eta0: float = 0.1,
     orders differ, and the tests replay them through ``_serial_epochs``
     or in place of ``_draw_orders``).  ``device`` (default the card;
     ``RuntimeError`` when there is none) must be where ``prob`` lives;
-    there an epoch is one launch of the serial kernel.
-    ``obs`` keeps the reference's signature and raises
-    ``NotImplementedError``."""
-    if obs is not None:
-        raise NotImplementedError(
-            f"solve_serial(obs=...) is not ported yet; it comes with "
-            f"{_LATER['obs']}")
+    there an epoch is one launch of the serial kernel.  ``obs`` is
+    ``solve``'s seam: a meta event, chunk spans, the throughput gauges and
+    the evaluation gauges; ``None`` is a true no-op."""
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     dev = resolve_device(device)
@@ -366,14 +682,36 @@ def solve_serial(prob: Problem, epochs: int = 10, eta0: float = 0.1,
     key = torch.Generator().manual_seed(int(seed))
     history = []
     t = 0
+    if obs is not None:
+        obs.record(type="meta", phase="solve_serial", epochs=int(epochs),
+                   m=prob.m, d=prob.d, nnz=int(nnz), eta0=float(eta0),
+                   loss_name=prob.loss_name, reg_name=prob.reg_name,
+                   seed=int(seed))
+        record_chunk = _obs_throughput(obs, rows=float(prob.m),
+                                       nnz=float(nnz),
+                                       payload_bytes=float(12 * nnz))
     while t < epochs:
         n = min(eval_every, epochs - t)
-        _serial_epochs(ii, jj, vv, _draw_orders(key, n, nnz),
+        orders = _draw_orders(key, n, nnz)
+        span = obs.span("epoch_chunk", t0=t, epochs=n) \
+            if obs is not None else None
+        if span is not None:
+            span.__enter__()
+            t_chunk = time.perf_counter()
+        _serial_epochs(ii, jj, vv, orders,
                        eta_schedule(eta0, t, n, use_adagrad), w, alpha,
-                       gw, ga, prob.y, prob.row_nnz, prob.col_nnz, lam_f, w_lo, w_hi, loss_name=prob.loss_name,
+                       gw, ga, prob.y, prob.row_nnz, prob.col_nnz, lam_f,
+                       w_lo, w_hi, loss_name=prob.loss_name,
                        reg_name=prob.reg_name, m=float(prob.m),
                        use_adagrad=use_adagrad)
+        if span is not None:
+            _sync(dev)
+            record_chunk(n, time.perf_counter() - t_chunk, eta0)
+            span.__exit__(None, None, None)
         t += n
         if hook is not None:
-            history.append(hook(t, w, alpha))
+            entry = hook(t, w, alpha)
+            history.append(entry)
+            if obs is not None:
+                _obs_eval(obs, entry)
     return SolveResult(w, alpha, history, None)

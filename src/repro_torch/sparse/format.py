@@ -503,6 +503,173 @@ def make_bucketed_grid_data(prob, p: int, row_batches: int = 1, *,
                                   device=device, **kw)
 
 
+# ------------------------------------------------- p -> p' re-blocking --
+# Host numpy, as in the reference: the grid's tensors come to the host once,
+# and a re-blocked grid goes back to the grid's own device at the end.
+
+
+def grid_to_csr(data, m: int, d: int):
+    """The global ``(m, d)`` ``CSRMatrix`` and labels (host numpy) of any
+    grid layout: ``SparseGridData``, ``BucketedGridData`` or a dense
+    ``GridData`` (anything with ``Xg``); ``m``/``d`` are the real sizes,
+    trimming the tiler's padding.  Stored entries are the packed slots
+    with ``vals != 0`` (the tilers' padding slots hold exactly 0 and the
+    ingest drops explicit zeros), sorted back to (row, col) order, so a
+    grid re-tiled from its CSR equals the grid, statistics included."""
+    p, mb, db = data.p, data.mb, data.db
+    if isinstance(data, BucketedGridData):
+        qq, bb, ii, kk, vv = [], [], [], [], []
+        bucket_id, bucket_pos = _np(data.bucket_id), _np(data.bucket_pos)
+        for q in range(p):
+            for b in range(p):
+                k, s = int(bucket_id[q, b]), int(bucket_pos[q, b])
+                vals = _np(data.vals_b[k][q, s])
+                i, pos = np.nonzero(vals)
+                qq.append(np.full(i.shape, q, np.int64))
+                bb.append(np.full(i.shape, b, np.int64))
+                ii.append(i.astype(np.int64))
+                kk.append(_np(data.cols_b[k][q, s])[i, pos]
+                          .astype(np.int64))
+                vv.append(vals[i, pos])
+        q_i, b_i, i_i = map(np.concatenate, (qq, bb, ii))
+        local_cols, vals = np.concatenate(kk), np.concatenate(vv)
+        rows, cols = q_i * mb + i_i, b_i * db + local_cols
+    elif isinstance(data, SparseGridData):
+        vals_g = _np(data.vals_g)
+        q_i, b_i, i_i, pos = np.nonzero(vals_g)
+        rows = q_i.astype(np.int64) * mb + i_i
+        cols = (b_i.astype(np.int64) * db
+                + _np(data.cols_g)[q_i, b_i, i_i, pos])
+        vals = vals_g[q_i, b_i, i_i, pos]
+    else:   # dense GridData-like
+        X = _np(data.Xg).reshape(p * mb, -1)[:m, :d]
+        return CSRMatrix.from_dense(X), _np(data.yg).reshape(-1)[:m]
+    keep = (rows < m) & (cols < d)   # padding slots hold 0 anyway
+    order = np.lexsort((cols[keep], rows[keep]))
+    rows, cols, vals = rows[keep][order], cols[keep][order], vals[keep][order]
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
+    csr = CSRMatrix(indptr=indptr, indices=cols.astype(np.int32),
+                    values=vals.astype(np.float32), shape=(m, d))
+    return csr, _np(data.yg).reshape(-1)[:m]
+
+
+def _grid_entries(data):
+    """Stored entries of every processor shard of a packed grid, each in
+    ascending (local row, global col) order (the order ``_tile_csr``
+    receives them in from a CSR): per shard ``(idx, local_rows, vals)``,
+    ``idx`` the global column."""
+    p, db = data.p, data.db
+    out = []
+    if isinstance(data, SparseGridData):
+        cols_g, vals_g = _np(data.cols_g), _np(data.vals_g)
+        for q in range(p):
+            # the tile cube walked row-major, (mb, p, K): nonzero yields
+            # ascending (row, block, pos) = ascending (row, col)
+            vq = vals_g[q].transpose(1, 0, 2)
+            i, b, pos = np.nonzero(vq)
+            idx = b * db + cols_g[q, b, i, pos].astype(np.int64)
+            out.append((idx, i.astype(np.int64), vq[i, b, pos]))
+    elif isinstance(data, BucketedGridData):
+        bucket_id, bucket_pos = _np(data.bucket_id), _np(data.bucket_pos)
+        for q in range(p):
+            idx_l, row_l, val_l = [], [], []
+            for b in range(p):
+                k, s = int(bucket_id[q, b]), int(bucket_pos[q, b])
+                vals = _np(data.vals_b[k][q, s])
+                i, pos = np.nonzero(vals)
+                idx_l.append(b * db + _np(data.cols_b[k][q, s])
+                             [i, pos].astype(np.int64))
+                row_l.append(i.astype(np.int64))
+                val_l.append(vals[i, pos])
+            idx = np.concatenate(idx_l)
+            rows = np.concatenate(row_l)
+            vals = np.concatenate(val_l)
+            # block-major -> row-major; a stable sort keeps the blocks (and
+            # the ascending columns within each) in order inside each row
+            order = np.argsort(rows, kind="stable")
+            out.append((idx[order], rows[order], vals[order]))
+    else:
+        raise TypeError(f"packed grid expected, got {type(data).__name__}")
+    return out
+
+
+def regrid_direct(data, m: int, d: int, p_new: int, row_batches: int = 1,
+                  *, layout: str | None = None, k_align: int = SUBLANE,
+                  pow2: bool = False, max_buckets: int = MAX_K_BUCKETS):
+    """Re-block a packed grid onto the p' grid tile to tile, without the
+    ``grid_to_csr`` round trip, on the grid's own device.
+
+    Works when the padded sizes agree at both blockings and one of p, p'
+    divides the other: a new shard is then r = p/p' old shards end to end
+    (merge) or a contiguous row slice of one (split), both keeping the
+    ascending (row, col) order, and the entries go through the same
+    addressing pass and packers as a fresh tiling at p', so the result
+    equals the round trip's grid field for field.  Returns ``None`` when
+    the preconditions fail (``runtime.reshard.retile`` then takes the
+    round trip).  ``layout`` may differ from the input's."""
+    if not isinstance(data, (SparseGridData, BucketedGridData)):
+        return None
+    p, mb, db = data.p, data.mb, data.db
+    if (pad_to_multiple(m, p) != pad_to_multiple(m, p_new)
+            or pad_to_multiple(d, p) != pad_to_multiple(d, p_new)
+            or (p % p_new and p_new % p)):
+        return None
+    if layout is None:
+        layout = "bucketed" if isinstance(data, BucketedGridData) \
+            else "sparse"
+    if layout not in ("sparse", "bucketed"):
+        return None
+    m_pad, d_pad = p * mb, p * db
+    mb2, db2 = m_pad // p_new, d_pad // p_new
+    rb = max(1, mb2 // row_batches)
+    n_rb = mb2 // rb
+
+    old = _grid_entries(data)
+    ents = []
+    if p_new <= p:       # merge: new shard q' = old shards q'*r .. +r-1
+        r = p // p_new
+        for q2 in range(p_new):
+            grp = old[q2 * r:(q2 + 1) * r]
+            ents.append((np.concatenate([g[0] for g in grp]),
+                         np.concatenate([g[1] + j * mb
+                                         for j, g in enumerate(grp)]),
+                         np.concatenate([g[2] for g in grp])))
+    else:                # split: old shard q -> s contiguous row slices
+        s = p_new // p
+        for q in range(p):
+            idx, rows, vals = old[q]
+            cut = np.searchsorted(rows, np.arange(s + 1) * mb2)
+            for j in range(s):
+                lo, hi = cut[j], cut[j + 1]
+                ents.append((idx[lo:hi], rows[lo:hi] - j * mb2,
+                             vals[lo:hi]))
+
+    tile_row_nnz = np.zeros((p_new, p_new, mb2), np.float32)
+    tile_col_nnz = np.zeros((p_new, n_rb, d_pad), np.float32)
+    k_raw = np.zeros((p_new, p_new), np.int64)
+    addrs = []
+    for q2, (idx, rows, vals) in enumerate(ents):
+        addr, k_raw[q2], tile_row_nnz[q2], tile_col_nnz[q2] = \
+            _shard_addressing(idx, rows, vals, mb2, p_new, db2,
+                              rb, n_rb, d_pad)
+        addrs.append(addr)
+    # equal padded sizes keep the global row and column orders, so the
+    # shard-shaped statistics re-block by a reshape
+    shared = dict(
+        yg=_np(data.yg).reshape(p_new, mb2),
+        row_nnz_g=_np(data.row_nnz_g).reshape(p_new, mb2),
+        col_nnz=_np(data.col_nnz),
+        row_valid=_np(data.row_valid).reshape(p_new, mb2),
+        p=p_new, mb=mb2, db=db2, tile_col_nnz_g=tile_col_nnz,
+        tile_row_nnz_g=tile_row_nnz, k_per_tile=k_raw)
+    dev = data.yg.device
+    if layout == "sparse":
+        return _pack_uniform(shared, addrs, dev, k_align=k_align, pow2=pow2)
+    return _pack_bucketed(shared, addrs, dev, k_align=k_align,
+                          max_buckets=max_buckets)
+
+
 def csr_k_per_tile(csr: CSRMatrix, p: int) -> np.ndarray:
     """(p, p) per-tile raw packed widths — the ``auto`` skew probe, O(nnz)
     without building any grid."""

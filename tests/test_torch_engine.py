@@ -202,16 +202,18 @@ def test_sparse_pallas_backends_run_plain_on_cpu_data():
 
 
 def test_unported_options_and_backends_raise():
+    """Every seam and backend of the reference's ``solve`` is ported: what
+    still raises is a misuse of them (a store without checkpoint
+    boundaries, telemetry without the chunked epochs, an unknown
+    backend)."""
     _, tp = _pair("hinge", "l2")
-    for kw in ({"store": object()}, {"init": object()},
-               {"health": object()}, {"obs": object()},
-               {"telemetry": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            te.solve(tp, device="cpu", **kw)
+    with pytest.raises(ValueError, match="checkpoint_every"):
+        te.solve(tp, store=object(), device="cpu")
+    with pytest.raises(ValueError, match="telemetry"):
+        te.solve(tp, telemetry=object(), scan_epochs=False, device="cpu")
     for name in ("sparse_bucketed_jnp_switch",
                  "sparse_bucketed_pallas_switch"):
-        with pytest.raises(NotImplementedError):
-            te.solve(tp, backend=name, device="cpu")
+        assert te.get_backend(name).payload == "buckets"
     with pytest.raises(ValueError, match="unknown backend"):
         te.get_backend("no_such_backend")
 

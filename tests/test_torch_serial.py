@@ -238,8 +238,11 @@ def test_solve_serial_draws_one_randperm_per_epoch(monkeypatch):
 
 def test_solve_serial_seams(monkeypatch):
     _, tp = _pair("hinge", "l2")
-    with pytest.raises(NotImplementedError, match="obs"):
-        te.solve_serial(tp, obs=object(), device="cpu")
+    from repro_torch.obs import RunRecorder
+    rec = RunRecorder()
+    te.solve_serial(tp, epochs=1, obs=rec, device="cpu")
+    assert rec.events[0]["phase"] == "solve_serial"
+    assert "epoch_chunk" in rec.span_stats()
     with pytest.raises(ValueError, match="eval_every"):
         te.solve_serial(tp, eval_every=0, device="cpu")
     res = te.solve_serial(tp, epochs=2, eval_hook=None, device="cpu")
