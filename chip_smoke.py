@@ -121,6 +121,20 @@ Phases, one line per result:
    card, w within 1e-5; launches per epoch and s/epoch of each.
    Phases 8r-8w run right after 5d, each run in its own launch-count
    window, which must hold the design's launches.
+9r. the sharded ring (``core.dso_dist.ShardedDSO``) with 4 worker
+   processes sharing the card (gloo, blocks staged through pinned host
+   memory; the library built in phase 2, the workers only load it) on
+   phase 4's, 5n's and 5d's data at full width, 10 epochs: cyclic and
+   lpt against the grid ``solve`` (w and alpha within 1e-5), the
+   overlapped ring against the serial one and p2p against all-gather
+   (within 1e-5, beside two ring runs' atomics noise), the main ring run
+   in its own launch-count window on every worker (40 block steps each);
+   s/epoch beside the grid's, the transport's share of the epoch, bytes
+   moved per epoch.  Then a ``Supervisor`` run with a crash at epoch 3
+   (checkpoint every 2) within 1e-5 of the uninterrupted ring, and a
+   live reshard 4 -> 2 on svm-ocr continuing with the duality gap
+   falling.  The NCCL route runs only with a card per worker (else the
+   phase says so).  The ring's launches count in rows 1, 2g and 4.
 3t. the two-pass tile step (``ops.dso_tile_step(twopass=True)``) against
    its plain version and against the fused ``ops.dso_tile_step`` on the
    same inputs, six pairs at M 999, D 1,155, contiguous (row kernels) and
@@ -1536,6 +1550,207 @@ def phase_switch(dev, ctx, cfg):
     return out
 
 
+RING_P = 4          # phase 9r's workers, all on the one card
+
+
+def ring_counts(phase, per_worker, design):
+    """Each ring worker's launch counts must equal ``design`` on the
+    counters it names and be 0 on every other but the probe's (each
+    worker probes once).  Returns the counts summed over the workers."""
+    for q, counts in enumerate(per_worker):
+        got = {k: v for k, v in counts.items() if v and k != "sparse_probe"}
+        check(got == design, f"ring worker {q}: launch counts {got} != "
+                             f"design {design}")
+    total = {k: sum(c[k] for c in per_worker) for k in per_worker[0]}
+    say(phase, f"block-step launches per worker {design} (x{RING_P} "
+               f"workers; probes {total.get('sparse_probe', 0)})")
+    return total
+
+
+def phase_ring(dev, cells):
+    """Phase 9r: the sharded ring (``core.dso_dist.ShardedDSO``) with
+    ``RING_P`` worker processes on the one card, gloo with host-staged
+    blocks, on phase 4's, 5n's and 5d's data at full width, 10 epochs.
+    Per cell: cyclic and lpt against the grid ``solve`` (w and alpha
+    within 1e-5); the overlapped ring against the serial one and p2p
+    against all-gather, held to 1e-5 beside two ring runs' atomics noise;
+    the main ring run in its own launch-count window on every worker;
+    s/epoch beside the grid's, the transport's share of the epoch and the
+    bytes moved per epoch.  Then a supervised run on svm-real-sim with a
+    crash at epoch 3 (checkpoint every 2) against the uninterrupted ring,
+    and a live reshard 4 -> 2 on svm-ocr with the duality gap falling.
+    The kernel library is built (phase 2) before any worker starts; the
+    workers load it.  The NCCL route runs only with a card per worker.
+    Returns per cell the main ring run's launch counts over the
+    workers."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.dso_dist import (ShardedDSO, WorkerPool,
+                                           make_dso_mesh)
+    from repro_torch.engine import solve
+    from repro_torch.engine.schedules import cyclic_perms, lpt_latin_square
+    from repro_torch.obs.telemetry import comm_bytes_matrix
+    from repro_torch.runtime import FaultEvent, SnapshotStore, Supervisor
+    out = {}
+    t0 = time.perf_counter()
+    with WorkerPool(RING_P, timeout=120) as pool:
+        mesh = make_dso_mesh(RING_P, device=dev, transport="gloo", pool=pool)
+        say("9r", f"{RING_P} workers joined on {dev} (gloo, blocks staged "
+                  f"through pinned host memory) in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        for name, (ctx, cfg, design, src) in cells.items():
+            t_cell = time.perf_counter()
+            kw = dict(impl="auto", alpha0=cfg.alpha0, seed=0)
+            if src is None:          # a grid source: solve's keywords
+                src = ctx["grid"]
+                g = grid_kw(ctx, cfg, dev)
+                kw.update({k: g[k] for k in ("loss_name", "reg_name",
+                                             "lam", "m", "d")})
+
+            def ring(schedule="cyclic", **more):
+                opt = ShardedDSO(src, mesh, schedule=schedule, **kw, **more)
+                opt.run_epochs(EPOCHS, cfg.eta0)
+                return opt.wait()
+
+            def grid(schedule):
+                return solve(ctx["grid"], backend="auto", schedule=schedule,
+                             epochs=EPOCHS, **grid_kw(ctx, cfg, dev))
+
+            mesh.reset_launch_counts()
+            cyc = ring()
+            out[name] = ring_counts("9r", mesh.launch_counts(), design)
+            cyc_w, cyc_a = cyc.w_full(), cyc.alpha_full()
+            cyc2 = ring()
+            noise_w, _ = max_rel_err(cyc2.w_full(), cyc_w)
+            noise_a, _ = max_rel_err(cyc2.alpha_full(), cyc_a)
+            del cyc2
+            lines = []
+            for schedule, opt_w, opt_a in (("cyclic", cyc_w, cyc_a),
+                                           ("lpt", None, None)):
+                if opt_w is None:
+                    lpt = ring("lpt")
+                    check(lpt.mode == "p2p", f"lpt runs {lpt.mode}")
+                    opt_w, opt_a = lpt.w_full(), lpt.alpha_full()
+                    del lpt
+                ref = grid(schedule)
+                e_w, ok_w = max_rel_err(opt_w, ref.w)
+                e_a, ok_a = max_rel_err(opt_a, ref.alpha)
+                lines.append(f"{schedule} w {e_w:.3e} alpha {e_a:.3e}")
+                check(ok_w and ok_a, f"{name}: the {schedule} ring is "
+                                     f"{max(e_w, e_a):.3e} off the grid")
+                if schedule == "lpt":
+                    lpt_w = opt_w
+            say("9r", f"{name}: ring vs grid solve, max|d|: "
+                      + "; ".join(lines))
+            ser = ring(overlap=False)
+            check(ser.mode == "ring_serial", f"serial ring runs {ser.mode}")
+            e_s, ok_s = max_rel_err(ser.w_full(), cyc_w)
+            del ser
+            ag = ring("lpt", comm="allgather")
+            e_g, ok_g = max_rel_err(ag.w_full(), lpt_w)
+            del ag
+            say("9r", f"{name}: overlapped vs serial ring max|d| w "
+                      f"{e_s:.3e}; p2p vs all-gather (lpt) w {e_g:.3e}; "
+                      f"two ring runs (the atomics' noise): w "
+                      f"{noise_w:.3e} alpha {noise_a:.3e}")
+            check(ok_s and ok_g, f"{name}: transports differ by "
+                                 f"{max(e_s, e_g):.3e}")
+            secs = []
+            for _ in range(3):
+                t = time.perf_counter()
+                cyc.run_epochs(EPOCHS, cfg.eta0)
+                cyc.wait()
+                secs.append((time.perf_counter() - t) / EPOCHS)
+            secs.sort()
+            share = float(np.mean([c / s for s, c in cyc.last_run]))
+            fresh, run = epoch_runner(
+                ctx["grid"], cyc.backend.name, loss=ctx["loss"],
+                lam=ctx["lam"], m=ctx["m"], alpha0=cfg.alpha0,
+                eta0=cfg.eta0)
+            g_secs = epoch_seconds(fresh, run)
+            ring_b = comm_bytes_matrix(cyclic_perms(1, RING_P).numpy(),
+                                       cyc.db, "ring").sum()
+            sq = lpt_latin_square(
+                ctx["grid"].tile_row_nnz_g.sum(-1).cpu().numpy())[None]
+            p2p_b = comm_bytes_matrix(sq, cyc.db, "p2p").sum()
+            say("9r", f"{name}: ring s/epoch median {secs[1]:.6f} (min "
+                      f"{secs[0]:.6f} max {secs[2]:.6f}, 3 x {EPOCHS} "
+                      f"epochs) vs the grid's run_epochs "
+                      f"{g_secs[len(g_secs) // 2]:.6f}; transport share of "
+                      f"the ring's epoch {share:.3f} (from the step's end: "
+                      f"staging copies and gloo, mean over workers); bytes "
+                      f"moved per epoch "
+                      f"{int(ring_b)} (ring), {int(p2p_b)} (p2p, lpt); "
+                      f"cell {time.perf_counter() - t_cell:.1f} s")
+            out[name].update(s_per_epoch=secs[1],
+                             grid_s_per_epoch=g_secs[len(g_secs) // 2],
+                             share=share, ring_bytes=int(ring_b))
+            del cyc
+
+        ctx_r, cfg_r, _, _ = cells["svm-real-sim"]
+        g = grid_kw(ctx_r, cfg_r, dev)
+        kw = dict(impl="auto", alpha0=cfg_r.alpha0, seed=0,
+                  **{k: g[k] for k in ("loss_name", "reg_name", "lam", "m",
+                                       "d")})
+        ref = ShardedDSO(ctx_r["grid"], mesh, **kw)
+        ref.run_epochs(EPOCHS, cfg_r.eta0)
+        ref_w = ref.w_full()
+        again = ShardedDSO(ctx_r["grid"], mesh, **kw)
+        again.run_epochs(EPOCHS, cfg_r.eta0)
+        noise, _ = max_rel_err(again.w_full(), ref_w)
+        del again, ref
+        with tempfile.TemporaryDirectory() as tmp:
+            sup = Supervisor(SnapshotStore(tmp), checkpoint_every=2,
+                             eta0=cfg_r.eta0,
+                             fault_plan=(FaultEvent(3, "crash"),))
+            opt, log = sup.run_sharded(ctx_r["grid"], EPOCHS, mesh=mesh,
+                                       **kw)
+            kinds = [(ev.kind, ev.epochs_lost) for ev in log]
+            e_c, ok_c = max_rel_err(opt.w_full(), ref_w)
+            say("9r", f"supervised svm-real-sim, crash at 3, checkpoint "
+                      f"every 2: ledger {kinds}; vs the uninterrupted ring "
+                      f"max|d| w {e_c:.3e} (two uninterrupted runs "
+                      f"{noise:.3e})")
+            check(kinds == [("crash", 1)] and ok_c,
+                  f"crash recovery: ledger {kinds}, max|d| {e_c:.3e}")
+            del opt
+        ctx, cfg, _, prob = cells["svm-ocr"]
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            sup = Supervisor(SnapshotStore(tmp), checkpoint_every=2,
+                             eta0=cfg.eta0,
+                             fault_plan=(FaultEvent(4, "reshard", 2),))
+            opt, log = sup.run_sharded(prob, EPOCHS, mesh=mesh, impl="auto",
+                                       alpha0=cfg.alpha0, seed=0)
+            gaps = [(h["epoch"], h["gap"]) for h in sup.history]
+            say("9r", f"supervised svm-ocr, live reshard 4 -> 2 at epoch 4: "
+                      f"ledger {[(ev.kind, ev.detail) for ev in log]}; gap "
+                      + " ".join(f"e{e}={v:.6f}" for e, v in gaps)
+                      + f"; {time.perf_counter() - t:.1f} s")
+            at4 = dict(gaps)[4]
+            check(opt.p == 2 and opt.epochs_done == EPOCHS
+                  and gaps[-1][1] < at4,
+                  f"the reshard did not continue with the gap falling: "
+                  f"p={opt.p}, gaps {gaps}")
+            del opt
+        n_cards = torch.cuda.device_count()
+        if n_cards >= RING_P:
+            nccl = make_dso_mesh(RING_P, device=dev, transport="nccl",
+                                 pool=pool)
+            opt = ShardedDSO(ctx_r["grid"], nccl, **kw)
+            opt.run_epochs(EPOCHS, cfg_r.eta0)
+            e_n, ok_n = max_rel_err(opt.w_full(), ref_w)
+            say("9r", f"nccl route on {n_cards} cards, svm-real-sim: vs the "
+                      f"gloo ring max|d| w {e_n:.3e}")
+            check(ok_n, f"the nccl ring is {e_n:.3e} off the gloo ring")
+            del opt
+        else:
+            say("9r", f"nccl route: not run ({n_cards} card(s))")
+    say("9r", f"phase 9r passed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def live_column_shares(grid):
     """For each inner iteration r of the cyclic schedule (blk[q] = (q + r)
     mod p) the share of the p x db columns whose count in row tile 0 of
@@ -2251,7 +2466,7 @@ def phase_dense_main(dev):
               f"{1 - busy / wall:.3f}; top kernels (us): "
               + ", ".join(f"{k[:48]}={us:.1f}" for k, us, _ in kernels[:6]))
     return dict(grid=grid, layout="dense", loss="hinge", lam=lam, m=prob.m,
-                state=runs["auto"][0].state,
+                prob=prob, state=runs["auto"][0].state,
                 counts={k: runs["auto"][1][k] + runs["dense_pallas_fused"][1]
                         [k] for k in zero})
 
@@ -2708,6 +2923,15 @@ def main() -> int:
     phase_switch(dev, buck, CONFIGS["logistic-real-sim"])
     say(8, f"phases 8r, 8h, 8s, 8o, 8w passed in "
            f"{time.perf_counter() - t8:.1f} s")
+    per_worker = EPOCHS * P          # epochs x inner iterations x row tiles
+    ring = phase_ring(dev, {
+        "svm-real-sim": (uni, CONFIGS["svm-real-sim"],
+                         {uni["counter"]: per_worker}, None),
+        "logistic-news20": (news, CONFIGS["logistic-news20"],
+                            {news["counter"]: per_worker}, None),
+        "svm-ocr": (dense, CONFIGS["svm-ocr"],
+                    {"dso_block_step": per_worker,
+                     "dso_primal_update": per_worker}, dense["prob"])})
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
@@ -2728,6 +2952,10 @@ def main() -> int:
                   bound_ms=s_primal["bound_ms"], bound_by="bytes",
                   library_ms=None)
     say(6, f"dso_primal_update at the bucketed shape: {b_primal}")
+    # the ring's main-path launches (phase 9r, every worker) count too
+    s_step["launches"] += ring["svm-real-sim"][uni["counter"]]
+    n_step["launches"] += ring["logistic-news20"][news["counter"]]
+    primal["launches"] += ring["svm-ocr"]["dso_primal_update"]
     probe_row = dict(name="sparse_probe", route="cuda",
                      source="src/repro_torch/csrc/dso_sparse.cu",
                      replaces="src/repro/kernels/ops.py:223",
@@ -2743,7 +2971,8 @@ def main() -> int:
             name=name, route="cuda",
             source="src/repro_torch/csrc/dso_update.cu",
             replaces=f"src/repro/kernels/dso_update.py:{line}",
-            launches=dense["counts"][name], **r))
+            launches=dense["counts"][name]
+            + ring["svm-ocr"].get(name, 0), **r))
     t_row.pop("device_ms")
     lm_rows = [
         dict(name="dso_tile_step_twopass", route="cuda",

@@ -17,11 +17,14 @@ resume, p -> p' resharding and self-healing around ``engine.solve``.
         └──> reshard.py  regrid_direct / grid_to_csr re-tiling at p' and
                          reshard_state
 
+   supervisor.py Supervisor: drives core.dso_dist.ShardedDSO (worker
+                 processes on torch.distributed) through planned and
+                 unplanned faults (crash, reshard, straggler, slow, nan,
+                 corrupt) with the typed LedgerEvent ledger;
+                 FaultEvent, make_fault_plan, periodic_crashes
+
 The engine never imports this package: ``store=``, ``health=`` and
-``init=`` are duck-typed.  The reference's ``Supervisor`` (and
-``FaultEvent``, ``make_fault_plan``, ``periodic_crashes``) drives the
-sharded ring, which the port does not have yet; asking for them raises
-``NotImplementedError``.
+``init=`` are duck-typed.
 """
 
 from repro_torch.runtime.health import (HealthError, HealthGuard,
@@ -31,6 +34,9 @@ from repro_torch.runtime.health import (HealthError, HealthGuard,
                                         render_ledger, render_ledger_event)
 from repro_torch.runtime.reshard import reshard, reshard_state, retile
 from repro_torch.runtime.resume import check_resumable, resume, solve_kwargs
+from repro_torch.runtime.supervisor import (FaultEvent, Supervisor,
+                                            make_fault_plan,
+                                            periodic_crashes)
 from repro_torch.runtime.snapshot import (DSOSnapshot,
                                           SnapshotIntegrityError,
                                           SnapshotStore, flatten_pytree,
@@ -47,16 +53,5 @@ __all__ = [
     "objective_regression", "render_ledger", "render_ledger_event",
     "check_resumable", "resume", "solve_kwargs",
     "reshard", "reshard_state", "retile",
+    "FaultEvent", "Supervisor", "make_fault_plan", "periodic_crashes",
 ]
-
-#: the reference's supervisor names, which need the sharded ring
-_RING = ("FaultEvent", "Supervisor", "make_fault_plan", "periodic_crashes")
-
-
-def __getattr__(name):
-    if name in _RING:
-        raise NotImplementedError(
-            f"runtime.{name} is not ported yet: it drives the sharded ring "
-            f"(ShardedDSO on torch.distributed), which comes with the ring "
-            f"slice (ROADMAP queue 1, item 5)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

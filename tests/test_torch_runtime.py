@@ -354,12 +354,14 @@ def test_solve_checkpoint_wiring_and_validation(tmp_path):
 
 
 def test_runtime_ring_names_raise():
+    """The four supervisor names, which raised NotImplementedError until
+    the ring was ported, now resolve to ``runtime.supervisor``'s objects,
+    and the package exports the reference's names."""
+    from repro_torch.runtime import supervisor
     for name in ("Supervisor", "FaultEvent", "make_fault_plan",
                  "periodic_crashes"):
-        with pytest.raises(NotImplementedError, match="ring"):
-            getattr(trt, name)
-    assert set(trt.__all__) == set(jrt.__all__) - {
-        "Supervisor", "FaultEvent", "make_fault_plan", "periodic_crashes"}
+        assert getattr(trt, name) is getattr(supervisor, name)
+    assert set(trt.__all__) == set(jrt.__all__)
 
 
 # ------------------------------------------------------------ layouts --
