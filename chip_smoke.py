@@ -68,7 +68,10 @@ Phases, one line per result:
    every 2 epochs, 10 epochs: phase 4's launch design, the primal falling
    at every evaluation, w within 1e-5 of phase 4's, and
    ``csr_primal_objective`` on the card equal to the hook's last primal
-   (1e-6: atomics); the file's bytes and the passes' host times.
+   (1e-6: atomics); the file's bytes and the passes' host times.  4i
+   also reads the file once more with ``obs=RunRecorder()``: the
+   ``ingest.rows`` / ``ingest.nnz`` counters must equal ``ScanStats``
+   and both pass spans (``ingest_pass1``, ``ingest_pass2``) be there.
 5. main path, K-bucketed: the logistic-real-sim configuration (logistic,
    l2, lam 1e-4, alpha0 5e-4) on power-law columns (alpha 1.3); same
    checks, and every bucketed launch A must take the shared route.
@@ -121,6 +124,25 @@ Phases, one line per result:
    card, w within 1e-5; launches per epoch and s/epoch of each.
    Phases 8r-8w run right after 5d, each run in its own launch-count
    window, which must hold the design's launches.
+3b. the baselines' epoch kernels (``csrc/baselines.cu``; they replace no
+   pallas_call): ``ops.sgd_epoch`` at batch 1 and 8 for the six pairs,
+   at p 4 (PSGD) on a ragged m, and ``ops.dcd_epoch`` (hinge), one epoch
+   from a seeded state against the plain versions on the same orders,
+   bound 1e-5, at the reference tests' shape (m 400, d 150) and at
+   real-sim's width (phase 4's first 4,096 rows, d 20,958, densified on
+   the card); two kernel runs bitwise equal, each one launch.  Then ms
+   per epoch (CUDA events), device ms (profiler) and the plain version's
+   ms at the 4,096-row shape beside the bound, and one epoch of SGD (1
+   block), PSGD (4 blocks) and DCD at real-sim's full size (phase 4's
+   CSR as a dense X of 6.06 GB built on the card) beside the bytes bound.
+10. the paper's Sec.-5 comparison at that full size, lam 1e-4, hinge and
+   logistic: DSO (``run_dso_grid(impl="auto")``, p 4: row 1's kernel),
+   SGD, PSGD (p 4), BMRM and DCD (hinge), cut to ``SEC5_EPOCHS``, each in
+   its own launch-count window (one ``sgd_epoch`` / ``dcd_epoch`` per
+   epoch and nothing else); every method's primal finite and falling from
+   its first evaluation to its last; per method the final primal, s per
+   epoch (or BMRM iteration) and the gap to DCD's hinge primal; BMRM's
+   kernel launches per iteration (profiler).  X is freed before 9r.
 9r. the sharded ring (``core.dso_dist.ShardedDSO``) with 4 worker
    processes sharing the card (gloo, blocks staged through pinned host
    memory; the library built in phase 2, the workers only load it) on
@@ -209,8 +231,9 @@ Phases, one line per result:
    cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
    max|d| against the plain version.
 
-Prints the kernel table as one JSON line (the serial epoch kernel's row
-last, with ``replaces`` null), the card's ``nvidia-smi`` line,
+Prints the kernel table as one JSON line (the serial epoch kernel's row,
+then the baselines' ``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's
+4,096-row shape, with ``replaces`` null), the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA card it exits 2 before printing any result.
 """
@@ -976,15 +999,40 @@ def grids_equal(a, b) -> bool:
     return True
 
 
-def phase_ingest(phase, dev, ctx, cfg):
+def phase_ingest_obs(phase, path, d, stats):
+    """``ingest_libsvm(obs=RunRecorder())`` on the phase's file: the
+    ``ingest.rows`` / ``ingest.nnz`` counters equal ``stats`` (no malformed
+    or quarantined line), and the two pass spans are there."""
+    from repro_torch.obs import RunRecorder
+    from repro_torch.sparse import ingest_libsvm
+    rec = RunRecorder()
+    t0 = time.perf_counter()
+    ingest_libsvm(path, n_features=d, p=P, normalize_labels=True, obs=rec)
+    wall = time.perf_counter() - t0
+    counters = {k: v["value"] for k, v in rec.metrics.snapshot().items()}
+    spans = {e["name"]: e["dur_s"] for e in rec.events
+             if e["type"] == "span"}
+    say(phase, f"ingest_libsvm(obs=RunRecorder()) {wall:.2f} s: counters "
+               f"{counters}, spans " + ", ".join(
+                   f"{k} {v:.2f} s" for k, v in spans.items()))
+    check(counters == {"ingest.rows": stats.n_rows,
+                       "ingest.nnz": stats.nnz}
+          and set(spans) == {"ingest_pass1", "ingest_pass2"},
+          f"obs recorded {counters} and spans {sorted(spans)}, expected "
+          f"rows {stats.n_rows}, nnz {stats.nnz} and both passes")
+
+
+def phase_ingest(phase, dev, ctx, cfg, obs=False):
     """Phases 4i/5i: the main path from a libsvm file.  Phase 4's (5n's)
     CSR and labels go to a file float32-exactly; ``ingest_libsvm`` reads it
-    back (pass 1 also timed alone, ``scan_libsvm``), bit for bit; the
-    layout follows ``tile_k_skew`` of pass 1's ``k_per_tile``; the grid
-    must equal that phase's; ``run_dso_grid_from_data(impl="auto")`` then
-    runs the configuration with the device CSR primal every 2 epochs,
-    with the counts set to 0 just before and read just after, and must
-    agree with that phase's run."""
+    back (pass 1 also timed alone, ``scan_libsvm``), bit for bit; with
+    ``obs``, once more with a ``RunRecorder``, whose counters must equal
+    ``ScanStats`` and which must hold both pass spans; the layout follows
+    ``tile_k_skew`` of pass 1's ``k_per_tile``; the grid must equal that
+    phase's; ``run_dso_grid_from_data(impl="auto")`` then runs the
+    configuration with the device CSR primal every 2 epochs, with the
+    counts set to 0 just before and read just after, and must agree with
+    that phase's run."""
     import os
     import tempfile
     import numpy as np
@@ -1011,6 +1059,8 @@ def phase_ingest(phase, dev, ctx, cfg):
                                          return_stats=True,
                                          normalize_labels=True)
         t_both = time.perf_counter() - t0
+        if obs:
+            phase_ingest_obs(phase, path, csr.d, stats)
     say(phase, f"libsvm file {nbytes} B ({csr.m} rows, {csr.nnz} nnz) "
                f"written in {t_write:.2f} s; pass 1 (scan_libsvm alone) "
                f"{t_pass1:.2f} s; ingest_libsvm (both passes) {t_both:.2f} "
@@ -1171,6 +1221,318 @@ def phase_serial(dev):
                 launches=launches, max_abs_err=worst, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=None)
+
+
+# --------------------------------------------- baselines (phases 3b, 10) --
+
+BASE_SMALL = dict(m=400, d=150, density=0.1, lam=1e-3, seed=1)  # ref tests
+BASE_WIDE_M = 4096            # rows of real-sim's width in phase 3b
+BASE_ETA0 = 0.3
+SEC5_LAM = 1e-4
+# phase 10's cuts (the reference example runs 30 DSO epochs, 15 of SGD and
+# PSGD and 25 BMRM iterations on a 2,000-row stand-in)
+SEC5_EPOCHS = dict(dso=10, sgd=3, psgd=3, dcd=3, bmrm=10)
+
+
+def realsim_problem(ctx, dev, rows=None):
+    """Phase 4's CSR (its first ``rows`` rows) as a dense ``Problem`` built
+    on the card (hinge, l2, lam 1e-4): the CSR's arrays go to the device
+    and are scattered into X there; X never exists on the host."""
+    import torch
+    from repro_torch.core.saddle import Problem
+    csr = ctx["csr"]
+    rows = csr.m if rows is None else rows
+    nnz = int(csr.indptr[rows])
+    indptr = torch.as_tensor(csr.indptr[:rows + 1], device=dev)
+    cols = torch.as_tensor(csr.indices[:nnz], device=dev).long()
+    vals = torch.as_tensor(csr.values[:nnz], device=dev)
+    row_nnz = torch.diff(indptr)
+    r = torch.repeat_interleave(torch.arange(rows, device=dev), row_nnz)
+    X = torch.zeros((rows, csr.d), dtype=torch.float32, device=dev)
+    X[r, cols] = vals
+    col_nnz = torch.bincount(cols, minlength=csr.d).float()
+    y = torch.as_tensor(ctx["y"][:rows], device=dev)
+    return Problem(X=X, y=y, lam=SEC5_LAM,
+                   row_nnz=row_nnz.float().clamp(min=1.0),
+                   col_nnz=col_nnz.clamp(min=1.0), nnz=float(nnz),
+                   loss_name="hinge", reg_name="l2")
+
+
+def sgd_bound(X, rows):
+    """(bound_ms, bound_by) of one SGD epoch over ``rows``: the visited
+    rows of X read once, w and acc read and written once, the row ids and
+    labels read; 4 operations per element of a visited row (the margin's
+    and X^T lg's products and sums) and ~10 per column per step (the
+    AdaGrad update)."""
+    n_workers, n = rows.shape
+    d = X.shape[1]
+    visited = int((rows >= 0).sum())
+    nbytes = 4 * visited * d + 16 * n_workers * d + 8 * n_workers * n
+    ops_ = 4 * visited * d + 10 * n_workers * n * d
+    return max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
+               (ops_ / F32_OPS_S * 1e3, "operations"))
+
+
+def dcd_bound(X, n, changed):
+    """(bound_ms, bound_by) of one DCD epoch of ``n`` steps, ``changed`` of
+    which moved beta (and so w): each visited row read once, w read and
+    written once, perm, y, xnorm2 and beta read, the changed betas written;
+    2 operations per element of a row for the margin and 2 for each
+    changed step's axpy."""
+    d = X.shape[1]
+    nbytes = 4 * n * d + 8 * d + 16 * n + 4 * changed
+    ops_ = 2 * n * d + 2 * changed * d
+    return max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
+               (ops_ / F32_OPS_S * 1e3, "operations"))
+
+
+def baseline_cases(prob, dev, seed):
+    """Phase 3b's cases on one Problem: (label, kernel, plain, state) with
+    ``kernel(st)`` / ``plain(st)`` one epoch in place on a state dict and
+    ``state()`` a fresh seeded state: SGD at batch 1 and 8 for the six
+    pairs, PSGD at p 4 on the first m - 2 rows (ragged), DCD (hinge)."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines.dcd import _row_norms2
+    from repro_torch.baselines.psgd import shard_rows
+    from repro_torch.kernels import baselines as kb
+    from repro_torch.kernels import ops
+    m, d = prob.m, prob.d
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa
+
+    def sgd_state(n_workers):
+        return lambda: dict(w=t(rng.normal(0, 0.05, (n_workers, d))),
+                            acc=t(np.abs(rng.normal(0, 0.01,
+                                                    (n_workers, d)))))
+
+    cases = []
+    for batch in (1, 8):
+        n = m // batch * batch
+        rows = torch.randperm(m, generator=gen)[:n].to(
+            device=dev, dtype=torch.int32).reshape(1, n)
+        for loss, reg in LOSS_REG_PAIRS:
+            args = (prob.X, prob.y, rows)
+            sc = (BASE_ETA0, prob.lam, loss, reg, batch)
+            cases.append((f"sgd {loss}/{reg} batch {batch}",
+                          lambda st, a=args, s=sc: ops.sgd_epoch(
+                              *a, st["w"], st["acc"], *s[:2], loss_name=s[2],
+                              reg_name=s[3], batch=s[4]),
+                          lambda st, a=args, s=sc: kb.sgd_epoch_plain(
+                              *a, st["w"], st["acc"], *s),
+                          sgd_state(1), rows))
+    mr = m - 2
+    mb = -(-mr // P)
+    perms = torch.stack([torch.randperm(mb, generator=gen)
+                         for _ in range(P)])
+    rows = shard_rows(perms.to(dev), mr, 1)
+    X, y = prob.X[:mr], prob.y[:mr]
+    cases.append((f"psgd p {P} m {mr} logistic/l2",
+                  lambda st: ops.sgd_epoch(
+                      X, y, rows, st["w"], st["acc"], BASE_ETA0, prob.lam,
+                      loss_name="logistic", reg_name="l2"),
+                  lambda st: kb.sgd_epoch_plain(
+                      X, y, rows, st["w"], st["acc"], BASE_ETA0, prob.lam,
+                      "logistic", "l2", 1),
+                  sgd_state(P), rows))
+    perm = torch.randperm(m, generator=gen).to(device=dev,
+                                               dtype=torch.int32)
+    xn = _row_norms2(prob.X)
+    cases.append(("dcd hinge",
+                  lambda st: ops.dcd_epoch(prob.X, prob.y, perm, st["w"],
+                                           st["beta"], prob.lam, xn),
+                  lambda st: kb.dcd_epoch_plain(prob.X, prob.y, perm,
+                                                st["w"], st["beta"],
+                                                prob.lam, xn),
+                  lambda: dict(w=t(rng.normal(0, 0.05, d)),
+                               beta=t(rng.uniform(0, 1, m))),
+                  perm))
+    return cases
+
+
+def phase_baseline_kernels(dev, full):
+    """Phase 3b: ``ops.sgd_epoch`` and ``ops.dcd_epoch`` against their plain
+    versions on the card, one epoch from the same seeded state on the same
+    orders, bound 1e-5: at the reference tests' shape (m 400, d 150,
+    density 0.1) and at real-sim's width (phase 4's first 4,096 rows, d
+    20,958); two kernel runs bitwise equal, each exactly one launch.  Then
+    ms per epoch (CUDA events) and device ms (profiler) at the 4,096-row
+    shape beside the plain version's and the bound, and one epoch of each
+    kernel at real-sim's full size (``full``: phase 4's CSR, m 72,309, on
+    the card).  Returns the kernel table's two rows (timings and bound)
+    and each kernel's worst max|d| against its plain version."""
+    import torch
+    from repro_torch.baselines.dcd import _row_norms2
+    from repro_torch.baselines.psgd import shard_rows
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.kernels import ops
+    small = make_classification(**BASE_SMALL, device=dev)
+    wide = full._replace(X=full.X[:BASE_WIDE_M], y=full.y[:BASE_WIDE_M])
+    worst = {"sgd_epoch": 0.0, "dcd_epoch": 0.0}
+    timed = {}
+    for label, prob in (("m 400 x d 150", small),
+                        (f"m {BASE_WIDE_M} x d {wide.d}", wide)):
+        for name, kern, plain, state, order in baseline_cases(prob, dev, 3):
+            counter = "dcd_epoch" if name.startswith("dcd") else "sgd_epoch"
+            st0 = state()
+            runs = []
+            for _ in range(2):
+                st = {k: v.clone() for k, v in st0.items()}
+                _, counts = counted(lambda: kern(st))
+                check_counts("3b", counts, {counter: 1})
+                runs.append(st)
+            ref = {k: v.clone() for k, v in st0.items()}
+            plain(ref)
+            torch.cuda.synchronize()
+            check(all(torch.equal(runs[0][k], runs[1][k]) for k in ref),
+                  f"{label} {name}: two kernel runs differ")
+            errs = {k: max_rel_err(runs[0][k], ref[k]) for k in ref}
+            say("3b", f"{label} {name}: max|d| " + ", ".join(
+                f"{k} {e:.3e}" for k, (e, _) in errs.items())
+                + "; two kernel runs bitwise equal; 1 launch")
+            check(all(ok for _, ok in errs.values()),
+                  f"{label} {name}: kernel and plain version disagree")
+            worst[counter] = max(worst[counter],
+                                 *(e for e, _ in errs.values()))
+            if prob is wide and name in ("sgd hinge/l2 batch 1",
+                                         "dcd hinge"):
+                timed[counter] = (kern, plain, st0, order)
+    rows = {}
+    for counter, (kern, plain, st0, order) in timed.items():
+        st, pst = ({k: v.clone() for k, v in st0.items()} for _ in range(2))
+        ms = cuda_ms(lambda: kern(st), 3, warm=1)
+        dev_ms, _ = device_ms_per_call(lambda: kern(st), 2)
+        plain_ms = cuda_ms(lambda: plain(pst), 1, warm=0)
+        if counter == "sgd_epoch":
+            bound_ms, by = sgd_bound(wide.X, order)
+        else:
+            b0 = st["beta"].clone()
+            kern(st)
+            bound_ms, by = dcd_bound(wide.X, order.numel(),
+                                     int((st["beta"] != b0).sum()))
+        n = order.numel()
+        dev_txt = f"device {dev_ms:.4f} ms (profiler)" if dev_ms else \
+            "device ms not measured (the trace held no kernel record)"
+        say("3b", f"{counter} at m {BASE_WIDE_M} x d {wide.d}: {ms:.4f} ms "
+                  f"per epoch ({ms * 1e6 / n:.1f} ns per step), {dev_txt}; "
+                  f"plain version on the card {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms ({by})")
+        rows[counter] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by, device_ms=dev_ms)
+    # one epoch of each kernel at real-sim's full size
+    gen = torch.Generator().manual_seed(5)
+    m, d = full.m, full.d
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    order = torch.randperm(m, generator=gen).to(device=dev,
+                                                dtype=torch.int32)
+    mb = -(-m // P)
+    prows = shard_rows(torch.stack([torch.randperm(mb, generator=gen)
+                                    for _ in range(P)]).to(dev), m, 1)
+    xn = _row_norms2(full.X)
+    beta = z(m)
+    full_cases = (
+        ("sgd_epoch", "sgd, 1 block", order.reshape(1, m),
+         lambda: ops.sgd_epoch(full.X, full.y, order.reshape(1, m), z(1, d),
+                               z(1, d), BASE_ETA0, SEC5_LAM,
+                               loss_name="hinge", reg_name="l2")),
+        ("sgd_epoch", f"psgd, {P} blocks", prows,
+         lambda: ops.sgd_epoch(full.X, full.y, prows, z(P, d), z(P, d),
+                               BASE_ETA0, SEC5_LAM, loss_name="hinge",
+                               reg_name="l2")),
+        ("dcd_epoch", "dcd, 1 block", order,
+         lambda: ops.dcd_epoch(full.X, full.y, order, z(d), beta.zero_(),
+                               SEC5_LAM, xn)))
+    for counter, label, o, fn in full_cases:
+        ms = cuda_ms(fn, 1, warm=1)
+        if counter == "sgd_epoch":
+            bound_ms, by = sgd_bound(full.X, o)
+        else:
+            bound_ms, by = dcd_bound(full.X, m, int((beta != 0).sum()))
+        steps = o.shape[-1]
+        say("3b", f"{counter} ({label}) at real-sim's full size m {m} x d "
+                  f"{d} (X {4 * m * d / 1e9:.2f} GB on the card): {ms:.3f} "
+                  f"ms per epoch, {ms * 1e6 / steps:.1f} ns per step; bound "
+                  f"{bound_ms:.4f} ms ({by}; X read once: 4 m d / 3.35 TB/s "
+                  f"= {4 * m * d / HBM_BYTES_S * 1e3:.4f} ms)")
+    return rows, worst
+
+
+def sec5_runs(prob, dev, hinge):
+    """Phase 10's methods on ``prob``: (name, fn, counter) with ``fn()``
+    returning the history; DCD for hinge only."""
+    from repro_torch.baselines.bmrm import run_bmrm
+    from repro_torch.baselines.dcd import run_dcd
+    from repro_torch.baselines.psgd import run_psgd
+    from repro_torch.baselines.sgd import run_sgd
+    from repro_torch.core.dso import run_dso_grid
+    E = SEC5_EPOCHS
+    a0 = 0.0 if hinge else 0.0005              # App. B logistic init
+    runs = [("dso", lambda: run_dso_grid(
+                prob, p=P, epochs=E["dso"], eta0=0.5, alpha0=a0,
+                impl="auto", device=dev)[2], "dso_sparse_block_step"),
+            ("sgd", lambda: run_sgd(prob, epochs=E["sgd"], eta0=BASE_ETA0,
+                                    device=dev)[1], "sgd_epoch"),
+            ("psgd", lambda: run_psgd(prob, p=P, epochs=E["psgd"],
+                                      eta0=BASE_ETA0, device=dev)[1],
+             "sgd_epoch"),
+            ("bmrm", lambda: run_bmrm(prob, iters=E["bmrm"],
+                                      device=dev)[1], None)]
+    if hinge:
+        runs.insert(1, ("dcd", lambda: run_dcd(prob, epochs=E["dcd"],
+                                               device=dev)[2], "dcd_epoch"))
+    return runs
+
+
+def phase_sec5(dev, full):
+    """Phase 10: the paper's Sec.-5 comparison on the card at real-sim's
+    full size (phase 4's CSR as a dense Problem, lam 1e-4), hinge and
+    logistic: DSO (``run_dso_grid(impl="auto")``, p 4: the block-ELL
+    kernel, row 1), SGD, PSGD (p 4), BMRM and DCD (hinge), cut to
+    ``SEC5_EPOCHS``; each run in its own launch-count window; every
+    method's primal finite and falling from its first evaluation to its
+    last.  Returns the launches of the two baseline kernels."""
+    import numpy as np
+    from repro_torch.baselines.bmrm import run_bmrm
+    launches = {"sgd_epoch": 0, "dcd_epoch": 0}
+    say(10, f"cuts: {SEC5_EPOCHS} (epochs; BMRM iterations) at m {full.m} "
+            f"x d {full.d}, lam {SEC5_LAM}")
+    for loss in ("hinge", "logistic"):
+        prob = full._replace(loss_name=loss)
+        out = {}
+        for name, fn, counter in sec5_runs(prob, dev, loss == "hinge"):
+            n = SEC5_EPOCHS[name]
+            t = time.perf_counter()
+            hist, counts = counted(fn)
+            wall = time.perf_counter() - t
+            want = {counter: n * (P if name == "dso" else 1)} \
+                if counter else {}
+            check_counts(10, counts, want)
+            if counter in launches:
+                launches[counter] += counts[counter]
+            primal = [h["primal"] for h in hist]
+            check(all(np.isfinite(primal)) and primal[-1] < primal[0],
+                  f"{loss} {name}: primal not finite or not falling: "
+                  f"{primal}")
+            out[name] = (primal[-1], wall / n)
+            say(10, f"{loss} {name}: primal " + " ".join(
+                f"e{h['epoch']}={h['primal']:.9f}" for h in hist)
+                + f"; {wall / n:.4f} s per "
+                + ("iteration" if name == "bmrm" else "epoch")
+                + (" (grid set-up included)" if name == "dso" else ""))
+        if loss == "hinge":
+            _, _, kernels = device_split(
+                lambda: run_bmrm(prob, iters=1, device=dev))
+            say(10, f"BMRM launches per iteration (profiler, iters=1: "
+                    f"X @ w, X.T @ g, 300 EG steps, the primal): "
+                    f"{sum(c for _, _, c in kernels)} kernel launches of "
+                    f"{len(kernels)} kinds")
+        ref = out.get("dcd", (None,))[0]
+        say(10, f"{loss} lam {SEC5_LAM:g}: " + "  ".join(
+            f"{k.upper()}={p:.9f} ({s:.4f} s"
+            + (f", gap to DCD {p - ref:+.3e})" if ref is not None else ")")
+            for k, (p, s) in out.items()))
+    return launches
 
 
 # ------------------------------------------- runtime, health, obs, switch --
@@ -2900,7 +3262,8 @@ def main() -> int:
 
     uni = phase_main(4, dev, CONFIGS["svm-real-sim"], powerlaw=None,
                      expect="sparse_pallas", seed=4)
-    ingest = {"4i": phase_ingest("4i", dev, uni, CONFIGS["svm-real-sim"])}
+    ingest = {"4i": phase_ingest("4i", dev, uni, CONFIGS["svm-real-sim"],
+                                 obs=True)}
     buck = phase_main(5, dev, CONFIGS["logistic-real-sim"], powerlaw=1.3,
                       expect="sparse_bucketed_pallas", seed=5,
                       route="shared")
@@ -2923,6 +3286,13 @@ def main() -> int:
     phase_switch(dev, buck, CONFIGS["logistic-real-sim"])
     say(8, f"phases 8r, 8h, 8s, 8o, 8w passed in "
            f"{time.perf_counter() - t8:.1f} s")
+    t10 = time.perf_counter()
+    full = realsim_problem(uni, dev)
+    base_rows, base_err = phase_baseline_kernels(dev, full)
+    base_launches = phase_sec5(dev, full)
+    del full                        # 6.06 GB, freed before 9r's workers
+    torch.cuda.empty_cache()
+    say(10, f"phases 3b and 10 passed in {time.perf_counter() - t10:.1f} s")
     per_worker = EPOCHS * P          # epochs x inner iterations x row tiles
     ring = phase_ring(dev, {
         "svm-real-sim": (uni, CONFIGS["svm-real-sim"],
@@ -2998,8 +3368,17 @@ def main() -> int:
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
     say("3s", f"serial_epoch row: {serial}; ingest: {ingest}")
+    baseline_rows = []
+    for name in ("sgd_epoch", "dcd_epoch"):
+        r = dict(base_rows[name])
+        r.pop("device_ms")
+        baseline_rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/baselines.cu", replaces=None,
+            launches=base_launches[name], max_abs_err=base_err[name],
+            library_ms=None, **r))
     print(json.dumps({"kernels": [s_step, b_step, n_step, primal, probe_row]
-                      + dense_rows + lm_rows + [serial]}))
+                      + dense_rows + lm_rows + [serial] + baseline_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,6 +82,11 @@ SIGNATURES = {
     # csrc/dso_serial.cu
     "dso_serial_epoch":
         [_P] * 4 + [_I] + [_P] * 7 + [_F] * 5 + [_I] * 3 + [_P],
+    # csrc/baselines.cu
+    "sgd_epoch":
+        [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    "dcd_epoch":
+        [_P, _L, _P, _P, _I, _P, _P, _P, _I, _F, _F, _F, _P],
 }
 
 

@@ -49,6 +49,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
     dso_serial_epoch.launches         the paper-exact serial epoch (one
                                       launch per epoch; replaces no
                                       pallas_call)
+    sgd_epoch.launches                an AdaGrad SGD epoch of every worker
+                                      (SGD: 1, PSGD: p blocks; one launch
+                                      per epoch; replaces no pallas_call)
+    dcd_epoch.launches                a DCD epoch (one launch per epoch;
+                                      replaces no pallas_call)
 
 A sparse block step makes one folded launch per row tile, so one inner
 iteration of the epoch is ``row_batches`` launches for all p processors
@@ -67,6 +72,7 @@ import weakref
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import baselines as _baselines
 from repro_torch.kernels import dso_serial, dso_sparse, dso_update
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import swa_attention as _swa
@@ -762,12 +768,81 @@ def dso_serial_epoch(ii, jj, vv, order, w, alpha, gw, ga, y, row_nnz,
 
 dso_serial_epoch.launches = 0
 
+# ------------------------------------------------------------- baselines --
+
+
+def _check_rows_x(X, y):
+    if X.dim() != 2:
+        raise ValueError(f"X must be (m, d), got {tuple(X.shape)}")
+    _expect("X", X, torch.float32, X.shape)
+    _expect("y", y, torch.float32, (X.shape[0],))
+
+
+def sgd_epoch(X, y, rows, w, acc, eta0: float, lam: float, *,
+              loss_name: str, reg_name: str, batch: int = 1):
+    """One AdaGrad SGD epoch (the reference's ``_sgd_epoch``) for each of
+    n workers, in place on ``w`` and ``acc`` (n, d): worker q visits the
+    rows ``rows[q]`` ((n, nsteps * batch) int32; -1 a padding row with x
+    and y 0) of X (m, d) in steps of ``batch``.  On the card one launch of
+    ``csrc/baselines.cu`` (one block per worker); the row ids are not
+    checked there, so they must lie in -1 .. m-1."""
+    _check_rows_x(X, y)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if rows.dim() != 2 or rows.shape[1] % batch:
+        raise ValueError(f"rows must be (n_workers, nsteps * batch), got "
+                         f"{tuple(rows.shape)} at batch {batch}")
+    _expect("rows", rows, torch.int32, rows.shape)
+    shape = (rows.shape[0], X.shape[1])
+    _expect("w", w, torch.float32, shape)
+    _expect("acc", acc, torch.float32, shape)
+    if loss_name not in dso_update.LOSS_IDS \
+            or reg_name not in dso_update.REG_IDS:
+        raise ValueError(f"unknown loss/reg {loss_name!r}/{reg_name!r}")
+    args = (X, y, rows, w, acc, float(eta0), float(lam), loss_name,
+            reg_name, int(batch))
+    if not _route(X, y, rows, w, acc):
+        _baselines.sgd_epoch_plain(*args)
+        return
+    _baselines.launch_sgd_epoch(*args)
+    sgd_epoch.launches += 1
+
+
+sgd_epoch.launches = 0
+
+
+def dcd_epoch(X, y, perm, w, beta, lam: float, xnorm2):
+    """One hinge-loss dual coordinate descent epoch (the reference's
+    ``_dcd_epoch``), in place on ``w`` (d,) and ``beta`` (m,): the rows
+    ``perm`` ((n,) int32) of X (m, d) in turn; ``xnorm2`` (m,) holds each
+    row's squared norm.  On the card one launch of ``csrc/baselines.cu``
+    (one block); the row ids are not checked there, so they must lie in
+    0 .. m-1."""
+    _check_rows_x(X, y)
+    m, d = X.shape
+    if perm.dim() != 1:
+        raise ValueError(f"perm must be 1-D, got {tuple(perm.shape)}")
+    _expect("perm", perm, torch.int32, perm.shape)
+    _expect("w", w, torch.float32, (d,))
+    _expect("beta", beta, torch.float32, (m,))
+    _expect("xnorm2", xnorm2, torch.float32, (m,))
+    args = (X, y, perm, w, beta, float(lam), xnorm2)
+    if not _route(X, y, perm, w, beta, xnorm2):
+        _baselines.dcd_epoch_plain(*args)
+        return
+    _baselines.launch_dcd_epoch(*args)
+    dcd_epoch.launches += 1
+
+
+dcd_epoch.launches = 0
+
 
 _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             dso_bucketed_block_step, _dso_bucketed_block_step_shared,
             dso_block_step, dso_tile_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
-            _swa_attention_tf32x3, ssd_scan, dso_serial_epoch)
+            _swa_attention_tf32x3, ssd_scan, dso_serial_epoch, sgd_epoch,
+            dcd_epoch)
 
 
 def reset_launch_counts():

@@ -33,8 +33,11 @@ count is surfaced in ``ScanStats.malformed`` and cross-checked between the
 passes.  A file truncated (or otherwise mutated) between the passes is
 detected by the pass-1 vs pass-2 row/nnz totals and fails loudly.
 
-``obs=`` keeps the reference's signature; anything but ``None`` raises
-``NotImplementedError`` until the observability slice brings it.
+``obs=`` takes a run recorder (``repro_torch.obs.RunRecorder``): the two
+passes appear as ``ingest_pass1``/``ingest_pass2`` spans and their totals
+in the ``ingest.rows``/``ingest.nnz``/``ingest.malformed``/
+``ingest.quarantined`` counters, as in the reference; ``None`` records
+nothing.
 """
 
 from __future__ import annotations
@@ -72,13 +75,6 @@ class MalformedLine(ValueError):
 
 
 _POLICIES = ("error", "skip", "quarantine")
-
-
-def _refuse_obs(obs):
-    if obs is not None:
-        raise NotImplementedError(
-            "ingest(obs=...) is not ported yet; it comes with "
-            "observability (ROADMAP queue 1: obs)")
 
 
 def _open_lines(source):
@@ -134,6 +130,17 @@ def _parse_row(lab: str, toks, n_features: int | None = None):
     return label, pairs
 
 
+def _obs_scan_stats(obs, stats: ScanStats, *, quarantined: bool) -> None:
+    """Fold one pass-1 result into the obs counters (rows scanned,
+    malformed/quarantined drops, nonzeros kept)."""
+    obs.metrics.counter("ingest.rows").inc(stats.n_rows)
+    obs.metrics.counter("ingest.nnz").inc(stats.nnz)
+    if stats.malformed:
+        obs.metrics.counter("ingest.malformed").inc(stats.malformed)
+        if quarantined:
+            obs.metrics.counter("ingest.quarantined").inc(stats.malformed)
+
+
 def scan_libsvm(source, max_rows: int | None = None,
                 n_features: int | None = None, p: int | None = None,
                 on_malformed: str = "error",
@@ -153,8 +160,12 @@ def scan_libsvm(source, max_rows: int | None = None,
     "quarantine" additionally appends the raw line to ``quarantine_path``
     (required with that policy) for forensics.  Dropped lines never count
     toward ``max_rows``, matching pass 2's decisions exactly.
+
+    ``obs`` — optional run recorder: the pass is timed as an
+    ``ingest_pass1`` span and the totals land in the ``ingest.rows`` /
+    ``ingest.nnz`` / ``ingest.malformed`` / ``ingest.quarantined``
+    counters.
     """
-    _refuse_obs(obs)
     if on_malformed not in _POLICIES:
         raise ValueError(f"on_malformed {on_malformed!r}: {_POLICIES}")
     if on_malformed == "quarantine" and quarantine_path is None:
@@ -174,6 +185,9 @@ def scan_libsvm(source, max_rows: int | None = None,
     d = 0
     malformed = 0
     qf = None
+    span = obs.span("ingest_pass1") if obs is not None else None
+    if span is not None:
+        span.__enter__()
     f = _open_lines(source)
     try:
         for line in f:
@@ -227,8 +241,14 @@ def scan_libsvm(source, max_rows: int | None = None,
             shard = row_blocks[q * mb:min((q + 1) * mb, m)]
             if shard.size:
                 k_per_tile[q] = shard.max(axis=0)
-    return ScanStats(n_rows=len(row_nnz), n_features=d, nnz=int(rn.sum()),
-                     row_nnz=rn, k_per_tile=k_per_tile, malformed=malformed)
+    stats = ScanStats(n_rows=len(row_nnz), n_features=d,
+                      nnz=int(rn.sum()), row_nnz=rn, k_per_tile=k_per_tile,
+                      malformed=malformed)
+    if span is not None:
+        span.__exit__(None, None, None)
+        _obs_scan_stats(obs, stats,
+                        quarantined=on_malformed == "quarantine")
+    return stats
 
 
 def iter_csr_shards(source, n_features: int, shard_rows: int = 8192,
@@ -335,8 +355,11 @@ def ingest_libsvm(path: str, n_features: int | None = None,
     ``ScanStats.malformed`` (``return_stats=True``) and the two passes'
     decisions are cross-checked, so a file mutated mid-ingest still fails
     loudly instead of writing misaligned data.
+
+    ``obs`` — optional run recorder: the two passes appear as
+    ``ingest_pass1``/``ingest_pass2`` spans with row/nnz/malformed/
+    quarantined counters (see ``repro_torch.obs``).
     """
-    _refuse_obs(obs)
     if not isinstance(path, (str, bytes, os.PathLike)):
         raise TypeError(
             "ingest_libsvm makes two passes and needs a re-readable path; "
@@ -346,7 +369,7 @@ def ingest_libsvm(path: str, n_features: int | None = None,
         quarantine_path = os.fspath(path) + ".quarantine"
     stats = scan_libsvm(path, max_rows=max_rows, n_features=n_features,
                         p=p, on_malformed=on_malformed,
-                        quarantine_path=quarantine_path)
+                        quarantine_path=quarantine_path, obs=obs)
     if n_features is None:
         n_features = stats.n_features
     elif stats.n_features > n_features:
@@ -363,7 +386,12 @@ def ingest_libsvm(path: str, n_features: int | None = None,
     row = 0
     counters: dict = {}
     # pass 2 re-applies the same drop decisions ("skip" even under
-    # quarantine: pass 1 already wrote the sidecar file)
+    # quarantine: pass 1 already wrote the sidecar file); one span covers
+    # the whole shard drain — per-shard events would drown the log
+    span = obs.span("ingest_pass2", shard_rows=shard_rows) \
+        if obs is not None else None
+    if span is not None:
+        span.__enter__()
     pass2_policy = "error" if on_malformed == "error" else "skip"
     for shard, ys in iter_csr_shards(path, n_features,
                                      shard_rows=shard_rows,
@@ -382,6 +410,8 @@ def ingest_libsvm(path: str, n_features: int | None = None,
         values[lo:lo + z] = shard.values
         y[row:row + r] = ys
         row += r
+    if span is not None:
+        span.__exit__(None, None, None)
     if row != stats.n_rows:
         raise ValueError(
             f"file changed between the two ingest passes (pass 2 saw "

@@ -12,8 +12,9 @@ reader (``parse_libsvm``, ``load_libsvm``, ``normalize_binary_labels``,
 ``dump_libsvm`` byte for byte) equals the reference; the block-ELL and
 K-bucketed grids of an ingested CSR equal the reference's array for
 array, and ``run_dso_grid_from_data`` on them is within 1e-5 of the
-reference's; ``csr_primal_objective`` within 1e-6 relative; and a
-scaled-down copy of the reference's never-densifies gate.
+reference's; ``csr_primal_objective`` within 1e-6 relative; a
+scaled-down copy of the reference's never-densifies gate; and the
+``obs=`` seam records the reference's spans and counters.
 """
 
 import os
@@ -449,11 +450,43 @@ def test_ingest_at_scale_never_densifies(tmp_path):
 
 
 def test_ingest_obs_is_not_ported_yet(tmp_path):
-    path = _write(tmp_path / "o.libsvm", "+1 1:1.0\n")
-    with pytest.raises(NotImplementedError, match="obs"):
-        ting.scan_libsvm(path, obs=object())
-    with pytest.raises(NotImplementedError, match="obs"):
-        ting.ingest_libsvm(path, obs=object())
+    """Since the obs seam was ported the id is kept for its history: a
+    port ``RunRecorder`` and a reference one record the same spans (names,
+    order, ``shard_rows``) and counter values for the same file, from
+    ``ingest_libsvm`` and ``scan_libsvm`` alike, under "skip" and
+    "quarantine"; ``obs=None`` records nothing and changes nothing."""
+    from repro.obs import RunRecorder as JRecorder
+    from repro_torch.obs import RunRecorder as TRecorder
+
+    def spans(rec):
+        return [(e["name"], e.get("attrs", {})) for e in rec.events
+                if e["type"] == "span"]
+
+    text = _dirty_text(3)
+    for policy in ("skip", "quarantine"):
+        recs = {}
+        for side, mod, rec in (("j", jing, JRecorder()),
+                               ("t", ting, TRecorder())):
+            path = _write(tmp_path / f"{side}_{policy}.libsvm", text)
+            kw = dict(n_features=50, on_malformed=policy)
+            csr, y = mod.ingest_libsvm(path, shard_rows=7, obs=rec, **kw)
+            mod.scan_libsvm(path, obs=rec, p=4,
+                            quarantine_path=path + ".q2", **kw)
+            recs[side] = rec
+            if side == "t":
+                plain = ting.ingest_libsvm(path, shard_rows=7, **kw)
+                _assert_csr_equal(plain[0], csr)
+                assert np.array_equal(plain[1], y)
+        j, t = recs["j"], recs["t"]
+        assert spans(t) == spans(j) == [("ingest_pass1", {}),
+                                        ("ingest_pass2", {"shard_rows": 7}),
+                                        ("ingest_pass1", {})]
+        assert t.metrics.snapshot() == j.metrics.snapshot()
+        counters = {k: v["value"] for k, v in t.metrics.snapshot().items()}
+        n_bad = len(MALFORMED)
+        assert counters["ingest.malformed"] == 2 * n_bad
+        assert counters.get("ingest.quarantined", 0) \
+            == (2 * n_bad if policy == "quarantine" else 0)
 
 
 def test_readers_default_to_the_card(tmp_path):
