@@ -125,16 +125,24 @@ Phases, one line per result:
    Phases 8r-8w run right after 5d, each run in its own launch-count
    window, which must hold the design's launches.
 3b. the baselines' epoch kernels (``csrc/baselines.cu``; they replace no
-   pallas_call): ``ops.sgd_epoch`` at batch 1 and 8 for the six pairs,
-   at p 4 (PSGD) on a ragged m, and ``ops.dcd_epoch`` (hinge), one epoch
-   from a seeded state against the plain versions on the same orders,
-   bound 1e-5, at the reference tests' shape (m 400, d 150) and at
-   real-sim's width (phase 4's first 4,096 rows, d 20,958, densified on
-   the card); two kernel runs bitwise equal, each one launch.  Then ms
-   per epoch (CUDA events), device ms (profiler) and the plain version's
-   ms at the 4,096-row shape beside the bound, and one epoch of SGD (1
-   block), PSGD (4 blocks) and DCD at real-sim's full size (phase 4's
-   CSR as a dense X of 6.06 GB built on the card) beside the bytes bound.
+   pallas_call; one thread-block cluster per worker, the plan of
+   ``ops.sgd_epoch_route`` / ``dcd_epoch_route`` printed with each shape
+   and its shared memory held against the C entry's count):
+   ``ops.sgd_epoch`` at batch 1 and 8 for the six pairs, at p 4 (PSGD) on
+   a ragged m, and ``ops.dcd_epoch`` (hinge, and with ids that come
+   back), one epoch from a seeded state against the plain versions on
+   the same orders, bit for bit (max|d| 0.0, inside the 1e-5 gate), at
+   the reference tests' shape (m 400, d 150) and at real-sim's width
+   (phase 4's first 4,096 rows, d 20,958, densified on the card); SGD
+   past the staged limit (m 256 x d 600,000 drawn on the card: the
+   global-w body); SGD, PSGD and DCD at real-sim's full size (phase 4's
+   CSR as a dense X of 6.06 GB built on the card); two kernel runs
+   bitwise equal, each one launch.  Then ms per epoch (CUDA events),
+   device ms (profiler, and CUDA events queued behind a spin) and the
+   plain version's ms at the 4,096-row shape beside the bound; at full
+   size the A/B against the one-block kernels in turns (new, old,
+   old, new), each cluster size of ``BASE_AB_CLUSTERS`` (4, 8, 16) and
+   the exchange-only floor per step, beside the bytes bound.
 10. the paper's Sec.-5 comparison at that full size, lam 1e-4, hinge and
    logistic: DSO (``run_dso_grid(impl="auto")``, p 4: row 1's kernel),
    SGD, PSGD (p 4), BMRM and DCD (hinge), cut to ``SEC5_EPOCHS``, each in
@@ -1351,58 +1359,194 @@ def baseline_cases(prob, dev, seed):
     return cases
 
 
+SPIN_CYCLES = 20_000_000     # ~10 ms on an H100: longer than the host
+BASE_GLOBAL = (256, 600_000)  # m x d of 3b's global-w case (614 MB of X)
+BASE_AB_CLUSTERS = (4, 8, 16)
+
+
+def spin_ms(fn, n, warm=1):
+    """ms per call of ``fn``: CUDA events around ``n`` calls queued behind
+    a ``torch.cuda._sleep`` spin of ``SPIN_CYCLES``, so that they run back
+    to back on the card whatever the host takes to queue them (as
+    ``bench/fold.py`` times): the device's time per call, which needs no
+    profiler trace."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def base_limits(dev):
+    """The card's limits the epoch plans read: opt-in shared memory per
+    block and the largest cluster of the epoch kernels."""
+    from repro_torch.kernels import ops
+    return dict(smem_limit=ops.shared_memory_limit(dev),
+                max_cluster=ops.max_cluster(dev))
+
+
+def say_plan(label, kind, plan, batch=1):
+    """Print an epoch plan and hold its shared memory against the C
+    entry's own count."""
+    from repro_torch.kernels import baselines as kb
+    got = kb.kernel_smem(kind, batch, plan.width, plan.staged)
+    say("3b", f"{label}: {kind} plan cluster {plan.cluster} x width "
+              f"{plan.width} ({'staged' if plan.staged else 'global'}), "
+              f"{plan.smem} B shared per block (C entry: {got})")
+    check(got == plan.smem, f"{label}: plan's shared memory {plan.smem} != "
+                            f"the kernel's {got}")
+
+
+def check_epoch_case(label, kern, plain, st0, counter):
+    """One epoch case of phase 3b: the kernel twice from ``st0`` (each
+    exactly one launch, the two bitwise equal) against the plain version
+    bit for bit (max|d| 0.0, which is inside the 1e-5 gate).  Returns
+    max|d|."""
+    import torch
+    runs = []
+    for _ in range(2):
+        st = {k: v.clone() for k, v in st0.items()}
+        _, counts = counted(lambda: kern(st))
+        check_counts("3b", counts, {counter: 1})
+        runs.append(st)
+    ref = {k: v.clone() for k, v in st0.items()}
+    plain(ref)
+    torch.cuda.synchronize()
+    check(all(torch.equal(runs[0][k], runs[1][k]) for k in ref),
+          f"{label}: two kernel runs differ")
+    errs = {k: max_rel_err(runs[0][k], ref[k]) for k in ref}
+    say("3b", f"{label}: max|d| " + ", ".join(
+        f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + "; two kernel runs bitwise equal; 1 launch")
+    check(all(ok for _, ok in errs.values()),
+          f"{label}: kernel and plain version disagree")
+    check(all(torch.equal(runs[0][k], ref[k]) for k in ref),
+          f"{label}: kernel and plain version not bit for bit")
+    return max(e for e, _ in errs.values())
+
+
+def repeated_ids_case(prob, dev, seed):
+    """Phase 3b's DCD case with ids that come back (at once and later):
+    (label, kernel, plain, state)."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines.dcd import _row_norms2
+    from repro_torch.kernels import baselines as kb
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    perm = rng.integers(0, prob.m, prob.m).astype(np.int32)
+    perm[1::5] = perm[0::5][:len(perm[1::5])]
+    perm = torch.as_tensor(perm, device=dev)
+    xn = _row_norms2(prob.X)
+    st0 = dict(w=torch.tensor(rng.normal(0, 0.05, prob.d).astype(np.float32),
+                              device=dev),
+               beta=torch.tensor(rng.uniform(0, 1, prob.m).astype(np.float32),
+                                 device=dev))
+    return ("dcd hinge, repeated ids",
+            lambda st: ops.dcd_epoch(prob.X, prob.y, perm, st["w"],
+                                     st["beta"], prob.lam, xn),
+            lambda st: kb.dcd_epoch_plain(prob.X, prob.y, perm, st["w"],
+                                          st["beta"], prob.lam, xn), st0)
+
+
+def global_body_cases(dev):
+    """Phase 3b's SGD cases past the staged limit: a dense X of
+    ``BASE_GLOBAL`` drawn on the card (unit rows), hinge/l2 at batch 1 and
+    logistic/l1 at batch 8: (label, kernel, plain, state, d)."""
+    import torch
+    m, d = BASE_GLOBAL
+    g = torch.Generator(device=dev).manual_seed(7)
+    X = torch.randn((m, d), generator=g, device=dev)
+    X /= X.norm(dim=1, keepdim=True)
+    y = torch.where(torch.randn(m, generator=g, device=dev) >= 0, 1.0, -1.0)
+    from repro_torch.kernels import baselines as kb
+    from repro_torch.kernels import ops
+    rows = torch.randperm(m, generator=g, device=dev).to(torch.int32)
+    st0 = dict(w=torch.randn((1, d), generator=g, device=dev) * 0.05,
+               acc=torch.rand((1, d), generator=g, device=dev) * 0.01)
+    out = []
+    for loss, reg, batch in (("hinge", "l2", 1), ("logistic", "l1", 8)):
+        r = rows[:m // batch * batch].reshape(1, -1)
+        sc = (BASE_ETA0, 1e-3, loss, reg, batch)
+        out.append((f"m {m} x d {d} sgd {loss}/{reg} batch {batch}",
+                    lambda st, r=r, sc=sc: ops.sgd_epoch(
+                        X, y, r, st["w"], st["acc"], *sc[:2],
+                        loss_name=sc[2], reg_name=sc[3], batch=sc[4]),
+                    lambda st, r=r, sc=sc: kb.sgd_epoch_plain(
+                        X, y, r, st["w"], st["acc"], *sc),
+                    st0, batch))
+    return out, d
+
+
 def phase_baseline_kernels(dev, full):
-    """Phase 3b: ``ops.sgd_epoch`` and ``ops.dcd_epoch`` against their plain
-    versions on the card, one epoch from the same seeded state on the same
-    orders, bound 1e-5: at the reference tests' shape (m 400, d 150,
-    density 0.1) and at real-sim's width (phase 4's first 4,096 rows, d
-    20,958); two kernel runs bitwise equal, each exactly one launch.  Then
-    ms per epoch (CUDA events) and device ms (profiler) at the 4,096-row
-    shape beside the plain version's and the bound, and one epoch of each
-    kernel at real-sim's full size (``full``: phase 4's CSR, m 72,309, on
-    the card).  Returns the kernel table's two rows (timings and bound)
-    and each kernel's worst max|d| against its plain version."""
+    """Phase 3b: ``ops.sgd_epoch`` and ``ops.dcd_epoch`` (one thread-block
+    cluster per worker, ``ops.sgd_epoch_route`` / ``dcd_epoch_route``'s
+    plan printed) against their plain versions on the card, one epoch from
+    the same seeded state on the same orders, bit for bit: at the
+    reference tests' shape (m 400, d 150), at real-sim's width (phase 4's
+    first 4,096 rows, d 20,958), DCD with repeated ids at both, SGD past
+    the staged limit (``BASE_GLOBAL``, the global-w body) and SGD, PSGD and
+    DCD at real-sim's full size (``full``: phase 4's CSR, m 72,309, on the
+    card); two kernel runs bitwise equal, each exactly one launch.  Then
+    at the 4,096-row shape ms per epoch (CUDA events), device ms
+    (profiler, and CUDA events behind a spin) beside the plain version's
+    and the bound; at full size the A/B against the one-block kernels
+    in turns (new, old, old, new), each cluster size of
+    ``BASE_AB_CLUSTERS`` and the exchange-only floor per step.  Returns
+    the kernel table's two rows and each kernel's worst max|d|."""
     import torch
     from repro_torch.baselines.dcd import _row_norms2
     from repro_torch.baselines.psgd import shard_rows
     from repro_torch.data.synthetic import make_classification
+    from repro_torch.kernels import baselines as kb
     from repro_torch.kernels import ops
+    lim = base_limits(dev)
+    say("3b", f"card limits for the epoch plans: {lim}")
     small = make_classification(**BASE_SMALL, device=dev)
     wide = full._replace(X=full.X[:BASE_WIDE_M], y=full.y[:BASE_WIDE_M])
     worst = {"sgd_epoch": 0.0, "dcd_epoch": 0.0}
     timed = {}
     for label, prob in (("m 400 x d 150", small),
                         (f"m {BASE_WIDE_M} x d {wide.d}", wide)):
+        for batch in (1, 8):
+            say_plan(label, "sgd", ops.sgd_epoch_route(prob.d, batch, **lim),
+                     batch)
+        say_plan(label, "dcd", ops.dcd_epoch_route(prob.d, **lim))
         for name, kern, plain, state, order in baseline_cases(prob, dev, 3):
             counter = "dcd_epoch" if name.startswith("dcd") else "sgd_epoch"
             st0 = state()
-            runs = []
-            for _ in range(2):
-                st = {k: v.clone() for k, v in st0.items()}
-                _, counts = counted(lambda: kern(st))
-                check_counts("3b", counts, {counter: 1})
-                runs.append(st)
-            ref = {k: v.clone() for k, v in st0.items()}
-            plain(ref)
-            torch.cuda.synchronize()
-            check(all(torch.equal(runs[0][k], runs[1][k]) for k in ref),
-                  f"{label} {name}: two kernel runs differ")
-            errs = {k: max_rel_err(runs[0][k], ref[k]) for k in ref}
-            say("3b", f"{label} {name}: max|d| " + ", ".join(
-                f"{k} {e:.3e}" for k, (e, _) in errs.items())
-                + "; two kernel runs bitwise equal; 1 launch")
-            check(all(ok for _, ok in errs.values()),
-                  f"{label} {name}: kernel and plain version disagree")
-            worst[counter] = max(worst[counter],
-                                 *(e for e, _ in errs.values()))
+            err = check_epoch_case(f"{label} {name}", kern, plain, st0,
+                                   counter)
+            worst[counter] = max(worst[counter], err)
             if prob is wide and name in ("sgd hinge/l2 batch 1",
                                          "dcd hinge"):
                 timed[counter] = (kern, plain, st0, order)
+        name, kern, plain, st0 = repeated_ids_case(prob, dev, 4)
+        worst["dcd_epoch"] = max(worst["dcd_epoch"], check_epoch_case(
+            f"{label} {name}", kern, plain, st0, "dcd_epoch"))
+    cases, d_g = global_body_cases(dev)
+    for name, kern, plain, st0, batch in cases:
+        plan = ops.sgd_epoch_route(d_g, batch, **lim)
+        say_plan(name, "sgd", plan, batch)
+        check(not plan.staged, f"{name}: the plan is not the global body")
+        worst["sgd_epoch"] = max(worst["sgd_epoch"], check_epoch_case(
+            name, kern, plain, st0, "sgd_epoch"))
+    del cases
+    torch.cuda.empty_cache()
     rows = {}
     for counter, (kern, plain, st0, order) in timed.items():
         st, pst = ({k: v.clone() for k, v in st0.items()} for _ in range(2))
         ms = cuda_ms(lambda: kern(st), 3, warm=1)
         dev_ms, _ = device_ms_per_call(lambda: kern(st), 2)
+        ev_ms = spin_ms(lambda: kern(st), 3)
         plain_ms = cuda_ms(lambda: plain(pst), 1, warm=0)
         if counter == "sgd_epoch":
             bound_ms, by = sgd_bound(wide.X, order)
@@ -1412,15 +1556,16 @@ def phase_baseline_kernels(dev, full):
             bound_ms, by = dcd_bound(wide.X, order.numel(),
                                      int((st["beta"] != b0).sum()))
         n = order.numel()
-        dev_txt = f"device {dev_ms:.4f} ms (profiler)" if dev_ms else \
-            "device ms not measured (the trace held no kernel record)"
+        prof = f"{dev_ms:.4f} ms (profiler)" if dev_ms else \
+            "not measured by the profiler (the trace held no kernel record)"
         say("3b", f"{counter} at m {BASE_WIDE_M} x d {wide.d}: {ms:.4f} ms "
-                  f"per epoch ({ms * 1e6 / n:.1f} ns per step), {dev_txt}; "
+                  f"per epoch ({ms * 1e6 / n:.1f} ns per step); device "
+                  f"{ev_ms:.4f} ms (CUDA events behind a spin), {prof}; "
                   f"plain version on the card {plain_ms:.4f} ms; bound "
                   f"{bound_ms:.4f} ms ({by})")
         rows[counter] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=by, device_ms=dev_ms)
-    # one epoch of each kernel at real-sim's full size
+                             bound_by=by, device_ms=dev_ms or ev_ms)
+    # real-sim's full size: bit for bit, then the A/B
     gen = torch.Generator().manual_seed(5)
     m, d = full.m, full.d
     z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
@@ -1430,31 +1575,85 @@ def phase_baseline_kernels(dev, full):
     prows = shard_rows(torch.stack([torch.randperm(mb, generator=gen)
                                     for _ in range(P)]).to(dev), m, 1)
     xn = _row_norms2(full.X)
-    beta = z(m)
+    big = f"real-sim's full size m {m} x d {d}"
+    say_plan(big, "sgd", ops.sgd_epoch_route(d, 1, **lim))
+    say_plan(big, "dcd", ops.dcd_epoch_route(d, **lim))
+    sgd_st = lambda q: dict(w=z(q, d), acc=z(q, d))  # noqa: E731
     full_cases = (
-        ("sgd_epoch", "sgd, 1 block", order.reshape(1, m),
-         lambda: ops.sgd_epoch(full.X, full.y, order.reshape(1, m), z(1, d),
-                               z(1, d), BASE_ETA0, SEC5_LAM,
-                               loss_name="hinge", reg_name="l2")),
-        ("sgd_epoch", f"psgd, {P} blocks", prows,
-         lambda: ops.sgd_epoch(full.X, full.y, prows, z(P, d), z(P, d),
-                               BASE_ETA0, SEC5_LAM, loss_name="hinge",
-                               reg_name="l2")),
-        ("dcd_epoch", "dcd, 1 block", order,
-         lambda: ops.dcd_epoch(full.X, full.y, order, z(d), beta.zero_(),
-                               SEC5_LAM, xn)))
-    for counter, label, o, fn in full_cases:
-        ms = cuda_ms(fn, 1, warm=1)
+        ("sgd_epoch", "sgd", order.reshape(1, m), sgd_st(1)),
+        ("sgd_epoch", f"psgd, {P} workers", prows, sgd_st(P)),
+        ("dcd_epoch", "dcd", order, dict(w=z(d), beta=z(m))))
+    for counter, label, o, st0 in full_cases:
         if counter == "sgd_epoch":
-            bound_ms, by = sgd_bound(full.X, o)
+            kern = lambda st, o=o: ops.sgd_epoch(  # noqa: E731
+                full.X, full.y, o, st["w"], st["acc"], BASE_ETA0, SEC5_LAM,
+                loss_name="hinge", reg_name="l2")
+            plain = lambda st, o=o: kb.sgd_epoch_plain(  # noqa: E731
+                full.X, full.y, o, st["w"], st["acc"], BASE_ETA0, SEC5_LAM,
+                "hinge", "l2", 1)
         else:
-            bound_ms, by = dcd_bound(full.X, m, int((beta != 0).sum()))
-        steps = o.shape[-1]
-        say("3b", f"{counter} ({label}) at real-sim's full size m {m} x d "
-                  f"{d} (X {4 * m * d / 1e9:.2f} GB on the card): {ms:.3f} "
-                  f"ms per epoch, {ms * 1e6 / steps:.1f} ns per step; bound "
-                  f"{bound_ms:.4f} ms ({by}; X read once: 4 m d / 3.35 TB/s "
-                  f"= {4 * m * d / HBM_BYTES_S * 1e3:.4f} ms)")
+            kern = lambda st: ops.dcd_epoch(  # noqa: E731
+                full.X, full.y, order, st["w"], st["beta"], SEC5_LAM, xn)
+            plain = lambda st: kb.dcd_epoch_plain(  # noqa: E731
+                full.X, full.y, order, st["w"], st["beta"], SEC5_LAM, xn)
+        worst[counter] = max(worst[counter], check_epoch_case(
+            f"{big} {label}", kern, plain, st0, counter))
+    # A/B: the cluster kernels (the plan, then each cluster size) against
+    # the one-block kernels, in turns; launched directly, uncounted
+    out = z(16 * P)
+
+    def sgd_new(o, q, plan):
+        return lambda: kb.launch_sgd_epoch(
+            full.X, full.y, o, z(q, d), z(q, d), BASE_ETA0, SEC5_LAM,
+            "hinge", "l2", 1, plan=plan)
+
+    def sgd_old(o, q):
+        return lambda: kb.launch_sgd_epoch_one_block(
+            full.X, full.y, o, z(q, d), z(q, d), BASE_ETA0, SEC5_LAM,
+            "hinge", "l2", 1)
+
+    beta = z(m)
+
+    def dcd_new(plan):
+        return lambda: kb.launch_dcd_epoch(full.X, full.y, order, z(d),
+                                           beta.zero_(), SEC5_LAM, xn,
+                                           plan=plan)
+
+    def dcd_old():
+        return lambda: kb.launch_dcd_epoch_one_block(
+            full.X, full.y, order, z(d), beta.zero_(), SEC5_LAM, xn)
+
+    ab = {}
+    for label, new, old, steps in (
+            ("sgd", lambda p_: sgd_new(order.reshape(1, m), 1, p_),
+             sgd_old(order.reshape(1, m), 1), m),
+            (f"psgd, {P} workers", lambda p_: sgd_new(prows, P, p_),
+             sgd_old(prows, P), prows.shape[1]),
+            ("dcd", dcd_new, dcd_old(), m)):
+        kind = "dcd" if label == "dcd" else "sgd"
+        plan = kb.epoch_plan(kind, d, 1, **lim)
+        turns = [spin_ms(f, 1) for f in (new(plan), old, old, new(plan))]
+        t_new, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        ab[label] = (t_new, t_old)
+        say("3b", f"A/B {label} at {big}, in turns (new, old, old, new): "
+                  + ", ".join(f"{t:.3f}" for t in turns) + f" ms; cluster "
+                  f"plan ({plan.cluster} x {plan.width}) {t_new:.3f} ms "
+                  f"per epoch ({t_new * 1e6 / steps:.1f} ns per step), one "
+                  f"block {t_old:.3f} ms ({t_old * 1e6 / steps:.1f}): "
+                  f"{t_old / t_new:.2f}x")
+        for c in BASE_AB_CLUSTERS:
+            pc = kb.epoch_plan(kind, d, 1, cluster=c, **lim)
+            t = spin_ms(new(pc), 1)
+            say("3b", f"A/B {label}: cluster {c} x width {pc.width} "
+                      f"{t:.3f} ms per epoch ({t * 1e6 / steps:.1f} ns per "
+                      f"step)")
+    for c in BASE_AB_CLUSTERS:
+        t = spin_ms(lambda: kb.launch_exchange_floor(c, 1, m, out), 1)
+        say("3b", f"exchange-only floor, cluster {c}: {t * 1e6 / m:.1f} ns "
+                  f"per step ({t:.3f} ms for real-sim's {m} steps)")
+    bound_ms, by = sgd_bound(full.X, order.reshape(1, m))
+    say("3b", f"bound at {big}: {bound_ms:.4f} ms ({by}; X read once: 4 m d "
+              f"/ 3.35 TB/s = {4 * m * d / HBM_BYTES_S * 1e3:.4f} ms)")
     return rows, worst
 
 

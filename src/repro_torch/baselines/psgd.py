@@ -8,7 +8,7 @@ Shards are ``pad_to_multiple(m, p) / p`` rows, the last ones padded with
 zero rows of label 0, as in the reference; the port does not copy X for
 that: each worker gets its rows' global ids, -1 for a padding row.  On
 the card an epoch of all p workers is ONE launch of the SGD kernel (p
-blocks, ``ops.sgd_epoch``).  A padding row still takes its step (the
+thread-block clusters, ``ops.sgd_epoch``).  A padding row still takes its step (the
 regularizer's gradient and the AdaGrad update move w).
 """
 

@@ -84,9 +84,20 @@ SIGNATURES = {
         [_P] * 4 + [_I] + [_P] * 7 + [_F] * 5 + [_I] * 3 + [_P],
     # csrc/baselines.cu
     "sgd_epoch":
-        [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+        [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+         _P],
     "dcd_epoch":
+        [_P, _L, _P, _P, _I, _P, _P, _P, _I, _F, _F, _F, _I, _I, _I, _P],
+    "sgd_epoch_one_block":
+        [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    "dcd_epoch_one_block":
         [_P, _L, _P, _P, _I, _P, _P, _P, _I, _F, _F, _F, _P],
+    "baselines_smem":
+        [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "baselines_max_cluster":
+        [ctypes.POINTER(_I)],
+    "baselines_exchange_floor":
+        [_I, _I, _I, _P, _P],
 }
 
 

@@ -50,10 +50,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
                                       launch per epoch; replaces no
                                       pallas_call)
     sgd_epoch.launches                an AdaGrad SGD epoch of every worker
-                                      (SGD: 1, PSGD: p blocks; one launch
-                                      per epoch; replaces no pallas_call)
-    dcd_epoch.launches                a DCD epoch (one launch per epoch;
+                                      (SGD: 1, PSGD: p thread-block
+                                      clusters; one launch per epoch;
                                       replaces no pallas_call)
+    dcd_epoch.launches                a DCD epoch (one cluster, one launch
+                                      per epoch; replaces no pallas_call)
 
 A sparse block step makes one folded launch per row tile, so one inner
 iteration of the epoch is ``row_batches`` launches for all p processors
@@ -778,14 +779,48 @@ def _check_rows_x(X, y):
     _expect("y", y, torch.float32, (X.shape[0],))
 
 
+def sgd_epoch_route(d: int, batch: int = 1, *, smem_limit: int,
+                    max_cluster: int) -> _baselines.EpochPlan:
+    """The plan of an SGD epoch kernel over d columns at ``batch`` rows a
+    step on a card whose blocks may take ``smem_limit`` bytes of shared
+    memory and whose largest cluster is ``max_cluster`` blocks: the
+    cluster's blocks, the slice width and staged or global
+    (``baselines.epoch_plan``).  Raises ``ValueError`` when none fits."""
+    return _baselines.epoch_plan("sgd", d, batch, smem_limit=smem_limit,
+                                 max_cluster=max_cluster)
+
+
+def dcd_epoch_route(d: int, *, smem_limit: int,
+                    max_cluster: int) -> _baselines.EpochPlan:
+    """The plan of a DCD epoch kernel over d columns, as
+    ``sgd_epoch_route``'s."""
+    return _baselines.epoch_plan("dcd", d, 1, smem_limit=smem_limit,
+                                 max_cluster=max_cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster(device) -> int:
+    """The largest cluster of the baselines' epoch kernels the card
+    ``device`` can hold (``baselines.max_cluster``), read once per
+    device."""
+    with torch.cuda.device(device):
+        return _baselines.max_cluster()
+
+
+def _card_limits(t) -> dict:
+    return dict(smem_limit=shared_memory_limit(t.device),
+                max_cluster=max_cluster(t.device))
+
+
 def sgd_epoch(X, y, rows, w, acc, eta0: float, lam: float, *,
               loss_name: str, reg_name: str, batch: int = 1):
     """One AdaGrad SGD epoch (the reference's ``_sgd_epoch``) for each of
     n workers, in place on ``w`` and ``acc`` (n, d): worker q visits the
     rows ``rows[q]`` ((n, nsteps * batch) int32; -1 a padding row with x
     and y 0) of X (m, d) in steps of ``batch``.  On the card one launch of
-    ``csrc/baselines.cu`` (one block per worker); the row ids are not
-    checked there, so they must lie in -1 .. m-1."""
+    ``csrc/baselines.cu`` (a thread-block cluster per worker, as
+    ``sgd_epoch_route`` plans it); the row ids are not checked there, so
+    they must lie in -1 .. m-1."""
     _check_rows_x(X, y)
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
@@ -804,7 +839,10 @@ def sgd_epoch(X, y, rows, w, acc, eta0: float, lam: float, *,
     if not _route(X, y, rows, w, acc):
         _baselines.sgd_epoch_plain(*args)
         return
-    _baselines.launch_sgd_epoch(*args)
+    if X.shape[1] == 0 or rows.shape[0] == 0:
+        return
+    plan = sgd_epoch_route(X.shape[1], int(batch), **_card_limits(w))
+    _baselines.launch_sgd_epoch(*args, plan=plan)
     sgd_epoch.launches += 1
 
 
@@ -814,10 +852,11 @@ sgd_epoch.launches = 0
 def dcd_epoch(X, y, perm, w, beta, lam: float, xnorm2):
     """One hinge-loss dual coordinate descent epoch (the reference's
     ``_dcd_epoch``), in place on ``w`` (d,) and ``beta`` (m,): the rows
-    ``perm`` ((n,) int32) of X (m, d) in turn; ``xnorm2`` (m,) holds each
-    row's squared norm.  On the card one launch of ``csrc/baselines.cu``
-    (one block); the row ids are not checked there, so they must lie in
-    0 .. m-1."""
+    ``perm`` ((n,) int32; ids may repeat) of X (m, d) in turn; ``xnorm2``
+    (m,) holds each row's squared norm.  On the card one launch of
+    ``csrc/baselines.cu`` (one thread-block cluster, as
+    ``dcd_epoch_route`` plans it); the row ids are not checked there, so
+    they must lie in 0 .. m-1."""
     _check_rows_x(X, y)
     m, d = X.shape
     if perm.dim() != 1:
@@ -830,7 +869,10 @@ def dcd_epoch(X, y, perm, w, beta, lam: float, xnorm2):
     if not _route(X, y, perm, w, beta, xnorm2):
         _baselines.dcd_epoch_plain(*args)
         return
-    _baselines.launch_dcd_epoch(*args)
+    if d == 0:
+        return
+    plan = dcd_epoch_route(d, **_card_limits(w))
+    _baselines.launch_dcd_epoch(*args, plan=plan)
     dcd_epoch.launches += 1
 
 

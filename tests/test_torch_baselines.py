@@ -15,6 +15,8 @@ Both examples run on the CPU; ``svm_vs_baselines`` prints the reference's
 numbers within 1e-5 at a small size.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,7 @@ LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
 TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPE = dict(m=400, d=150, density=0.1, lam=1e-3, seed=1)
+H100_SMEM = 232_448          # an H100's opt-in shared memory per block
 
 
 def _pair(loss="hinge", reg="l2", **over):
@@ -223,15 +226,53 @@ def test_launchers_raise_on_an_error_from_their_entry(monkeypatch, entry):
     monkeypatch.setattr(kb, "_stream", lambda t: 0)
     _, tp = _pair()
     perm = torch.arange(tp.m, dtype=torch.int32)
+    plan = kb.epoch_plan(entry[:3], tp.d, smem_limit=H100_SMEM,
+                         max_cluster=16)
     with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed "
                                            f"with cudaError 701"):
         if entry == "sgd_epoch":
             kb.launch_sgd_epoch(tp.X, tp.y, perm.reshape(1, -1),
                                 torch.zeros(1, tp.d), torch.zeros(1, tp.d),
-                                0.3, 1e-3, "logistic", "l1", 1)
+                                0.3, 1e-3, "logistic", "l1", 1, plan=plan)
         else:
             kb.launch_dcd_epoch(tp.X, tp.y, perm, torch.zeros(tp.d),
-                                torch.zeros(tp.m), 1e-3, torch.ones(tp.m))
+                                torch.zeros(tp.m), 1e-3, torch.ones(tp.m),
+                                plan=plan)
+    [(name, args)] = failing.calls
+    assert name == entry and len(args) == len(build.SIGNATURES[entry])
+    # the plan's cluster, width and staged go to the entry as they are
+    assert args[-4:-1] == (plan.cluster, plan.width, int(plan.staged))
+
+
+@pytest.mark.parametrize("entry", ["sgd_epoch_one_block",
+                                   "dcd_epoch_one_block",
+                                   "baselines_exchange_floor",
+                                   "baselines_smem", "baselines_max_cluster"])
+def test_one_block_and_helper_entries_raise_on_an_error(monkeypatch, entry):
+    """The one-block kernels (the A/B's baseline), the exchange-only
+    floor and the plan's two queries raise on a refused call too, with as
+    many arguments as their signatures."""
+    from repro_torch.kernels import baselines as kb
+    from repro_torch.kernels import build
+    failing = _FailingLibrary()
+    monkeypatch.setattr(kb, "library", lambda: failing)
+    monkeypatch.setattr(kb, "_stream", lambda t: 0)
+    _, tp = _pair()
+    perm = torch.arange(tp.m, dtype=torch.int32)
+    calls = {
+        "sgd_epoch_one_block": lambda: kb.launch_sgd_epoch_one_block(
+            tp.X, tp.y, perm.reshape(1, -1), torch.zeros(1, tp.d),
+            torch.zeros(1, tp.d), 0.3, 1e-3, "hinge", "l2", 1),
+        "dcd_epoch_one_block": lambda: kb.launch_dcd_epoch_one_block(
+            tp.X, tp.y, perm, torch.zeros(tp.d), torch.zeros(tp.m), 1e-3,
+            torch.ones(tp.m)),
+        "baselines_exchange_floor": lambda: kb.launch_exchange_floor(
+            16, 1, 100, torch.zeros(16)),
+        "baselines_smem": lambda: kb.kernel_smem("sgd", 1, 1310, True),
+        "baselines_max_cluster": kb.max_cluster}
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed "
+                                           f"with cudaError 701"):
+        calls[entry]()
     [(name, args)] = failing.calls
     assert name == entry and len(args) == len(build.SIGNATURES[entry])
 
@@ -257,6 +298,193 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
     assert all(torch.equal(x, z) for x, z in zip(a, b))
     assert ops.launch_counts() == before     # the plain path launches none
     assert {"sgd_epoch", "dcd_epoch"} <= set(before)
+
+
+# ---------------------------------------------- the kernels' cluster plan --
+
+
+@pytest.mark.parametrize("kind", ["sgd", "dcd"])
+@pytest.mark.parametrize("d,batch", [(1, 1), (150, 1), (150, 8), (1023, 1),
+                                     (1025, 1), (4096, 1), (20958, 1),
+                                     (20958, 8), (20959, 1), (600_000, 1),
+                                     (20958, 64)])
+def test_epoch_plan_tiles_d(kind, d, batch):
+    """The slices tile [0, d) in order with even starts and none empty,
+    each block's shared memory fits the limit, C <= 16; C is 1 at the
+    reference tests' d 150; past the staged limit the global body."""
+    from repro_torch.kernels import baselines as kb
+    plan = kb.epoch_plan(kind, d, batch, smem_limit=H100_SMEM,
+                         max_cluster=16)
+    c, width = plan.cluster, plan.width
+    assert 1 <= c <= kb.MAX_CLUSTER and width % 2 == 0
+    starts = [r * width for r in range(c)]
+    ends = [min(d, s + width) for s in starts]
+    assert starts[0] == 0 and ends[-1] == d
+    assert all(e > s for s, e in zip(starts, ends))          # none empty
+    assert all(e == s2 for e, s2 in zip(ends, starts[1:]))   # in order
+    assert plan.smem == kb.epoch_smem(kind, batch, width, plan.staged)
+    assert plan.smem <= H100_SMEM
+    b = 1 if kind == "dcd" else batch
+    fits = kb.epoch_smem(kind, b, kb.slice_width(d, 16), True) <= H100_SMEM
+    assert plan.staged == fits
+    if d <= kb.MIN_WIDTH:
+        assert c == 1
+    if d == 20958 and plan.staged:
+        assert c == 16 and width == 1310
+    route = (ops.sgd_epoch_route(d, batch, smem_limit=H100_SMEM,
+                                 max_cluster=16) if kind == "sgd" else
+             ops.dcd_epoch_route(d, smem_limit=H100_SMEM, max_cluster=16))
+    assert route == plan
+
+
+def test_epoch_plan_reads_the_card_limits_and_raises():
+    from repro_torch.kernels import baselines as kb
+    assert kb.epoch_plan("sgd", 150, smem_limit=H100_SMEM,
+                         max_cluster=16).staged
+    assert not kb.epoch_plan("sgd", 20958, smem_limit=30_000,
+                             max_cluster=16).staged
+    # a card that holds clusters of at most 8: the slices widen
+    plan = kb.epoch_plan("sgd", 20958, smem_limit=H100_SMEM, max_cluster=8)
+    assert plan.cluster == 8 and plan.width == 2620 and plan.staged
+    # the A/B's override
+    plan = kb.epoch_plan("dcd", 20958, smem_limit=H100_SMEM, max_cluster=16,
+                         cluster=4)
+    assert (plan.cluster, plan.width, plan.staged) == (4, 5240, True)
+    with pytest.raises(ValueError, match="cluster"):
+        kb.epoch_plan("sgd", 20958, smem_limit=H100_SMEM, max_cluster=0)
+    with pytest.raises(ValueError, match="cluster 32"):
+        kb.epoch_plan("sgd", 20958, smem_limit=H100_SMEM, max_cluster=16,
+                      cluster=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        kb.epoch_plan("sgd", 20958, 4096, smem_limit=H100_SMEM,
+                      max_cluster=16)
+    with pytest.raises(ValueError, match="kind"):
+        kb.epoch_plan("bmrm", 20958, smem_limit=H100_SMEM, max_cluster=16)
+
+
+def _sliced_margins(Xb, w, plan):
+    """Each margin as the cluster kernels sum it: float64 partial sums
+    over each block's slice of the columns, then over the ranks in order,
+    rounded once to float32.  Xb (..., batch, d) float64, w (..., d)."""
+    parts = [(Xb[..., r * plan.width:(r + 1) * plan.width]
+              * w[..., None, r * plan.width:(r + 1) * plan.width].double()
+              ).sum(-1) for r in range(plan.cluster)]
+    u = torch.zeros_like(parts[0])
+    for p in parts:
+        u = u + p
+    return u.float()
+
+
+def _sgd_epoch_sliced(X, y, rows, w, acc, eta0, lam, loss_name, reg_name,
+                      batch, plan):
+    """``sgd_epoch_plain`` with its margins summed in the plan's order."""
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.regularizers import get_regularizer
+    loss, reg = get_loss(loss_name), get_regularizer(reg_name)
+    valid, safe = rows >= 0, rows.clamp(min=0).long()
+    for s in range(rows.shape[1] // batch):
+        cut = slice(s * batch, (s + 1) * batch)
+        ok = valid[:, cut]
+        Xb = torch.where(ok[..., None], X[safe[:, cut]], 0.0).double()
+        yb = torch.where(ok, y[safe[:, cut]], 0.0)
+        u = _sliced_margins(Xb, w, plan)
+        lg = loss.grad(u.double(), yb.double())
+        xs = torch.bmm(Xb.transpose(1, 2), lg.float().double()[..., None])
+        g = lam * reg.grad(w) + xs[..., 0].float() / batch
+        acc.add_(g * g)
+        w.sub_(eta0 * g * torch.sqrt(acc + 1e-8).reciprocal())
+
+
+def _dcd_epoch_sliced(X, y, perm, w, beta, lam, xnorm2, plan):
+    """``dcd_epoch_plain`` with its margins summed in the plan's order."""
+    from repro_torch.kernels import baselines as kb
+    lam32, m32, scale = kb.dcd_scalars(lam, X.shape[0])
+    for i in perm.tolist():
+        xi, yi = X[i], y[i]
+        dot = _sliced_margins(xi.double()[None], w, plan)[0]
+        g = 1.0 - yi * dot
+        step = g * 2.0 * lam32 * m32 / torch.clamp(xnorm2[i], min=1e-12)
+        b_old = beta[i].clone()
+        b_new = torch.clamp(b_old + step, 0.0, 1.0)
+        w.add_((b_new - b_old) * yi * scale * xi)
+        beta[i] = b_new
+
+
+_WIDE = dict(m=256, d=20958, density=0.05, lam=1e-3, seed=3)
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_order_problem(wide):
+    kw = _WIDE if wide else SHAPE
+    return tsyn.make_classification(**kw, loss="hinge", device="cpu")
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["d150", "d20958"])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_sgd_epoch_in_the_cluster_sum_order_equals_plain(loss, reg, batch,
+                                                         wide):
+    """An SGD epoch whose margins are summed as the kernel's plan sums
+    them ends bitwise equal to ``sgd_epoch_plain``'s."""
+    from repro_torch.kernels import baselines as kb
+    tp = _sum_order_problem(wide)
+    plan = kb.epoch_plan("sgd", tp.d, batch, smem_limit=H100_SMEM,
+                         max_cluster=16)
+    assert plan.cluster == (16 if wide else 1)
+    rng = np.random.default_rng(batch)
+    n = tp.m // batch * batch
+    rows = torch.as_tensor(rng.permutation(tp.m)[:n].astype(np.int32))
+    w0 = torch.as_tensor(rng.normal(0, 0.05, (1, tp.d)).astype(np.float32))
+    a0 = torch.as_tensor(np.abs(rng.normal(0, 0.01, (1, tp.d)))
+                         .astype(np.float32))
+    got = [w0.clone(), a0.clone()]
+    want = [w0.clone(), a0.clone()]
+    args = (0.3, tp.lam, loss, reg, batch)
+    _sgd_epoch_sliced(tp.X, tp.y, rows[None], *got, *args, plan)
+    kb.sgd_epoch_plain(tp.X, tp.y, rows[None], *want, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], w0)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["d150", "d20958"])
+def test_dcd_epoch_in_the_cluster_sum_order_equals_plain(wide):
+    from repro_torch.kernels import baselines as kb
+    tp = _sum_order_problem(wide)
+    plan = kb.epoch_plan("dcd", tp.d, smem_limit=H100_SMEM, max_cluster=16)
+    rng = np.random.default_rng(5)
+    perm = torch.as_tensor(rng.permutation(tp.m).astype(np.int32))
+    w0 = torch.as_tensor(rng.normal(0, 0.05, tp.d).astype(np.float32))
+    b0 = torch.as_tensor(rng.uniform(0, 1, tp.m).astype(np.float32))
+    xn = tdcd._row_norms2(tp.X)
+    got, want = [w0.clone(), b0.clone()], [w0.clone(), b0.clone()]
+    _dcd_epoch_sliced(tp.X, tp.y, perm, *got, tp.lam, xn, plan)
+    kb.dcd_epoch_plain(tp.X, tp.y, perm, *want, tp.lam, xn)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[1], b0)
+
+
+def test_dcd_epoch_with_repeated_ids_matches_reference():
+    """``ops.dcd_epoch`` takes any perm: ids that come back, at once and
+    later, step on the beta their last visit wrote, as the reference's
+    scan does."""
+    from repro_torch.kernels import baselines as kb
+    jp, tp = _pair()
+    rng = np.random.default_rng(9)
+    perm = rng.integers(0, jp.m, jp.m).astype(np.int32)  # the scan's m
+    perm[1::7] = perm[0::7][:len(perm[1::7])]          # back at once
+    assert (perm[1:] == perm[:-1]).any()
+    w_j, beta_j = jnp.zeros(jp.d, jnp.float32), jnp.zeros(jp.m, jnp.float32)
+    w_t, beta_t = torch.zeros(tp.d), torch.zeros(tp.m)
+    xn_j = jnp.sum(jp.X * jp.X, axis=1)
+    xn_t = tdcd._row_norms2(tp.X)
+    for _ in range(2):
+        w_j, beta_j = jdcd._dcd_epoch(jp.X, jp.y, jnp.asarray(perm), w_j,
+                                      beta_j, jnp.float32(jp.lam), xn_j,
+                                      m=jp.m)
+        kb.dcd_epoch_plain(tp.X, tp.y, torch.as_tensor(perm), w_t, beta_t,
+                           tp.lam, xn_t)
+        _close(w_t.numpy(), w_j)
+        _close(beta_t.numpy(), beta_j)
 
 
 # --------------------------------------------------------- the runners --
