@@ -1144,18 +1144,178 @@ def phase_ingest(phase, dev, ctx, cfg, obs=False):
 
 SERIAL_SHAPE = dict(m=2000, d=500, density=0.05)   # ~50 K nonzeros
 SERIAL_EPOCHS = 3
+#: the plans phase 3s times beside the route's: (threads, slots, cluster,
+#: staged) at its own shape, and (threads, slots, cluster) at real-sim's
+SERIAL_SWEEP = ((1024, 1, 1, True), (1024, 2, 1, True), (1024, 4, 1, True),
+                (512, 4, 1, True), (512, 8, 1, True), (256, 16, 1, True),
+                (1024, 1, 4, False), (1024, 1, 16, False))
+SERIAL_SWEEP_GLOBAL = ((1024, 2, 1), (1024, 2, 4), (1024, 2, 8),
+                       (1024, 1, 16), (1024, 2, 16), (1024, 4, 16),
+                       (512, 2, 16))
+#: the pairs (with AdaGrad) held bit for bit at real-sim's full size
+SERIAL_REALSIM_PAIRS = (("hinge", "l2"), ("logistic", "l1"))
+SERIAL_CHAIN = 10_000         # chained Eq.-8 steps of the latency kernel
+#: steps on one coordinate, one round each: past the 65,536 rounds after
+#: which the kernel's 16-bit round stamp wraps and its tags are cleared
+SERIAL_WRAP_STEPS = 70_000
+
+
+def serial_state(m, d, loss, lo, hi, seed, dev):
+    """A mid-run serial state (w, alpha, gw, ga) drawn with numpy: w in
+    its box, alpha projected, AdaGrad sums in [0, 1)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import get_loss
+    rng = np.random.default_rng(seed)
+    w = np.clip(rng.uniform(-0.5, 0.5, d), lo, hi).astype(np.float32)
+    a = torch.tensor(rng.uniform(-1, 1, m).astype(np.float32))
+    return [torch.tensor(w, device=dev),
+            a.to(dev), torch.tensor(rng.uniform(0, 1, d).astype(np.float32),
+                                    device=dev),
+            torch.tensor(rng.uniform(0, 1, m).astype(np.float32),
+                         device=dev)], get_loss(loss)
+
+
+def serial_case(coords, y, rn, cn, order, scal, pair, ada, seed, plan,
+                plain=True):
+    """One epoch from a seeded mid-run state by the rounds kernel (``plan``,
+    its rounds read back), the one-thread kernel and, when ``plain``, the
+    plain version on a CPU copy (on the card its ``torch.rsqrt`` is not
+    the correctly rounded 1 / sqrt the kernels and the CPU take): (rounds,
+    max|d| to the one-thread kernel, max|d| to the plain version or None,
+    all bitwise equal)."""
+    import torch
+    from repro_torch.kernels import dso_serial
+    loss, reg = pair
+    dev = y.device
+    st, lf = serial_state(y.numel(), cn.numel(), loss, scal[3], scal[4],
+                          seed, dev)
+    st[1] = lf.project_alpha(st[1], y)
+    runs = [[t.clone() for t in st] for _ in range(2)]
+    rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+    rest = (y, rn, cn, scal, loss, reg, ada)
+    dso_serial.launch_serial_epoch(*coords, order, *runs[0], *rest,
+                                   plan=plan, rounds=rounds)
+    dso_serial.launch_serial_epoch_one_thread(*coords, order, *runs[1],
+                                              *rest)
+    torch.cuda.synchronize()
+    new = [t.cpu() for t in runs[0]]
+    outs = [[t.cpu() for t in runs[1]]]
+    if plain:
+        cpu = [t.cpu() for t in st]
+        dso_serial.serial_epoch_plain(
+            *(t.cpu() for t in (*coords, order)), *cpu, y.cpu(), rn.cpu(),
+            cn.cpu(), scal, loss, reg, ada)
+        outs.append(cpu)
+    diffs = [max(float((a - b).abs().max()) if a.numel() else 0.0
+                 for a, b in zip(new, out)) for out in outs]
+    same = all(torch.equal(a, b) for out in outs for a, b in zip(new, out))
+    return (int(rounds.item()), diffs[0], diffs[1] if plain else None,
+            same)
+
+
+def serial_times(label, coords, y, rn, cn, order, scal, plan, sweep_plans,
+                 reps):
+    """Phase 3s's A/B at one size (hinge/l2, AdaGrad): the rounds kernel
+    on ``plan`` and the one-thread kernel in turns (new, old, old, new),
+    ms per epoch by CUDA events behind a spin; the profiler's device ms of
+    the rounds kernel; then each plan of ``sweep_plans``.  Returns
+    (new ms, one-thread ms, device ms or None)."""
+    import torch
+    from repro_torch.kernels import dso_serial
+    st = [torch.zeros(cn.numel(), device=y.device),
+          torch.zeros(y.numel(), device=y.device),
+          torch.zeros(cn.numel(), device=y.device),
+          torch.zeros(y.numel(), device=y.device)]
+    args = (*coords, order, *st, y, rn, cn, scal, "hinge", "l2", True)
+
+    def new(p_):
+        return lambda: dso_serial.launch_serial_epoch(*args, plan=p_)
+
+    def old():
+        dso_serial.launch_serial_epoch_one_thread(*args)
+
+    turns = [spin_ms(f, n) for f, n in ((new(plan), reps[0]), (old, reps[1]),
+                                        (old, reps[1]), (new(plan), reps[0]))]
+    t_new, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    dev_ms, _ = device_ms_per_call(new(plan), 3)
+    prof = f"{dev_ms:.4f} ms (profiler)" if dev_ms else \
+        "not measured by the profiler (the trace held no kernel record)"
+    nnz = order.numel()
+    say("3s", f"A/B at {label}, in turns (new, old, old, new): "
+              + ", ".join(f"{t:.4f}" for t in turns) + f" ms; rounds "
+              f"kernel ({say_serial_plan(plan)}) {t_new:.4f} ms "
+              f"per epoch ({t_new * 1e6 / nnz:.2f} ns per nonzero), device "
+              f"{prof}; one thread {t_old:.4f} ms ({t_old * 1e6 / nnz:.1f} "
+              f"ns per nonzero): {t_old / t_new:.1f}x")
+    for p_ in sweep_plans:
+        t = spin_ms(new(p_), reps[0])
+        say("3s", f"sweep at {label}: {say_serial_plan(p_)}: {t:.4f} ms "
+                  f"per epoch")
+    return t_new, t_old, dev_ms or None
+
+
+def say_serial_plan(plan):
+    return (f"window {plan.window} = {plan.slots} x {plan.threads} threads "
+            f"x {plan.cluster} blocks, "
+            f"{'staged' if plan.staged else 'global'}, {plan.smem} B shared "
+            f"per block")
+
+
+def step_latency_ms(scal, pair):
+    """ms of one Eq.-8 step (AdaGrad) on one thread, its operands in
+    registers: ``SERIAL_CHAIN`` chained steps by CUDA events behind a
+    spin."""
+    import torch
+    from repro_torch.kernels import dso_serial
+    out = torch.tensor([0.01, 0.5, 0.25, 0.25], device="cuda")
+    return spin_ms(lambda: dso_serial.launch_step_latency(
+        SERIAL_CHAIN, (0.3, 1.0, 25.0, 100.0), scal, *pair, True, out),
+        3) / SERIAL_CHAIN
+
+
+def check_serial_plan(label, plan, m, d):
+    """Print a serial plan and hold its shared memory against the C
+    entry's own count."""
+    from repro_torch.kernels import dso_serial
+    got = dso_serial.kernel_smem(m, d, plan.slots, plan.threads,
+                                 plan.staged)
+    say("3s", f"plan at {label}: {say_serial_plan(plan)} (C entry: {got})")
+    check(got == plan.smem, f"{label}: the plan's shared memory "
+                            f"{plan.smem} != the kernel's {got}")
+
+
+def serial_coords(csr, dev):
+    """(ii, jj, vv) of a CSR and its row and column counts, on ``dev``."""
+    import numpy as np
+    import torch
+    rows = np.repeat(np.arange(csr.m, dtype=np.int32), np.diff(csr.indptr))
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rn = np.bincount(rows, minlength=csr.m).astype(np.float32)
+    cn = np.bincount(csr.indices, minlength=csr.d).astype(np.float32)
+    return (as_t(rows), as_t(csr.indices.astype(np.int32)),
+            as_t(csr.values)), as_t(rn), as_t(cn)
 
 
 def phase_serial(dev):
     """Phase 3s: ``solve_serial`` on the card, the serial epoch kernel
     once per epoch, against the plain version on a CPU copy with the same
-    visit orders (the same seed), for the six pairs x use_adagrad; then
-    the kernel's ms per epoch (CUDA events) beside the plain version's on
-    the card and its bound.  Returns the kernel table's row."""
+    visit orders (the same seed), for the six pairs x use_adagrad; then,
+    launched directly (uncounted), one epoch from a seeded mid-run state
+    by the rounds kernel, the one-thread kernel and the plain version,
+    ``torch.equal``, in the same 12 cases, and by the two kernels at
+    real-sim's full size (``realsim_csr``, never densified) for
+    ``SERIAL_REALSIM_PAIRS``, the rounds the kernel took against the CPU
+    model's (``serial_rounds``), and ``SERIAL_WRAP_STEPS`` steps on one
+    coordinate on both layouts (the round stamp wraps); then at both sizes the A/B in turns, the
+    plan sweep, the bytes bound and the dependency floor (waves x one
+    Eq.-8 step's latency).  Returns the kernel table's row."""
     import numpy as np
     import torch
+    from repro_torch.configs.dso_problems import ALL
     from repro_torch.data.synthetic import make_classification
     from repro_torch.engine import prob_meta, solve_serial
+    from repro_torch.engine.data import w_bounds
     from repro_torch.engine.driver import _coords
     from repro_torch.kernels import dso_serial, ops
     worst, launches = 0.0, 0
@@ -1190,45 +1350,161 @@ def phase_serial(dev):
                   and len(res.history) == len(ref.history),
                   f"{loss}/{reg} adagrad={ada}: the serial kernel "
                   f"disagrees with its plain version")
+    lim = dict(smem_limit=ops.shared_memory_limit(dev),
+               max_cluster=ops.serial_max_cluster(dev))
+    say("3s", f"card limits for the serial plans: {lim}")
+    gen = torch.Generator().manual_seed(0)
     prob = make_classification(**SERIAL_SHAPE, seed=21, device=dev)
-    ii, jj, vv = _coords(prob)
-    nnz, m, d = ii.numel(), prob.m, prob.d
-    order = torch.randperm(nnz, generator=torch.Generator().manual_seed(0))
-    order = order.to(device=dev, dtype=torch.int32)
+    coords = _coords(prob)
+    nnz, m, d = coords[0].numel(), prob.m, prob.d
+    order = torch.randperm(nnz, generator=gen).to(device=dev,
+                                                  dtype=torch.int32)
+    plan = ops.serial_epoch_route(m, d, nnz, **lim)
+    check_serial_plan(f"m {m}, d {d}, nnz {nnz}", plan, m, d)
+    check(plan.staged, f"the plan {plan} is not staged")
+    for k, (loss, reg) in enumerate(LOSS_REG_PAIRS):
+        for ada in (True, False):
+            kw = dict(SERIAL_SHAPE, loss=loss, reg=reg, seed=21)
+            p_ = make_classification(**kw, device=dev)
+            lam, m_f, _, _, _, lo, hi = prob_meta(p_)
+            c_ = _coords(p_)
+            o_ = torch.randperm(c_[0].numel(), generator=torch.Generator()
+                                .manual_seed(k)).to(dev, torch.int32)
+            want = max(dso_serial.serial_rounds(
+                c_[0][o_.long()].tolist(), c_[1][o_.long()].tolist(),
+                plan.window), default=-1) + 1
+            rounds, d_old, d_plain, same = serial_case(
+                c_, p_.y, p_.row_nnz, p_.col_nnz, o_,
+                (0.5, lam, m_f, lo, hi), (loss, reg), ada, 100 + k, plan)
+            say("3s", f"{loss}/{reg} adagrad={ada}: rounds kernel == one "
+                      f"thread == plain version (CPU copy): {same} (max|d| "
+                      f"{d_old:.3e}, {d_plain:.3e}); {rounds} rounds (CPU "
+                      f"model {want})")
+            check(same and rounds == want,
+                  f"{loss}/{reg} adagrad={ada}: the rounds kernel is not "
+                  f"bit for bit the one-thread kernel and the plain "
+                  f"version, or took {rounds} rounds, not {want}")
+    nw = SERIAL_WRAP_STEPS
+    one = (torch.zeros(nw, dtype=torch.int32, device=dev),
+           torch.zeros(nw, dtype=torch.int32, device=dev),
+           (torch.randn(nw, generator=gen) / 100).to(dev))
+    o_w = torch.randperm(nw, generator=gen).to(device=dev, dtype=torch.int32)
+    count = torch.full((1,), float(nw), device=dev)
+    for staged in (True, False):
+        p_w = dso_serial.serial_plan(1, 1, nw, **lim, staged=staged)
+        rounds, d_old, _, same = serial_case(
+            one, torch.ones(1, device=dev), count, count, o_w,
+            (0.5, 1e-3, 1.0, *w_bounds("hinge", 1e-3)), ("hinge", "l2"),
+            True, 300, p_w, plain=False)
+        say("3s", f"{nw} steps on one coordinate ({say_serial_plan(p_w)}): "
+                  f"rounds kernel == one thread: {same} (max|d| "
+                  f"{d_old:.3e}); {rounds} rounds")
+        check(same and rounds == nw,
+              f"{nw} steps on one coordinate, "
+              f"{'staged' if staged else 'global'}: the rounds kernel is "
+              f"not the one-thread kernel's bit for bit, or took {rounds} "
+              f"rounds, not {nw}")
+    rows_h = coords[0][order.long()].tolist()
+    cols_h = coords[1][order.long()].tolist()
+    waves = max(dso_serial.serial_waves(rows_h, cols_h, m, d)) + 1
+    model = max(dso_serial.serial_rounds(rows_h, cols_h, plan.window)) + 1
     lam, m_f, _, _, _, lo, hi = prob_meta(prob)
     scal = (0.5, lam, m_f, lo, hi)
-
-    def state():
-        return [torch.zeros(d, device=dev), torch.zeros(m, device=dev),
-                torch.zeros(d, device=dev), torch.zeros(m, device=dev)]
-
-    st = state()
+    sweep = [dso_serial.serial_plan(m, d, nnz, **lim, threads=t, slots=s_,
+                                    cluster=c, staged=sg)
+             for t, s_, c, sg in SERIAL_SWEEP if c <= lim["max_cluster"]]
+    t_new, t_old, dev_ms = serial_times(
+        f"m {m}, d {d}, nnz {nnz}", coords, prob.y, prob.row_nnz,
+        prob.col_nnz, order, scal, plan, sweep, (20, 3))
+    st = [torch.zeros(d, device=dev), torch.zeros(m, device=dev),
+          torch.zeros(d, device=dev), torch.zeros(m, device=dev)]
     args = (prob.y, prob.row_nnz, prob.col_nnz, scal)
     kw = dict(loss_name="hinge", reg_name="l2", use_adagrad=True)
-    ms = cuda_ms(lambda: ops.dso_serial_epoch(ii, jj, vv, order, *st,
-                                              *args, **kw), 5, warm=1)
-    dev_ms, _ = device_ms_per_call(lambda: ops.dso_serial_epoch(
-        ii, jj, vv, order, *st, *args, **kw), 3)
-    pst = state()
+    ms = cuda_ms(lambda: ops.dso_serial_epoch(*coords, order, *st, *args,
+                                              **kw), 20, warm=2)
+    pst = [t.clone() for t in st]
     plain_ms = cuda_ms(lambda: dso_serial.serial_epoch_plain(
-        ii, jj, vv, order, *pst, *args[:3], scal, "hinge", "l2", True),
+        *coords, order, *pst, *args[:3], scal, "hinge", "l2", True),
         3, warm=1)
-    waves = len(set(dso_serial.serial_waves(
-        ii[order.long()].tolist(), jj[order.long()].tolist(), m, d)))
+    step_ms = {pair: step_latency_ms(scal, pair)
+               for pair in (("hinge", "l2"), ("logistic", "l1"))}
+    lat = step_ms["hinge", "l2"]
     nbytes = 16 * nnz + 24 * m + 20 * d
     bound_ms = nbytes / HBM_BYTES_S * 1e3
-    say("3s", f"serial_epoch_kernel at m {m}, d {d}, nnz {nnz} (hinge/l2, "
-              f"AdaGrad): {ms:.4f} ms per epoch ({ms * 1e6 / nnz:.1f} ns "
-              f"per nonzero, one thread), device {dev_ms:.4f} ms per epoch "
-              f"(profiler, 3 epochs); plain version on the card "
-              f"{plain_ms:.4f} ms ({waves} waves); bound {bound_ms:.2e} ms "
-              f"(bytes: {nbytes} B once); the dependency graph is "
-              f"{waves} steps deep")
+    floor_ms = waves * lat
+    say("3s", f"Eq.-8 step latency on one thread, operands in registers "
+              f"({SERIAL_CHAIN} chained): "
+              + ", ".join(f"{a}/{b} {v * 1e6:.1f} ns"
+                          for (a, b), v in step_ms.items()))
+    say("3s", f"rounds kernel at m {m}, d {d}, nnz {nnz} (hinge/l2, "
+              f"AdaGrad): {ms:.4f} ms per epoch through ops (CUDA events), "
+              f"{t_new:.4f} behind a spin; one-thread kernel {t_old:.4f} "
+              f"ms; plain version on the card {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.2e} ms (bytes: {nbytes} B once); dependency "
+              f"floor {floor_ms:.4f} ms ({waves} waves x {lat * 1e6:.1f} "
+              f"ns); {model} rounds in windows of {plan.window}")
+    # real-sim's full size: bit for bit against the one-thread kernel
+    cfg = ALL["svm-real-sim"]
+    csr, yv = realsim_csr(REALSIM_M, REALSIM_D, REALSIM_K, None, seed=4)
+    big, rn_b, cn_b = serial_coords(csr, dev)
+    y_b = torch.from_numpy(yv).to(dev)
+    nb, mb, db = csr.nnz, csr.m, csr.d
+    order_b = torch.randperm(nb, generator=gen).to(device=dev,
+                                                   dtype=torch.int32)
+    plan_b = ops.serial_epoch_route(mb, db, nb, **lim)
+    check_serial_plan(f"real-sim's full size m {mb}, d {db}, nnz {nb}",
+                      plan_b, mb, db)
+    check(not plan_b.staged, f"the plan at real-sim's size {plan_b} is "
+                             f"staged")
+    rows_h = big[0][order_b.long()].tolist()
+    cols_h = big[1][order_b.long()].tolist()
+    waves_b = max(dso_serial.serial_waves(rows_h, cols_h, mb, db)) + 1
+    model_b = max(dso_serial.serial_rounds(rows_h, cols_h,
+                                           plan_b.window)) + 1
+    del rows_h, cols_h
+    m_fb = float(np.float32(mb))
+    for k, (loss, reg) in enumerate(SERIAL_REALSIM_PAIRS):
+        lo_b, hi_b = w_bounds(loss, cfg.lam)
+        scal_b = (0.5, float(np.float32(cfg.lam)), m_fb, lo_b, hi_b)
+        rounds, d_old, _, same = serial_case(
+            big, y_b, rn_b, cn_b, order_b, scal_b, (loss, reg), True,
+            200 + k, plan_b, plain=False)
+        say("3s", f"real-sim's full size m {mb}, d {db}, nnz {nb}, "
+                  f"{loss}/{reg} AdaGrad: rounds kernel == one thread: "
+                  f"{same} (max|d| {d_old:.3e}); {rounds} rounds (CPU model "
+                  f"{model_b}; {waves_b} waves)")
+        check(same and rounds == model_b,
+              f"real-sim {loss}/{reg}: the rounds kernel is not bit for "
+              f"bit the one-thread kernel, or took {rounds} rounds, not "
+              f"{model_b}")
+    scal_b = (0.5, float(np.float32(cfg.lam)), m_fb,
+              *w_bounds("hinge", cfg.lam))
+    sweep_b = [dso_serial.serial_plan(mb, db, nb, **lim, threads=t,
+                                      slots=s_, cluster=c)
+               for t, s_, c in SERIAL_SWEEP_GLOBAL
+               if c <= lim["max_cluster"]]
+    tb_new, tb_old, devb_ms = serial_times(
+        f"real-sim's full size m {mb}, d {db}, nnz {nb}", big, y_b, rn_b,
+        cn_b, order_b, scal_b, plan_b, sweep_b, (5, 1))
+    lat_b = step_latency_ms(scal_b, ("hinge", "l2"))
+    nbytes_b = 16 * nb + 24 * mb + 20 * db
+    bound_b = nbytes_b / HBM_BYTES_S * 1e3
+    floor_b = waves_b * lat_b
+    say("3s", f"rounds kernel at real-sim's full size: {tb_new:.4f} ms per "
+              f"epoch; one-thread kernel {tb_old:.4f} ms; bound "
+              f"{bound_b:.4f} ms (bytes: {nbytes_b} B once); dependency "
+              f"floor {floor_b:.4f} ms ({waves_b} waves x "
+              f"{lat_b * 1e6:.1f} ns); {model_b} rounds in windows of "
+              f"{plan_b.window}")
     return dict(name="serial_epoch", route="cuda",
                 source="src/repro_torch/csrc/dso_serial.cu", replaces=None,
                 launches=launches, max_abs_err=worst, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, spin_ms=t_new,
+                one_thread_ms=t_old, dep_floor_ms=floor_ms, rounds=model,
+                realsim_ms=tb_new, realsim_device_ms=devb_ms,
+                realsim_one_thread_ms=tb_old, realsim_bound_ms=bound_b,
+                realsim_dep_floor_ms=floor_b, realsim_rounds=model_b)
 
 
 # --------------------------------------------- baselines (phases 3b, 10) --

@@ -81,7 +81,16 @@ SIGNATURES = {
         [_P] * 8 + [_I] * 7 + [_P],
     # csrc/dso_serial.cu
     "dso_serial_epoch":
+        [_P] * 4 + [_I] + [_P] * 7 + [_I, _I, _P, _L, _P] + [_F] * 5
+        + [_I] * 7 + [_P],
+    "dso_serial_epoch_one_thread":
         [_P] * 4 + [_I] + [_P] * 7 + [_F] * 5 + [_I] * 3 + [_P],
+    "dso_serial_smem":
+        [_I] * 5 + [ctypes.POINTER(_I)],
+    "dso_serial_max_cluster":
+        [_I, _I, ctypes.POINTER(_I)],
+    "dso_serial_step_latency":
+        [_I] + [_F] * 9 + [_I] * 3 + [_P, _P],
     # csrc/baselines.cu
     "sgd_epoch":
         [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _I,

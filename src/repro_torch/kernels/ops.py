@@ -738,8 +738,9 @@ def dso_serial_epoch(ii, jj, vv, order, w, alpha, gw, ga, y, row_nnz,
     ``w``, ``gw`` (d,) and ``alpha``, ``ga`` (m,): the nonzeros (ii, jj,
     vv) (nnz,) visited in ``order`` (nnz,), a permutation of 0..nnz-1,
     each taking the Eq.-8 step; ``scalars`` = (eta, lam, m, w_lo, w_hi).
-    On the card one launch of ``csrc/dso_serial.cu``; the indices are not
-    checked there, so they must lie in range."""
+    On the card one launch of ``csrc/dso_serial.cu``'s rounds kernel, as
+    ``serial_epoch_route`` plans it; the indices are not checked there, so
+    they must lie in range."""
     nnz, (m, d) = ii.numel(), (alpha.numel(), w.numel())
     for name, t, dtype, n in (("ii", ii, torch.int32, nnz),
                               ("jj", jj, torch.int32, nnz),
@@ -762,12 +763,34 @@ def dso_serial_epoch(ii, jj, vv, order, w, alpha, gw, ga, y, row_nnz,
         dso_serial.serial_epoch_plain(*args, scal, loss_name, reg_name,
                                       use_adagrad)
         return
+    plan = serial_epoch_route(m, d, nnz,
+                              smem_limit=shared_memory_limit(w.device),
+                              max_cluster=serial_max_cluster(w.device))
     dso_serial.launch_serial_epoch(*args, scal, loss_name, reg_name,
-                                   use_adagrad)
+                                   use_adagrad, plan=plan)
     dso_serial_epoch.launches += 1
 
 
 dso_serial_epoch.launches = 0
+
+
+def serial_epoch_route(m: int, d: int, nnz: int, *, smem_limit: int,
+                       max_cluster: int) -> dso_serial.SerialPlan:
+    """The plan of a serial epoch over nnz nonzeros of an (m, d) problem on
+    a card whose block may take ``smem_limit`` bytes of shared memory and
+    whose largest cluster of the global kernel is ``max_cluster``: the
+    window, the threads, the cluster and staged or global
+    (``dso_serial.serial_plan``).  Raises ``ValueError`` when none fits."""
+    return dso_serial.serial_plan(m, d, nnz, smem_limit=smem_limit,
+                                  max_cluster=max_cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def serial_max_cluster(device) -> int:
+    """The largest cluster of the global serial kernel the card ``device``
+    can hold (``dso_serial.max_cluster``), read once per device."""
+    with torch.cuda.device(device):
+        return dso_serial.max_cluster()
 
 # ------------------------------------------------------------- baselines --
 

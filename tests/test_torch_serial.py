@@ -7,9 +7,13 @@ sizes).
 ``repro.engine.solve_serial`` for the six (loss, reg) pairs x
 ``use_adagrad`` x ``alpha0`` {0, 0.3} at the reference's sizes (m 120,
 d 60); the plain serial epoch (one vectorised step per wave) equals the
-literal loop bit for bit; ``run_epoch`` equals one epoch of
-``run_epochs`` and ``solve(scan_epochs=False)`` equals ``scan_epochs=
-True``; ``run_dso_serial``, ``run_dso_grid`` (jnp / sparse / auto),
+literal loop bit for bit, and so does the plain step walked in the serial
+kernel's round schedule (``serial_rounds``: its ordering properties, by
+hypothesis and at the edges) at windows 1, 7 and 64; the kernel's plan
+(``ops.serial_epoch_route``) stages phase 3s's shape and not real-sim's,
+fits the card and refuses what no kernel takes; ``run_epoch`` equals one
+epoch of ``run_epochs`` and ``solve(scan_epochs=False)`` equals
+``scan_epochs=True``; ``run_dso_serial``, ``run_dso_grid`` (jnp / sparse / auto),
 ``run_dso_random`` (the reference's permutations replayed) and the
 legacy epoch shims are within 1e-5 of the reference's;
 ``resolve_impl``, ``argmin_w``, ``stochastic_grads``, ``grads_tile``,
@@ -50,6 +54,7 @@ from repro_torch.core.losses import get_loss
 from repro_torch.core.regularizers import get_regularizer
 from repro_torch.engine import schedules as tsched
 from repro_torch.kernels import dso_serial, ops
+from _hypothesis_compat import given, settings, st
 
 LOSS_REG_PAIRS = [("hinge", "l2"), ("hinge", "l1"), ("logistic", "l2"),
                   ("logistic", "l1"), ("square", "l2"), ("square", "l1")]
@@ -220,6 +225,215 @@ def test_serial_waves_are_the_dependency_depth():
     rows, cols = [0, 1, 0, 2, 1, 3], [0, 1, 1, 2, 0, 2]
     assert dso_serial.serial_waves(rows, cols, 4, 3) == [0, 0, 1, 0, 1, 1]
     assert dso_serial.serial_waves([], [], 1, 1) == []
+
+
+def _check_rounds(rows, cols, m, d, window):
+    """``serial_rounds``' schedule: distinct rows and columns within a
+    round, rounds rising along each row and column in visit order, each
+    window's rounds after the window before's, and ``serial_waves`` when
+    one window holds the whole sequence."""
+    rounds = dso_serial.serial_rounds(rows, cols, window)
+    assert len(rounds) == len(rows)
+    by_round = {}
+    for i, j, r in zip(rows, cols, rounds):
+        seen = by_round.setdefault(r, (set(), set()))
+        assert i not in seen[0] and j not in seen[1]
+        seen[0].add(i)
+        seen[1].add(j)
+    last_row, last_col = {}, {}
+    for i, j, r in zip(rows, cols, rounds):
+        assert r > last_row.get(i, -1) and r > last_col.get(j, -1)
+        last_row[i] = last_col[j] = r
+    for start in range(window, len(rows), window):
+        assert min(rounds[start:start + window]) > max(rounds[:start])
+    assert sorted(set(rounds)) == list(range(len(set(rounds))))
+    if window >= len(rows):
+        assert rounds == dso_serial.serial_waves(rows, cols, m, d)
+    return rounds
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(st.data())
+def test_serial_rounds_schedule_property(data):
+    m, d = data.draw(st.integers(1, 6)), data.draw(st.integers(1, 6))
+    nnz = data.draw(st.integers(0, 60))
+    rows = data.draw(st.lists(st.integers(0, m - 1), min_size=nnz,
+                              max_size=nnz))
+    cols = data.draw(st.lists(st.integers(0, d - 1), min_size=nnz,
+                              max_size=nnz))
+    _check_rounds(rows, cols, m, d, data.draw(st.integers(1, 70)))
+
+
+@pytest.mark.parametrize("m,d,nnz,window", [
+    (3, 4, 0, 5),            # no step
+    (1, 5, 23, 4),           # one row: every step its own round
+    (5, 1, 23, 4),           # one column
+    (4, 4, 23, 5),           # a ragged last window (3 steps)
+    (4, 4, 23, 23),          # one window: the waves
+    (6, 5, 40, 1)])          # a window per step: the loop
+def test_serial_rounds_schedule_edges(m, d, nnz, window):
+    rng = np.random.default_rng(m * 100 + d * 10 + window)
+    rows = rng.integers(0, m, nnz).tolist()
+    cols = rng.integers(0, d, nnz).tolist()
+    rounds = _check_rounds(rows, cols, m, d, window)
+    if min(m, d) == 1 or window == 1:
+        assert rounds == list(range(nnz))
+
+
+@pytest.mark.parametrize("window", [1, 7, 64])
+@pytest.mark.parametrize("use_adagrad", [True, False])
+@pytest.mark.parametrize("loss,reg", LOSS_REG_PAIRS)
+def test_plain_epoch_in_kernel_rounds_is_the_loop(monkeypatch, loss, reg,
+                                                  use_adagrad, window):
+    """The plain step walked in the rounds kernel's schedule
+    (``serial_rounds`` in place of the waves) is the literal loop bit for
+    bit, and the reference's ``_serial_epochs`` within 1e-5."""
+    jp, tp = _pair(loss, reg, seed=4, m=40, d=20)
+    t_c, j_c, st0, order = _serial_inputs(jp, tp, seed=6)
+    calls = []
+
+    def rounds(rows, cols, m, d):
+        calls.append(len(rows))
+        return dso_serial.serial_rounds(rows, cols, window)
+
+    monkeypatch.setattr(dso_serial, "serial_waves", rounds)
+    lam_f, _, _, _, _, w_lo, w_hi = te.prob_meta(tp)
+    scal = (0.5, lam_f, float(tp.m), w_lo, w_hi)
+    a = [torch.tensor(x) for x in st0]
+    b = [torch.tensor(x) for x in st0]
+    t_order = torch.as_tensor(order, dtype=torch.int32)
+    ops.dso_serial_epoch(*t_c, t_order, *a, tp.y, tp.row_nnz, tp.col_nnz,
+                         scal, loss_name=loss, reg_name=reg,
+                         use_adagrad=use_adagrad)
+    assert calls == [order.size]
+    _literal_epoch(*t_c, t_order, *b, tp.y, tp.row_nnz, tp.col_nnz, scal,
+                   loss, reg, use_adagrad)
+    for x, z in zip(a, b):
+        assert torch.equal(x, z)
+    lo, hi = (-np.inf, np.inf) if jp.loss.w_box is None else \
+        (-jp.loss.w_box(jp.lam), jp.loss.w_box(jp.lam))
+    j_out = jdrv._serial_epochs(
+        *(jnp.asarray(v) for v in j_c), jnp.asarray(order[None]),
+        jnp.asarray([0.5], jnp.float32), *(jnp.asarray(v) for v in st0),
+        jp.y, jp.row_nnz, jp.col_nnz, jnp.float32(jp.lam),
+        jnp.float32(lo), jnp.float32(hi), loss_name=loss, reg_name=reg,
+        m=jp.m, use_adagrad=use_adagrad)
+    for got, want in zip(a, j_out):
+        _close(got.numpy(), want)
+
+
+H100_SMEM = 232_448          # an H100's opt-in shared memory per block
+LIMITS = dict(smem_limit=H100_SMEM, max_cluster=16)
+
+
+def test_serial_epoch_route_stages_phase_3s_not_real_sim():
+    small = ops.serial_epoch_route(2000, 500, 50_000, **LIMITS)
+    assert small.staged and small.cluster == 1
+    assert small.smem == dso_serial.serial_smem(2000, 500, small.slots,
+                                                small.threads, True)
+    big = ops.serial_epoch_route(72_309, 20_958, 3_683_302, **LIMITS)
+    assert not big.staged and big.cluster == 16
+    assert big.smem == dso_serial.serial_smem(72_309, 20_958, big.slots,
+                                              big.threads, False)
+
+
+@pytest.mark.parametrize("max_cluster", [1, 8, 16])
+@pytest.mark.parametrize("smem_limit", [49_152, 101_376, H100_SMEM])
+@pytest.mark.parametrize("m,d,nnz", [(2000, 500, 50_000), (0, 0, 0),
+                                     (1, 1, 1), (9000, 500, 200_000),
+                                     (72_309, 20_958, 3_683_302)])
+def test_serial_epoch_route_fits_the_card(m, d, nnz, smem_limit,
+                                          max_cluster):
+    plan = ops.serial_epoch_route(m, d, nnz, smem_limit=smem_limit,
+                                  max_cluster=max_cluster)
+    assert plan.window == plan.slots * plan.threads * plan.cluster
+    assert plan.window % plan.threads == 0
+    assert plan.slots in dso_serial.SLOTS and plan.threads % 32 == 0
+    assert plan.threads <= dso_serial.max_threads(plan.slots)
+    assert 1 <= plan.cluster <= max_cluster
+    assert plan.smem == dso_serial.serial_smem(m, d, plan.slots,
+                                               plan.threads, plan.staged)
+    assert plan.smem <= smem_limit
+    assert plan.staged == (dso_serial.serial_smem(
+        m, d, *dso_serial.STAGED_PLAN[::-1], True) <= smem_limit)
+    assert plan.cluster == 1 if plan.staged else \
+        plan.cluster == min(16, max_cluster)
+
+
+@pytest.mark.parametrize("threads,slots,cluster", [
+    (1024, 3, None), (1024, 32, None), (1024, 8, None), (16, 4, None),
+    (48, 2, None), (512, 16, None), (1024, 1, 17), (1024, 1, 0)])
+def test_serial_plan_refuses_what_no_kernel_takes(threads, slots, cluster):
+    with pytest.raises(ValueError, match="no serial kernel"):
+        dso_serial.serial_plan(72_309, 20_958, 3_683_302, **LIMITS,
+                               threads=threads, slots=slots,
+                               cluster=cluster)
+
+
+def test_serial_plan_refuses_a_staged_cluster_and_too_much_smem():
+    with pytest.raises(ValueError, match="no serial kernel"):
+        dso_serial.serial_plan(2000, 500, 50_000, **LIMITS, cluster=4,
+                               staged=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        dso_serial.serial_plan(72_309, 20_958, 3_683_302, **LIMITS,
+                               staged=True)
+
+
+class _FailingLibrary:
+    """A kernel library whose every entry point records its arguments and
+    returns cudaErrorInvalidValue (1)."""
+
+    def __init__(self):
+        self.calls = []
+        self.lib = self
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 1
+        return entry
+
+
+@pytest.mark.parametrize("launcher", ["staged", "global", "one thread",
+                                      "step latency", "smem", "max cluster"])
+def test_serial_launchers_match_their_c_entries(monkeypatch, launcher):
+    """Each serial launcher calls its C entry with as many arguments as
+    ``build.SIGNATURES`` declares, and raises on the entry's error."""
+    from repro_torch.kernels import build
+    failing = _FailingLibrary()
+    monkeypatch.setattr(dso_serial, "library", lambda: failing)
+    monkeypatch.setattr(dso_serial, "_stream", lambda t: 0)
+    m, d, nnz = 6, 4, 9
+    coords = (torch.zeros(nnz, dtype=torch.int32),
+              torch.zeros(nnz, dtype=torch.int32), torch.ones(nnz),
+              torch.arange(nnz, dtype=torch.int32))
+    state = (torch.zeros(d), torch.zeros(m), torch.zeros(d), torch.zeros(m))
+    rest = (torch.ones(m), torch.ones(m), torch.ones(d),
+            (0.5, 1e-3, float(m), -1.0, 1.0), "hinge", "l2", True)
+    plan = lambda staged: dso_serial.serial_plan(  # noqa: E731
+        m, d, nnz, **LIMITS, staged=staged)
+    entry, call = {
+        "staged": ("dso_serial_epoch", lambda: dso_serial.launch_serial_epoch(
+            *coords, *state, *rest, plan=plan(True))),
+        "global": ("dso_serial_epoch", lambda: dso_serial.launch_serial_epoch(
+            *coords, *state, *rest, plan=plan(False),
+            rounds=torch.zeros(1, dtype=torch.int32))),
+        "one thread": ("dso_serial_epoch_one_thread",
+                       lambda: dso_serial.launch_serial_epoch_one_thread(
+                           *coords, *state, *rest)),
+        "step latency": ("dso_serial_step_latency",
+                         lambda: dso_serial.launch_step_latency(
+                             10, (0.3, 1.0, 2.0, 3.0), rest[3], "hinge",
+                             "l2", True, torch.zeros(4))),
+        "smem": ("dso_serial_smem",
+                 lambda: dso_serial.kernel_smem(m, d, 2, 1024, True)),
+        "max cluster": ("dso_serial_max_cluster", dso_serial.max_cluster),
+    }[launcher]
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed "
+                                           f"with cudaError 1"):
+        call()
+    [(name, args)] = failing.calls
+    assert name == entry and len(args) == len(build.SIGNATURES[entry])
 
 
 def test_solve_serial_draws_one_randperm_per_epoch(monkeypatch):
