@@ -238,6 +238,32 @@ Phases, one line per result:
    phase 5d, 250,000 x 289, the span route) beside the fused step and the
    cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
    max|d| against the plain version.
+7m. the LM models through the kernels (``repro_torch.models``,
+   ``repro_torch.serving``), after phase 7, random weights from seeded
+   generators on the card, each run in its own launch-count window:
+   zamba2-7b at its full published config in bf16 (81 Mamba2 layers, d
+   3,584, the shared attention block every 6 layers: 32 heads of 112; SSD
+   112 heads of 64, state 64; vocab 32,000; 6.75 B parameters) prefills B
+   1 x T 16,384 through ``forward(last_only=True)``: exactly 13
+   ``swa_attention_tc`` and 81 ``ssd_scan`` launches; ms per prefill
+   (median of 3, CUDA events behind a spin), tokens/s, peak memory, the
+   SWA and SSD kernels' device ms beside all kernels' (profiler); the
+   same prefill with the model modules' two kernel names bound to the
+   plain versions: finite logits of shape (1, 1, 32,000), the plain
+   argmax within the kernel run's top 5, the relative L2 distance of the
+   logits printed.  ``DecodeEngine`` at that config (batch 4, seq_len
+   256; prompts of 8-16 tokens, 16 new tokens each, two greedy and two at
+   temperature 0.8; decode is plain PyTorch, no kernel launch), run
+   twice: the greedy tokens repeat; tokens/s (host clock) and ms per
+   decode step.  zamba2-7b's first group at full width (6 Mamba2 layers
+   and the shared block) in float32 at T 4,096: 1 ``swa_attention_tf32x3``
+   and 6 ``ssd_scan`` launches, the logits within rtol = atol = 2e-3 (the
+   reference's decode-vs-forward bound) of the plain forward and of its
+   own token-by-token ``decode_step`` over the first 64 tokens.
+   mamba2-370m at its full config, bf16, T 16,384: 48 ``ssd_scan``
+   launches, finite logits.  granite-3-8b's first 2 layers at full width
+   (GQA 32/8, Dh 128), bf16, T 4,096: 2 ``swa_attention_tc`` launches,
+   the top-5 gate.  The launches add to the LM rows of the table.
 
 Prints the kernel table as one JSON line (the serial epoch kernel's row,
 then the baselines' ``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's
@@ -248,6 +274,7 @@ non-zero; without a CUDA card it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3161,6 +3188,345 @@ def phase_lm_full(dev):
     return rows
 
 
+# --------------------------------------------------------- phase 7m --
+# The LM models on the card: zamba2-7b at its full published config
+# (bf16), its first group at full width in float32, the decode engine,
+# mamba2-370m at its full config and granite-3-8b's first two layers.
+MODEL_T = 16384            # prefill length (<= full_attn_max: full causal)
+GROUP_T = 4096             # the float32 group and granite-3-8b's layers
+DECODE_CHECK = 64          # tokens of the group's decode against forward
+MODEL_TOL = (2e-3, 2e-3)   # the reference's decode-vs-forward tolerance
+PREFILL_REPS = 3
+BLOCK_TOL = 2 * BF16_ULP   # a block's update, kernels vs plain (bf16)
+SENS_NOISE = 2.0 ** -8     # relative input noise: about one bf16 rounding
+ENGINE_PROMPTS = (8, 11, 13, 16)   # prompt lengths of the 4 requests
+ENGINE_SEQ, ENGINE_NEW = 256, 16
+
+
+def model_config(arch, **over):
+    """The port's full config of ``arch`` with ``over`` replaced."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), **over)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the ``with``: the two kernel names the model modules call
+    (``attention.swa_attention``, ``mamba2.ssd_scan``) bound to the plain
+    versions, so the same forward runs without the kernels."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.swa_attention import swa_attention_plain
+    from repro_torch.models import attention, mamba2
+    saved = attention.swa_attention, mamba2.ssd_scan
+    attention.swa_attention = swa_attention_plain
+    mamba2.ssd_scan = ssd_scan_plain
+    try:
+        yield
+    finally:
+        attention.swa_attention, mamba2.ssd_scan = saved
+
+
+def prefill_ms(fn):
+    """ms per call of ``fn``: the median of ``PREFILL_REPS`` calls, each
+    timed by CUDA events behind a spin (and all of them)."""
+    ms = sorted(spin_ms(fn, 1, warm=0) for _ in range(PREFILL_REPS))
+    return ms[len(ms) // 2], ms
+
+
+def lm_kernel_share(fn):
+    """Device ms of one call of ``fn`` from a profiler trace: every
+    kernel's, the SWA and SSD kernels' (``swa_*``, ``ssd_*``), the wall
+    ms, and the 6 kernels that took longest as "name ms (launches)"."""
+    wall, busy, kernels = device_split(fn)
+    lm = sum(us for name, us, _ in kernels
+             if "swa_" in name or "ssd_" in name) / 1e3
+    top = ", ".join(f"{name[:48]} {us / 1e3:.4f} ({n})"
+                    for name, us, n in kernels[:6])
+    return busy * 1e3, lm, wall * 1e3, top
+
+
+def top5_gate(label, got, want, shape, gate=True):
+    """Kernel logits against the plain run's: finite, of ``shape``, and
+    (``gate``) the plain run's argmax at the last position among the
+    kernel run's top 5.  Returns (relative L2 distance of the last
+    position, whether the argmax is in the top 5)."""
+    import torch
+    check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+          f"{label}: logits {tuple(got.shape)} (want {shape}) or not "
+          f"finite")
+    g, w = got[:, -1].float(), want[:, -1].float()
+    rel = rel_l2(g, w)
+    top5 = g[0].topk(5).indices.tolist()
+    hit = int(w[0].argmax()) in top5
+    check(hit or not gate,
+          f"{label}: the plain argmax {int(w[0].argmax())} is not in the "
+          f"kernel run's top 5 {top5} (relative L2 {rel:.3e})")
+    return rel, hit
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def hybrid_walk(params, cfg, x, plain=False, local=None):
+    """The hybrid forward from the embedded input ``x`` block by block
+    (``model.forward``'s order: groups of Mamba2 layers, each followed by
+    the shared block, then the remainder), with the kernels or
+    (``plain``) the plain versions; returns the last position's logits.
+    With ``local`` a list, each block also runs with the plain versions
+    on the same input and the relative L2 distance of the two blocks'
+    updates (output minus input) is appended."""
+    from repro_torch.models import model as M
+
+    def both(block):
+        y = block()
+        if plain:
+            return y
+        if local is not None:
+            with plain_kernels():
+                yp = block()
+            local.append(rel_l2(y - x, yp - x))
+        return y
+    layers = params["layers"]
+    with plain_kernels() if plain else contextlib.nullcontext():
+        for ids, shared in M._hybrid_groups(cfg):
+            for i in ids:
+                x = both(lambda: M._mamba_block_apply(M.layer(layers, i), x,
+                                                      cfg))
+            if shared:
+                x = both(lambda: M._attn_block_apply(
+                    params["shared_attn"], x, cfg, window=None)[0])
+        x = M.rmsnorm(params["final_norm"], x[:, -1:])
+        return M.unembed(params["unembed"], x, dtype=cfg.logits_dtype)
+
+
+def block_gate(label, params, cfg, batch, logits, plain_logits, seed):
+    """The gate of a deep bf16 hybrid with random weights, whose logits
+    move by more than bf16 rounding between any two orders of rounding:
+    (1) every block's update with the kernels within ``BLOCK_TOL`` (two
+    bf16 ulps, relative L2) of the plain versions' on the same input;
+    (2) the kernel run's logits no farther from the plain run's than the
+    plain run's from itself with its embedded input perturbed by about
+    one bf16 rounding (relative noise of standard deviation
+    ``SENS_NOISE``), the model's own sensitivity.  The walk
+    must reproduce ``forward``'s logits bit for bit."""
+    import torch
+    from repro_torch.models import model as M
+    x0 = M.embed(params["embed"], batch["tokens"])
+    local = []
+    walked = hybrid_walk(params, cfg, x0, local=local)
+    check(torch.equal(walked, logits),
+          f"{label}: the block walk's logits differ from forward's")
+    worst = max(local)
+    check(worst <= BLOCK_TOL,
+          f"{label}: a block's update differs from the plain version's by "
+          f"{worst:.3e} relative L2 (bound {BLOCK_TOL:.3e}): {local}")
+    gen = torch.Generator(device=x0.device).manual_seed(seed)
+    noise = torch.randn(x0.shape, generator=gen, device=x0.device)
+    x1 = (x0.float() * (1 + SENS_NOISE * noise)).to(x0.dtype)
+    sens = rel_l2(hybrid_walk(params, cfg, x1, plain=True)[:, -1],
+                  plain_logits[:, -1])
+    rel = rel_l2(logits[:, -1], plain_logits[:, -1])
+    check(rel <= sens,
+          f"{label}: kernel vs plain logits {rel:.3e} relative L2, more "
+          f"than the plain run's own sensitivity {sens:.3e}")
+    return worst, len(local), sens
+
+
+def model_prefill(label, cfg, T, seed, dev, want, gate="top5"):
+    """Random weights of ``cfg`` on the card, one counted prefill
+    ``forward(last_only=True)`` of T tokens (B 1) that must launch
+    ``want``, its ms, tokens/s, peak memory and the kernels' device ms,
+    and the same prefill with the plain versions: finite logits of the
+    right shape, and by ``gate``: "top5" the plain argmax in the kernel
+    run's top 5, "blocks" ``block_gate``, "finite" nothing more.
+    Returns (params, counts)."""
+    import torch
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(gen, cfg, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, T), generator=gen,
+                                     device=dev)}
+    prefill = lambda: M.forward(params, batch, cfg,  # noqa: E731
+                                last_only=True)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, counts = counted(prefill)
+    peak = torch.cuda.max_memory_allocated()
+    check_counts("7m", counts, want)
+    ms, all_ms = prefill_ms(prefill)
+    busy, lm, _, top = lm_kernel_share(prefill)
+    with plain_kernels():
+        plain, plain_counts = counted(prefill)
+        plain_ms = cuda_ms(prefill, 1, warm=0)
+    check_counts("7m", plain_counts, {})
+    rel, hit = top5_gate(label, logits, plain, (1, 1, cfg.padded_vocab),
+                         gate == "top5")
+    extra = ""
+    if gate == "blocks":
+        worst, n, sens = block_gate(label, params, cfg, batch, logits, plain,
+                                    seed + 1)
+        extra = (f"; every block's update within {worst:.3e} of the plain "
+                 f"version's ({n} blocks, bound {BLOCK_TOL:.3e}), the plain "
+                 f"run's sensitivity to one bf16 rounding of input noise "
+                 f"{sens:.3e}")
+    say("7m", f"{label} ({cfg.name}, {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.dtype}, {n_params:,} parameters, "
+              f"param_count {cfg.param_count():,}) prefill B 1 T {T}: "
+              f"{ms:.4f} ms ({', '.join(f'{x:.4f}' for x in all_ms)}; "
+              f"CUDA events behind a spin), {T / ms * 1e3:.1f} tokens/s, "
+              f"peak {peak / 2**30:.3f} GiB; device {busy:.4f} ms of which "
+              f"SWA + SSD kernels {lm:.4f} ms ({lm / busy:.3f}); longest: "
+              f"{top}; plain "
+              f"versions {plain_ms:.4f} ms; last-position logits: "
+              f"relative L2 to the plain run {rel:.3e}, plain argmax in "
+              f"the kernel run's top 5: {hit}{extra}")
+    return params, counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def engine_run(cfg, params, dev, seed=3):
+    """Four requests through ``DecodeEngine`` (batch 4, seq_len
+    ``ENGINE_SEQ``), two greedy and two at temperature 0.8: (requests,
+    host s, the recorder)."""
+    import torch
+    from repro_torch.obs import RunRecorder
+    from repro_torch.serving.engine import DecodeEngine, Request
+    g = torch.Generator().manual_seed(5)
+    rec = RunRecorder()
+    eng = DecodeEngine(cfg, params, batch=len(ENGINE_PROMPTS),
+                       seq_len=ENGINE_SEQ, seed=seed, obs=rec, device=dev)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,),
+                                         generator=g).tolist(),
+                    max_new=ENGINE_NEW, temperature=0.8 * (i % 2))
+            for i, n in enumerate(ENGINE_PROMPTS)]
+    t = time.perf_counter()
+    done = eng.run(reqs)
+    return done, time.perf_counter() - t, rec, eng
+
+
+def phase_engine(cfg, params, dev):
+    """Phase 7m, item 3: the decode engine at ``cfg`` twice; the greedy
+    requests' tokens must repeat (decode is plain PyTorch: no kernel)."""
+    import torch
+    (first, s1, _, _), counts = counted(lambda: engine_run(cfg, params, dev))
+    check_counts("7m", counts, {})
+    second, s2, rec, eng = engine_run(cfg, params, dev)
+    steps = max(ENGINE_PROMPTS) - 1 + ENGINE_NEW
+    tok = torch.zeros((len(ENGINE_PROMPTS), 1), dtype=torch.long, device=dev)
+    busy, _, wall, top = lm_kernel_share(lambda: eng._step(tok, steps))
+    for r in first + second:
+        check(len(r.out) == ENGINE_NEW and r.done
+              and all(0 <= t < cfg.vocab for t in r.out),
+              f"engine: request {r.prompt[:3]}... gave {r.out}")
+    for i in (0, 2):
+        check(first[i].out == second[i].out,
+              f"engine: greedy request {i} gave {first[i].out} then "
+              f"{second[i].out}")
+    toks = sum(len(r.out) for r in second)
+    say("7m", f"DecodeEngine {cfg.name} batch {len(ENGINE_PROMPTS)} "
+              f"seq_len {ENGINE_SEQ}, prompts {ENGINE_PROMPTS}, max_new "
+              f"{ENGINE_NEW}: {toks} tokens in {s2:.4f} s "
+              f"({toks / s2:.2f} tokens/s, {s2 / steps * 1e3:.4f} ms per "
+              f"decode step over {steps} steps; first run {s1:.4f} s), "
+              f"gauge serve.tokens_per_s "
+              f"{rec.metrics.gauge('serve.tokens_per_s').value:.2f}; greedy "
+              f"tokens repeat: {first[0].out[:6]}...; sampled requests "
+              f"equal across runs: "
+              f"{[first[i].out == second[i].out for i in (1, 3)]}; one "
+              f"profiled decode step: wall {wall:.4f} ms, device "
+              f"{busy:.4f} ms, longest: {top}")
+
+
+def phase_group_f32(dev, seed=72):
+    """Phase 7m, item 2: zamba2-7b at full width, one group (6 Mamba2
+    layers and the shared block), float32, T ``GROUP_T``: the kernel
+    forward within ``MODEL_TOL`` of the plain forward and of its own
+    token-by-token decode over the first ``DECODE_CHECK`` tokens."""
+    import torch
+    from repro_torch.models import model as M
+    cfg = model_config("zamba2-7b", n_layers=6, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(gen, cfg, device=dev)
+    tok = torch.randint(0, cfg.vocab, (1, GROUP_T), generator=gen,
+                        device=dev)
+    fwd = lambda: M.forward(params, {"tokens": tok}, cfg)[0]  # noqa: E731
+    logits, counts = counted(fwd)
+    check_counts("7m", counts, {"swa_attention_tf32x3": 1, "ssd_scan": 6})
+    ms, _ = prefill_ms(fwd)
+    with plain_kernels():
+        plain = fwd()
+    err, ok = within(logits, plain, MODEL_TOL, False)
+    check(ok and bool(torch.isfinite(logits).all()),
+          f"group float32: max|d| {err:.3e} against the plain forward")
+    del plain
+    st = M.init_decode_state(cfg, 1, DECODE_CHECK, device=dev)
+    dec = []
+    for t in range(DECODE_CHECK):
+        lg, st = M.decode_step(params, st, tok[:, t: t + 1], t, cfg,
+                               seq_len=DECODE_CHECK)
+        dec.append(lg)
+    dec = torch.cat(dec, dim=1)
+    err_d, ok_d = within(dec, logits[:, :DECODE_CHECK], MODEL_TOL, False)
+    check(ok_d, f"group float32: decode max|d| {err_d:.3e} against the "
+                f"kernel forward")
+    say("7m", f"zamba2-7b one group (6 Mamba2 layers + the shared block, d "
+              f"{cfg.d_model}, float32) T {GROUP_T}: {ms:.4f} ms per "
+              f"forward (full logits); kernel vs plain forward max|d| "
+              f"{err:.3e}, decode of the first {DECODE_CHECK} tokens vs "
+              f"the kernel forward max|d| {err_d:.3e} (bound rtol = atol "
+              f"= {MODEL_TOL[0]})")
+    return counts
+
+
+def phase_lm_model(dev):
+    """Phase 7m: the LM models through the kernels; returns the launches
+    of the counted runs by counter."""
+    import torch
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg = model_config("zamba2-7b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim,
+           cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+           cfg.shared_attn_every, cfg.vocab, cfg.dtype)
+          == (81, 3584, 32, 112, 112, 64, 64, 6, 32000, "bfloat16"),
+          f"zamba2-7b's config changed: {cfg}")
+    n_shared = cfg.n_layers // cfg.shared_attn_every
+    params, counts = model_prefill(
+        "zamba2-7b full config", cfg, MODEL_T, 71, dev,
+        {"swa_attention_tc": n_shared, "ssd_scan": cfg.n_layers},
+        gate="blocks")
+    add(counts)
+    phase_engine(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    add(phase_group_f32(dev))
+    cfg = model_config("mamba2-370m")
+    params, counts = model_prefill("mamba2-370m full config", cfg,
+                                   MODEL_T, 73, dev,
+                                   {"ssd_scan": cfg.n_layers}, gate="finite")
+    add(counts)
+    del params
+    cfg = model_config("granite-3-8b", n_layers=2)
+    params, counts = model_prefill("granite-3-8b depth 2", cfg, GROUP_T,
+                                   74, dev, {"swa_attention_tc": 2})
+    add(counts)
+    del params
+    torch.cuda.empty_cache()
+    say("7m", f"model launches by counter: {total}")
+    return total
+
+
 def phase_twopass_times(ctx):
     """Phase 7, row 6: the two-pass tile step at svm-ocr's tile (processor
     0's active block of phase 5d, row-strided), driven once with the
@@ -3785,6 +4151,9 @@ def main() -> int:
     d_rows = phase_dense_times(dense)
     t_row = phase_twopass_times(dense)
     lm = phase_lm_full(dev)
+    t7m = time.perf_counter()
+    model = phase_lm_model(dev)
+    say("7m", f"phase 7m passed in {time.perf_counter() - t7m:.1f} s")
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -3838,7 +4207,7 @@ def main() -> int:
         r = dict(lm[counter, label])
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
-                            if k == counter)
+                            if k == counter) + model.get(counter, 0)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))

@@ -1,0 +1,167 @@
+"""Attention: GQA/MQA/MHA with RoPE, causal / sliding-window / cross
+variants (the port of ``repro.models.attention``).
+
+Prefill (``self_attention``) is one call of the sliding-window kernel,
+``kernels.ops.swa_attention``, in place of the reference's three jnp paths
+(direct, triangle, windowed; ``attention.py:112-163``), which compute the
+same masked softmax.  q, k and v go to the kernel's (B, H, T, Dh) layout
+as contiguous tensors after RoPE; grouped-query attention needs no repeat,
+since the kernel maps query head h to kv head ``h // (Hq // Hkv)``, the
+reference's (G, R) grouping.  On CPU tensors the wrapper runs its plain
+version; on CUDA tensors it launches the kernel or raises.
+
+Cross-attention and one-token decode (full cache or a ring buffer of
+``window`` slots) stay plain PyTorch: the reference computes them in jnp
+outside any Pallas kernel.  The decode caches are updated in place.
+
+Layout: activations (B, T, d); q heads grouped as (G kv groups, R
+repeats) in the plain paths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ops import swa_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamInit, _dense_init, apply_rope
+
+_NEG_INF = -1e30
+
+
+def attn_init(init: ParamInit, cfg: ModelConfig, dtype, cross: bool = False):
+    d, hq, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    g = cfg.n_kv_heads or hq
+    p = {
+        "wq": _dense_init(init, (d, hq * dh), dtype=dtype),
+        "wk": _dense_init(init, (d, g * dh), dtype=dtype),
+        "wv": _dense_init(init, (d, g * dh), dtype=dtype),
+        "wo": _dense_init(init, (hq * dh, d), dtype=dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.full((hq * dh,), 0.0, dtype)
+        p["bk"] = init.full((g * dh,), 0.0, dtype)
+        p["bv"] = init.full((g * dh,), 0.0, dtype)
+    return p
+
+
+def _project_q(p, x, cfg: ModelConfig):
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+
+
+def _project_kv(p, x, cfg: ModelConfig):
+    B, T, _ = x.shape
+    g = cfg.n_kv_heads or cfg.n_heads
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, T, g, cfg.head_dim),
+            v.reshape(B, T, g, cfg.head_dim))
+
+
+def _constrain(t, cfg: ModelConfig):
+    """The reference pins attention activations to a mesh layout
+    (``attn_shard``, ``attention.py:73-87``); on one device there is no
+    mesh, so every setting leaves ``t`` as it is."""
+    return t
+
+
+def _attend(q, k, v, mask):
+    """Plain float32 attention.  q: (B,Tq,G,R,Dh), k/v: (B,Tk,G,Dh), mask:
+    (Tq,Tk) or None; returns (B,Tq,G,R,Dh) float32."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+
+
+def _grouped(q, g):
+    B, T, H, Dh = q.shape
+    return q.reshape(B, T, g, H // g, Dh)
+
+
+def _finish(p, o, dtype):
+    """o: (B, T, ..., Dh) heads -> (B, T, d) through ``wo``."""
+    B, T = o.shape[:2]
+    return o.reshape(B, T, -1).to(dtype) @ p["wo"]
+
+
+def self_attention(p, x, cfg: ModelConfig, *, positions=None,
+                   window: int | None = None, q_chunk: int = 2048):
+    """Causal self-attention over x (B, T, d): training / prefill.
+
+    ``window`` None is full causal attention (the kernel's window is then
+    T).  ``q_chunk`` selects among the reference's jnp paths and has no
+    effect here: one kernel call covers every T."""
+    B, T, _ = x.shape
+    pos = positions if positions is not None else torch.arange(
+        T, device=x.device)
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, x, cfg)
+    if cfg.pos == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = (_constrain(t, cfg).transpose(1, 2).contiguous()
+               for t in (q, k, v))
+    o = swa_attention(q, k, v, window=T if window is None else window,
+                      causal=True)
+    return _finish(p, o.transpose(1, 2), x.dtype)
+
+
+def cross_attention(p, x, kv_embeds, cfg: ModelConfig):
+    """x (B,T,d) attends to kv_embeds (B,S,d): no mask, no rope on kv."""
+    g = cfg.n_kv_heads or cfg.n_heads
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, kv_embeds, cfg)
+    return _finish(p, _attend(_grouped(q, g), k, v, None), x.dtype)
+
+
+# ------------------------------------------------------------------ decode --
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
+               device, stack: tuple = ()):
+    """KV cache for one layer (with ``stack`` leading axes for a stack of
+    layers).  Ring-buffered if seq_len exceeds the full-attention budget
+    (long-context)."""
+    g = cfg.n_kv_heads or cfg.n_heads
+    S = seq_len if seq_len <= cfg.full_attn_max else cfg.sliding_window
+    shape = tuple(stack) + (batch, S, g, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_self_attention(p, x, cache, pos: int, cfg: ModelConfig, *,
+                          seq_len: int):
+    """One-token decode. x: (B, 1, d); pos: the current position.
+
+    Writes the new key and value into ``cache`` in place and returns
+    (out (B,1,d), cache).  The cache is a ring buffer when seq_len >
+    cfg.full_attn_max (slot = pos % window)."""
+    g = cfg.n_kv_heads or cfg.n_heads
+    S = cache["k"].shape[1]
+    windowed = seq_len > cfg.full_attn_max
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, x, cfg)
+    if cfg.pos == "rope":
+        pvec = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        q = apply_rope(q, pvec, cfg.rope_theta)
+        k = apply_rope(k, pvec, cfg.rope_theta)
+    slot = pos % S if windowed else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    slots = torch.arange(S, device=x.device)
+    if windowed:
+        # position currently held by slot s: pos - ((pos - s) mod S)
+        valid = pos - torch.remainder(pos - slots, S) >= 0
+    else:
+        valid = slots <= pos
+    o = _attend(_grouped(q, g), cache["k"], cache["v"], valid[None, :])
+    return _finish(p, o, x.dtype), cache
