@@ -264,6 +264,33 @@ Phases, one line per result:
    launches, finite logits.  granite-3-8b's first 2 layers at full width
    (GQA 32/8, Dh 128), bf16, T 4,096: 2 ``swa_attention_tc`` launches,
    the top-5 gate.  The launches add to the LM rows of the table.
+7t. LM training on the card (``repro_torch.training``; after 7m): the
+   SWA and SSD wrappers under autograd run their kernel forward inside
+   ``ops.KernelGrad``, whose backward recomputes the plain version.
+   (a) At the shapes of zamba2-7b's first group (B 2 x T 4,096; SWA 32
+   heads of 112 in bf16, SSD 112 heads of 64, state 64): each Function's
+   input gradients against autograd through the plain version from the
+   same inputs and upstream gradient, held to two plain runs' max|d|
+   (0.0 when the card repeats itself), the forwards to phase 3l's bounds.
+   (b) The group in float32, B 1 x T 4,096: one step's loss (1e-4
+   relative) and every gradient leaf (1e-3 relative L2) through the
+   kernels against the plain versions.  (c) The group in bf16: the first
+   step's gradients per leaf group (embedding, Mamba2 layers, shared
+   block, head), kernel against plain, within the plain run's own change
+   under one bf16 rounding of input noise.  Then 20 AdamW steps (bf16
+   parameters, float32 moments, lr 1e-3, B 2 x T 4,096 of the Markov
+   pipeline, ``remat=False``): each step exactly 1 ``swa_attention_tc``
+   and 6 ``ssd_scan`` launches; (d) the loss falls by at least
+   ``LEARN_MARGIN``; (e) at step 10 a ``training.checkpoint`` round trip
+   restores the state bit for bit, and step 11 from it equals the
+   uninterrupted step 11 (or lies within two uninterrupted runs' max|d|).
+   ms per step (host clock), tokens/s, peak memory, one step's device
+   time behind a spin (CUDA events) with the plain recomputes' share,
+   and a profiled step's busy and wall time.  mamba2-370m at its full
+   config, bf16, B 4 x T 2,048, 5 steps of 48 ``ssd_scan`` launches, the
+   same numbers.  ``examples.lm_train`` (granite-3-8b's smoke config,
+   float32) for 200 steps on the card must print ``LEARNED``.  The
+   launches add to the LM rows of the table.
 
 Prints the kernel table as one JSON line (the serial epoch kernel's row,
 then the baselines' ``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's
@@ -276,6 +303,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3527,6 +3555,414 @@ def phase_lm_model(dev):
     return total
 
 
+TRAIN_B, TRAIN_T = 2, 4096   # phase 7t: zamba2-7b's first group, bf16
+TRAIN_STEPS, RESUME_AT = 20, 10
+TRAIN_LR = 1e-3
+LEARN_MARGIN = 0.05        # nats the loss falls over the 20 steps: mean of
+                           # the first 3 against the last 3 (PERF.md)
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 1e-3   # phase 7t (b): relative
+M370_B, M370_T, M370_STEPS = 4, 2048, 5
+EXAMPLE_STEPS = 200
+
+
+@contextlib.contextmanager
+def recompute_timer():
+    """Within the ``with``: ``ops.KernelGrad``'s backward (the plain
+    version's recompute) between two CUDA events; yields the list of
+    event pairs, one per backward."""
+    import torch
+    from repro_torch.kernels import ops
+    orig = ops.KernelGrad.backward
+    pairs = []
+
+    def timed(ctx, grad):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(ctx, grad)
+        b.record()
+        pairs.append((a, b))
+        return out
+    ops.KernelGrad.backward = staticmethod(timed)
+    try:
+        yield pairs
+    finally:
+        ops.KernelGrad.backward = staticmethod(orig)
+
+
+def step_profile(fn):
+    """One call of ``fn`` (a train step): (device ms by CUDA events around
+    it, the recomputes' share of them, profiler wall ms, profiler busy
+    ms, longest kernels).  The events are queued behind a spin, so the
+    step's launches run back to back whatever the host takes."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with recompute_timer() as pairs:
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+    ms = a.elapsed_time(b)
+    rec = sum(x.elapsed_time(y) for x, y in pairs)
+    wall, busy, kernels = device_split(fn)
+    top = ", ".join(f"{name[:40]} {us / 1e3:.4f} ({n})"
+                    for name, us, n in kernels[:5])
+    return ms, rec / ms, wall * 1e3, busy * 1e3, top
+
+
+def markov_batches(cfg, b, t, n, seed, dev):
+    """``n`` batches of the Markov pipeline (tokens = targets), drawn
+    before any step is timed."""
+    from repro_torch.data.lm_pipeline import batches
+    it = batches(cfg.vocab, b, t, seed=seed, device=dev)
+    out = []
+    for _ in range(n):
+        x = next(it)
+        out.append({"tokens": x["targets"], "targets": x["targets"]})
+    return out
+
+
+def _tree_max_diff(a, b):
+    from repro_torch.training import optimizer as opt
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(opt.tree_leaves(a), opt.tree_leaves(b)))
+
+
+def _state_max_diff(a, b):
+    return max(_tree_max_diff(a.params, b.params),
+               _tree_max_diff(a.opt.mu, b.opt.mu),
+               _tree_max_diff(a.opt.nu, b.opt.nu),
+               float((a.opt.step - b.opt.step).abs()))
+
+
+def kernel_grad_gate(dev, seed=80):
+    """Phase 7t (a): at the group's shapes, each kernel's autograd
+    Function against autograd through the plain version from the same
+    inputs and upstream gradient: the input gradients within the two
+    plain runs' own max|d| (0.0 when the card repeats itself), the
+    forward within its phase-3l bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.swa_attention import swa_attention_plain
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+
+    def grads(fn, inputs, up):
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*xs)
+        return out.detach(), torch.autograd.grad(out, xs, up)
+
+    B, T = TRAIN_B, TRAIN_T
+    qkv = [r(B, 32, T, 112).to(bf16) for _ in range(3)]
+    x, dt, A, Bm, Cm = ssd_inputs(B, T, 112, 64, 64, gen, bf16)
+    ssd_in = (x, dt, A, Bm.to(bf16), Cm.to(bf16))
+    cases = [("swa_attention_tc", qkv, r(B, 32, T, 112).to(bf16),
+              lambda *a: ops.swa_attention(*a, window=T),
+              lambda *a: swa_attention_plain(*a, window=T), SWA_TOL),
+             ("ssd_scan", ssd_in, r(B, T, 112, 64).to(bf16),
+              lambda *a: ops.ssd_scan(*a, chunk=SSD_CHUNK),
+              lambda *a: ssd_scan_plain(*a, chunk=SSD_CHUNK), SSD_TOL)]
+    launches = {}
+    for name, inputs, up, kern, plain, tol in cases:
+        (out, g), counts = counted(lambda: grads(kern, inputs, up))
+        check_counts("7t", counts, {name: 1})
+        launches[name] = counts[name]
+        out_p, g_p = grads(plain, inputs, up)
+        _, g_p2 = grads(plain, inputs, up)
+        noise = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(g_p, g_p2))
+        d = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(g, g_p))
+        types_ok = all(a.dtype == t.dtype for a, t in zip(g, inputs))
+        err, ok = within(out, out_p, tol, True)
+        check(d <= noise and types_ok and ok,
+              f"{name}: Function gradients max|d| {d:.3e} against plain "
+              f"autograd (two plain runs {noise:.3e}), types {types_ok}, "
+              f"forward max|d| {err:.3e} (ok {ok})")
+        say("7t", f"(a) {name} at {tuple(inputs[0].shape)}: gradients of "
+                  f"the Function (kernel forward, plain recompute) vs "
+                  f"autograd through the plain version max|d| {d:.3e}, two "
+                  f"plain runs {noise:.3e}; gradient types "
+                  f"{[str(a.dtype)[6:] for a in g]}; forward max|d| "
+                  f"{err:.3e} (bound rtol {tol[0]} + 1 bf16 ulp, atol "
+                  f"{tol[1]})")
+        del g, g_p, g_p2, out, out_p
+    return launches
+
+
+def f32_group_gate(dev, seed=81):
+    """Phase 7t (b): the group in float32, B 1 x T ``TRAIN_T``: the loss
+    and gradients of one step through the kernels against the same step
+    through the plain versions."""
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    cfg = model_config("zamba2-7b", n_layers=6, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(gen, cfg, device=dev)
+    batch = markov_batches(cfg, 1, TRAIN_T, 1, seed, dev)[0]
+    step = lambda: T.loss_and_grads(params, batch, cfg,  # noqa: E731
+                                    remat=False)
+    (total, _, grads), counts = counted(step)
+    check_counts("7t", counts, {"swa_attention_tf32x3": 1, "ssd_scan": 6})
+    with plain_kernels():
+        p_total, _, p_grads = step()
+    d_loss = abs(float(total) - float(p_total)) / abs(float(p_total))
+    rels = {}
+    for (path, g), gp in zip(leaves_with_paths(grads),
+                             opt.tree_leaves(p_grads)):
+        rels[path] = rel_l2(g, gp) if float(gp.norm()) > 0 else \
+            float(g.norm())
+    worst = max(rels, key=rels.get)
+    check(d_loss <= F32_LOSS_TOL and rels[worst] <= F32_GRAD_TOL,
+          f"(b) float32 group: loss {float(total):.6f} vs plain "
+          f"{float(p_total):.6f} ({d_loss:.3e} relative), worst gradient "
+          f"{worst} {rels[worst]:.3e} relative L2")
+    say("7t", f"(b) zamba2-7b group float32 B 1 x T {TRAIN_T}: loss "
+              f"{float(total):.6f} vs plain {float(p_total):.6f} "
+              f"({d_loss:.3e} relative, bound {F32_LOSS_TOL}); worst "
+              f"gradient leaf {worst} {rels[worst]:.3e} relative L2 "
+              f"(bound {F32_GRAD_TOL}) over {len(rels)} leaves")
+    return counts
+
+
+GRAD_GROUPS = (("embed", ("embed",)), ("mamba layers", ("layers",)),
+               ("shared block", ("shared_attn",)),
+               ("head", ("final_norm", "unembed")))
+
+
+def _group_rel(a, b):
+    """{group: relative L2 of a's gradients against b's over the group's
+    leaves}."""
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    out = {}
+    pa, pb = leaves_with_paths(a), leaves_with_paths(b)
+    for name, tops in GRAD_GROUPS:
+        x = [g.float().reshape(-1) for p, g in pa if p.split("/")[0] in tops]
+        y = [g.float().reshape(-1) for p, g in pb if p.split("/")[0] in tops]
+        out[name] = rel_l2(torch.cat(x), torch.cat(y))
+    return out
+
+
+def bf16_grad_gate(cfg, dev, seed):
+    """Phase 7t (c): the first step's gradients in bf16 (``train_run``'s
+    initial parameters and first batch at ``seed``), kernels against plain
+    versions, per leaf group, held to the plain run's own sensitivity:
+    its gradients with the embedded input perturbed by about one bf16
+    rounding (relative noise ``SENS_NOISE``)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import train as T
+    params = M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg, device=dev)
+    batch = markov_batches(cfg, TRAIN_B, TRAIN_T, 1, seed, dev)[0]
+    step = lambda: T.loss_and_grads(params, batch, cfg,  # noqa: E731
+                                    remat=False)[2]
+    kern = step()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    noise = torch.randn(tuple(batch["tokens"].shape) + (cfg.d_model,),
+                        generator=gen, device=dev)
+    orig = M.embed
+
+    def noisy(p, tok):
+        x = orig(p, tok)
+        return (x.float() * (1 + SENS_NOISE * noise)).to(x.dtype)
+    with plain_kernels():
+        plain = step()
+        M.embed = noisy
+        try:
+            moved = step()
+        finally:
+            M.embed = orig
+    rel, sens = _group_rel(kern, plain), _group_rel(moved, plain)
+    bad = [g for g in rel if rel[g] > sens[g]]
+    check(not bad, f"(c) bf16 gradients: kernel vs plain {rel} beyond the "
+                   f"plain run's sensitivity {sens} in {bad}")
+    say("7t", "(c) bf16 first-step gradients, relative L2 kernel vs plain "
+              "(the plain run under one bf16 rounding of input noise): "
+              + ", ".join(f"{g} {rel[g]:.3e} ({sens[g]:.3e})" for g in rel))
+
+
+def train_run(label, cfg, ocfg, dev, b, t, steps, want, seed, resume_at=None):
+    """``steps`` train steps of ``cfg`` on Markov batches (B ``b`` x T
+    ``t``), each in its own launch-count window holding ``want``; at
+    ``resume_at`` the checkpoint round trip (phase 7t (e)).  Returns
+    (losses, step ms, peak bytes, launches, the state and the batches)."""
+    import tempfile
+    import torch
+    from repro_torch.training import train as T
+    batches = markov_batches(cfg, b, t, steps + 1, seed, dev)
+    state = T.init_state(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    step = T.make_train_step(cfg, ocfg, remat=False)
+    launches = {}
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peak = 0
+    for i in range(steps):
+        if i == resume_at:          # the steps' peak, not the gate's
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            with tempfile.TemporaryDirectory() as d:
+                state = resume_gate(label, cfg, ocfg, state, batches[i], d,
+                                    seed, dev)
+            torch.cuda.reset_peak_memory_stats()
+            losses.append(None)
+            continue
+        t0 = time.perf_counter()
+        (state, m), counts = counted(lambda: step(state, batches[i]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v for k, v in counts.items() if v and k != "sparse_probe"}
+        check(got == want, f"{label} step {i}: launch counts {got} != "
+                           f"{want}")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+        losses.append(float(m["loss"]))
+        check(all(torch.isfinite(x).all() for x in
+                  (m["loss"], m["grad_norm"])),
+              f"{label} step {i}: loss {losses[-1]}, grad_norm "
+              f"{float(m['grad_norm'])}")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    return losses, ms, peak, launches, state, step, batches
+
+
+def resume_gate(label, cfg, ocfg, state, batch, d, seed, dev):
+    """Phase 7t (e): ``state`` saved by ``training.checkpoint`` and
+    restored into a fresh state bit for bit; the next step from the
+    restored state against the next step from ``state`` (bit for bit, or
+    within two uninterrupted runs' max|d|).  Returns the uninterrupted
+    run's next state."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train as T
+    step = T.make_train_step(cfg, ocfg, remat=False)
+    t0 = time.perf_counter()
+    path = ckpt.save(d, state, RESUME_AT)
+    t_save = time.perf_counter() - t0
+    fresh = T.init_state(seed + 1, cfg, device=dev)
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(d, fresh)
+    t_load = time.perf_counter() - t0
+    del fresh
+    exact = _state_max_diff(restored, state)
+    check(at == RESUME_AT and exact == 0.0,
+          f"{label}: restored step {at}, state max|d| {exact:.3e}")
+    r_next, _ = step(restored, batch)
+    del restored
+    s_next, _ = step(state, batch)
+    d_resume = _state_max_diff(r_next, s_next)
+    del r_next
+    s_again, _ = step(state, batch)
+    noise = _state_max_diff(s_next, s_again)
+    del s_again
+    check(d_resume <= noise,
+          f"{label}: step {RESUME_AT + 1} after resume max|d| "
+          f"{d_resume:.3e}, two uninterrupted runs {noise:.3e}")
+    say("7t", f"(e) {label}: checkpoint at step {RESUME_AT} "
+              f"({os.path.getsize(path) / 2**30:.3f} GiB, save "
+              f"{t_save:.2f} s, restore {t_load:.2f} s host) restored bit "
+              f"for bit; step {RESUME_AT + 1} from it vs the uninterrupted "
+              f"run max|d| {d_resume:.3e} (two uninterrupted runs "
+              f"{noise:.3e})")
+    return s_next
+
+
+def say_train(label, cfg, b, t, losses, ms, peak, prof, smi):
+    step_ms, share, wall, busy, top = prof
+    med = sorted(ms)[len(ms) // 2]
+    say("7t", f"{label} ({cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.dtype}) B {b} x T {t}: {med:.4f} ms per train step "
+              f"(host clock, median of {len(ms)}; "
+              f"{', '.join(f'{x:.1f}' for x in ms)}), "
+              f"{b * t / med * 1e3:.1f} tokens/s, peak "
+              f"{peak / 2**30:.3f} GiB; one step behind a spin "
+              f"{step_ms:.4f} ms (CUDA events), of which the plain "
+              f"backward recomputes {share:.3f}; profiled step: wall "
+              f"{wall:.4f} ms, device busy {busy:.4f} ms "
+              f"({busy / wall:.3f}); longest: {top}; losses "
+              f"{[round(x, 4) if x is not None else 'resume' for x in losses]}"
+              f"; {smi}")
+
+
+def phase_lm_train(dev, smi):
+    """Phase 7t: LM training on the card through the SWA and SSD kernels;
+    returns the launches of the counted runs by counter."""
+    import io
+    import math
+    import tempfile
+    import torch
+    from repro_torch.examples import lm_train
+    from repro_torch.training import optimizer as opt
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+
+    add(kernel_grad_gate(dev))
+    add(f32_group_gate(dev))
+    torch.cuda.empty_cache()
+    cfg = model_config("zamba2-7b", n_layers=6)
+    bf16_grad_gate(cfg, dev, 82)
+    torch.cuda.empty_cache()
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS)
+    want = {"swa_attention_tc": 1, "ssd_scan": 6}
+    say("7t", f"zamba2-7b first group: launches per train step {want}")
+    losses, ms, peak, launches, state, step, batches = train_run(
+        "zamba2-7b group", cfg, ocfg, dev, TRAIN_B, TRAIN_T, TRAIN_STEPS,
+        want, 82, resume_at=RESUME_AT)
+    add(launches)
+    prof = step_profile(lambda: step(state, batches[-1]))
+    say_train("zamba2-7b first group", cfg, TRAIN_B, TRAIN_T, losses, ms,
+              peak, prof, smi)
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    check(first - last >= LEARN_MARGIN,
+          f"(d) loss {first:.4f} over the first 3 steps, {last:.4f} over "
+          f"the last 3: fell by less than {LEARN_MARGIN}")
+    say("7t", f"(d) loss {first:.4f} -> {last:.4f} (means of the first and "
+              f"last 3 steps), fell by {first - last:.4f} (gate "
+              f">= {LEARN_MARGIN})")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    cfg = model_config("mamba2-370m")
+    want = {"ssd_scan": cfg.n_layers}
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                           total_steps=M370_STEPS)
+    losses, ms, peak, launches, state, step, batches = train_run(
+        "mamba2-370m", cfg, ocfg, dev, M370_B, M370_T, M370_STEPS, want, 84)
+    add(launches)
+    prof = step_profile(lambda: step(state, batches[-1]))
+    say_train("mamba2-370m full config", cfg, M370_B, M370_T, losses, ms,
+              peak, prof, smi)
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(buf):
+        hist, counts = counted(lambda: lm_train.main(
+            ["--steps", str(EXAMPLE_STEPS), "--ckpt-dir", d]))
+    add(counts)
+    text = buf.getvalue().strip().splitlines()
+    check("LEARNED" in text[-1] and hist[-1]["loss"] < math.log(512) - 0.3,
+          f"examples.lm_train: {text[-3:]}")
+    say("7t", f"examples.lm_train granite-3-8b smoke, {EXAMPLE_STEPS} steps "
+              f"on the card: {' | '.join(text[-3:])}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    say("7t", f"train launches by counter: {total}")
+    return total
+
+
 def phase_twopass_times(ctx):
     """Phase 7, row 6: the two-pass tile step at svm-ocr's tile (processor
     0's active block of phase 5d, row-strided), driven once with the
@@ -4154,6 +4590,9 @@ def main() -> int:
     t7m = time.perf_counter()
     model = phase_lm_model(dev)
     say("7m", f"phase 7m passed in {time.perf_counter() - t7m:.1f} s")
+    t7t = time.perf_counter()
+    train = phase_lm_train(dev, smi)
+    say("7t", f"phase 7t passed in {time.perf_counter() - t7t:.1f} s")
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -4207,7 +4646,8 @@ def main() -> int:
         r = dict(lm[counter, label])
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
-                            if k == counter) + model.get(counter, 0)
+                            if k == counter) + model.get(counter, 0) \
+            + train.get(counter, 0)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))

@@ -606,6 +606,41 @@ _dso_tile_step_twopass.launches = 0
 # -------------------------------------------------------- LM kernels --
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class KernelGrad(torch.autograd.Function):
+    """A kernel's forward with the gradient of its plain version.
+
+    ``apply(forward, plain, kw, *inputs)``: the forward is
+    ``forward(*inputs, **kw)`` (the CUDA launch; the tests pass the plain
+    version), run once with no graph.  The backward recomputes
+    ``plain(*inputs, **kw)`` from the saved inputs under grad mode and
+    returns ``torch.autograd.grad`` of it for the incoming gradient, each
+    input's gradient in that input's type.  This is what the reference
+    does (it differentiates the same math in jnp; it has no custom
+    gradient), at the price of the plain version's time and memory in
+    every backward.  A hand-written backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, forward, plain, kw, *inputs):
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*xs, **ctx.kw)
+            got = iter(torch.autograd.grad(
+                out, [x for x, n in zip(xs, need) if n], grad))
+        return (None, None, None, *(next(got) if n else None for n in need))
+
+
 def swa_attention(q, k, v, *, window: int, causal: bool = True,
                   q_offset: int = 0):
     """Sliding-window attention, the reference's ``ops.swa_attention``:
@@ -622,6 +657,9 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     for float32, the bf16 tensor-core kernel on q, k, v in place for bf16
     with Dh a multiple of 8 (16-byte-aligned data), the same kernel on a
     packed, aligned copy for the rest; each route counts its own calls.
+    Under grad mode with an input that requires grad, the launch runs
+    inside ``KernelGrad``, whose backward differentiates the plain
+    version; the launches and their counts are the same.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")
@@ -639,19 +677,29 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     window, q_offset = int(window), int(q_offset)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    kw = dict(window=window, causal=bool(causal), q_offset=q_offset)
     if not _route(q, k, v):
-        return _swa.swa_attention_plain(q, k, v, window=window,
-                                        causal=causal, q_offset=q_offset)
+        return _swa.swa_attention_plain(q, k, v, **kw)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on the card")
+    if _wants_grad(q, k, v):
+        return KernelGrad.apply(_swa_launch, _swa.swa_attention_plain, kw,
+                                q, k, v)
+    return _swa_launch(q, k, v, **kw)
+
+
+def _swa_launch(q, k, v, *, window: int, causal: bool, q_offset: int):
+    """``swa_attention``'s launch on checked CUDA tensors: the route's
+    kernel into a new output."""
+    Dh, Tq = q.shape[3], q.shape[2]
     out = torch.empty_like(q)
     route = _swa.swa_route(q.dtype, Dh, aligned=all(
         t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
     if -(-Tq // _swa.QUERY_TILES[route]) > 65535:
         raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
                          f"query tiles")
-    kw = dict(window=window, causal=bool(causal), q_offset=q_offset,
+    kw = dict(window=window, causal=causal, q_offset=q_offset,
               scale=1.0 / Dh ** 0.5)
     if route == "tf32x3":
         _swa_attention_tf32x3(q, k, v, out, **kw)
@@ -695,7 +743,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
     not), dh must be at most ``_ssd.MAX_HEAD_DIM`` (else ``ValueError``),
     and a state size n whose shared memory does not fit one CTA makes the
     launch fail with ``RuntimeError``.  One call is three CUDA launches
-    (chunk states, state passing, chunk output), counted as one."""
+    (chunk states, state passing, chunk output), counted as one.  Under
+    grad mode with an input that requires grad, the launch runs inside
+    ``KernelGrad`` (the gradients from the plain version, dt's, A's, B's
+    and C's in their callers' types)."""
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be a 4-D float32 or bf16 tensor, got "
                         f"{x.dtype} of shape {tuple(x.shape)}")
@@ -719,6 +770,15 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
     if dh > _ssd.MAX_HEAD_DIM:
         raise ValueError(f"the SSD kernels take dh <= {_ssd.MAX_HEAD_DIM}, "
                          f"got {dh}")
+    if _wants_grad(x, dt, A, B, C):
+        return KernelGrad.apply(_ssd_launch, _ssd.ssd_scan_plain,
+                                dict(chunk=chunk), x, dt, A, B, C)
+    return _ssd_launch(x, dt, A, B, C, chunk=chunk)
+
+
+def _ssd_launch(x, dt, A, B, C, *, chunk: int):
+    """``ssd_scan``'s launch on checked CUDA tensors: dt, A, B, C as
+    float32 copies, y new."""
     f32 = [a.to(torch.float32).contiguous() for a in (dt, A, B, C)]
     y = torch.empty_like(x)
     _ssd.launch_ssd_scan(x, *f32, y, chunk=chunk)

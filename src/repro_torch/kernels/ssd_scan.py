@@ -76,8 +76,12 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int):
     cs = torch.cumsum(A.to(f32).view(1, h, 1, 1) * dtc, dim=-1)
     tmask = torch.ones(chunk, chunk, dtype=torch.bool,
                        device=x.device).tril()
-    decay = torch.where(tmask, torch.exp(cs[..., :, None] - cs[..., None, :]),
-                        0.0)
+    # the mask goes in before the exp: exp(-inf) is the 0 that masks, and
+    # the gradient stays finite where an unmasked exp(s_t - s_tau) of a
+    # future tau would overflow (0 * inf in autograd, the reference's
+    # where(mask, exp(diff), 0))
+    decay = torch.exp(torch.where(tmask, cs[..., :, None] - cs[..., None, :],
+                                  -torch.inf))
     M = (Cc @ Bc.transpose(-1, -2)) * decay * dtc[..., None, :]
     y = M @ xc                                               # b h c L dh
     last = cs[..., -1]                                       # b h c

@@ -1,0 +1,205 @@
+"""The dry run: what each (architecture x input shape) pair costs on the
+production meshes, priced from ``meta`` specs (the port's counterpart of
+``repro.launch.dryrun``).
+
+    python -m repro_torch.launch.dryrun --all --out DIR
+    python -m repro_torch.launch.dryrun --arch zamba2-7b --shape train_4k \\
+        [--multi-pod] [--out DIR]
+
+The reference AOT-compiles each pair's jitted step for 256 or 512
+placeholder XLA devices and reads XLA's analyses.  PyTorch has no
+counterpart to that compile (no GSPMD), so this dry run computes, for
+every pair on the 16 x 16 mesh and the 2 x 16 x 16 mesh, what the specs
+determine:
+
+* ``params`` and ``active_params`` (the configs' counts, as the
+  reference records them) and ``param_numel``, the sum of the ``meta``
+  tree's elements;
+* ``bytes``: parameters, gradients and the AdamW moments (train), the
+  decode cache (decode) and the batch, and ``per_device_bytes`` of each
+  under the shardings ``dist.sharding`` fits to the mesh;
+* ``flops``: the step's operations, counted from the shapes.
+  Projections, MLP and MoE at 2 operations per active weight and token
+  (the experts at top_k of n_experts; the unembedding at the positions
+  that are scored: all in training, the last in a prefill, one in a
+  decode step; the cross layers' K and V at the image tokens), attention
+  at 4 Hq Dh per attended (query, key) pair under the window the kernel
+  uses, the SSD scan at 5 n dh per step and head (the operation count of
+  its bound in ``PERF.md``), and a train step's backward at twice its
+  forward.  ``cost.flops`` holds the total, as the reference's record;
+* ``collectives``: the port's sharded train step is data-parallel
+  (``training.train.make_sharded_train_step``), so a train step makes
+  one all-reduce of the gradients over the data group, priced at the
+  ring's 2 (n-1)/n of the gradient bytes.  Prefill and decode make none.
+
+It cannot compute what the reference reads from XLA: the compiled
+step's ``memory_analysis`` (temporaries included), the collectives that
+GSPMD inserts for tensor parallelism (the HLO parse of
+``benchmarks/report.py``), and lower and compile times.  Each record lists
+these under ``not_computed``.  Nothing runs on a device, and records are
+written only under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+
+from repro_torch.configs.registry import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.config import ModelConfig
+
+NOT_COMPUTED = ("memory_analysis", "hlo_collectives", "lower_s",
+                "compile_s")
+
+
+def _sharded_bytes(mesh, tree, spec_tree, itemsize=None) -> tuple[int, int]:
+    """(total bytes, bytes on one device) of ``tree`` under the fitted
+    ``spec_tree``, at ``itemsize`` bytes an element (default: each
+    leaf's own)."""
+    specs = dict(shd.leaves_with_paths(spec_tree))
+    total = per = 0
+    for path, t in shd.leaves_with_paths(tree):
+        n = t.numel() * (itemsize or t.element_size())
+        total += n
+        per += shd.spec_bytes_per_device(mesh, specs[path], n)
+    return total, per
+
+
+def attended_pairs(T: int, window: int) -> int:
+    """(query, key) pairs of causal attention over T positions, each
+    query seeing its last ``window`` keys."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def forward_flops(cfg: ModelConfig, shape, params) -> dict:
+    """Operations of one forward over the batch, by part."""
+    B, T = shape.global_batch, shape.seq_len
+    decode = shape.kind == "decode"
+    tokens = 1 if decode else T
+    scored = T if shape.kind == "train" else 1
+    n_img = cfg.n_image_tokens if cfg.arch_type == "vlm" else 0
+    matmul = 0
+    for path, t in shd.leaves_with_paths(params):
+        if t.dim() < 2 or path == "embed":
+            continue
+        per_seq = tokens
+        if path.startswith("unembed"):
+            per_seq = scored
+        elif path in ("cross_layers/attn/wk", "cross_layers/attn/wv"):
+            per_seq = n_img
+        n = t.numel()
+        if "moe/w_" in path:
+            n = n * cfg.top_k // cfg.n_experts
+        matmul += 2 * n * per_seq
+    matmul *= B
+    attn = cross = ssd = 0
+    if cfg.has_attention:
+        qk = 4 * cfg.n_heads * cfg.head_dim
+        if cfg.arch_type == "hybrid":
+            n_self = cfg.n_layers // cfg.shared_attn_every
+        elif cfg.arch_type == "vlm":
+            n_self = cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+            cross = (cfg.n_layers // cfg.cross_attn_every) * qk * tokens \
+                * n_img * B
+        else:
+            n_self = cfg.n_layers
+        if decode:      # one query against the full cache
+            pairs = T if T <= cfg.full_attn_max else cfg.sliding_window
+        else:
+            window = cfg.sliding_window if T > cfg.full_attn_max else T
+            pairs = attended_pairs(T, window)
+        attn = n_self * qk * pairs * B
+    if cfg.arch_type in ("ssm", "hybrid"):
+        ssd = cfg.n_layers * 5 * cfg.ssm_state * cfg.ssm_head_dim \
+            * cfg.ssm_heads * tokens * B
+    return dict(matmul=matmul, attention=attn, cross_attention=cross,
+                ssd=ssd, forward=matmul + attn + cross + ssd)
+
+
+def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
+             out: str | None = None) -> dict:
+    """The record of one pair, also written to ``out``/<tag>.json when
+    ``out`` is given."""
+    cfg = get_config(arch)
+    shape = INPUT_SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    params = S.param_spec_tree(cfg)
+    p_specs = shd.param_shardings(mesh, params)
+    p_bytes, p_dev = _sharded_bytes(mesh, params, p_specs)
+    nbytes = {"params": p_bytes}
+    per_dev = {"params": p_dev}
+    numel = sum(t.numel() for _, t in shd.leaves_with_paths(params))
+    flops = forward_flops(cfg, shape, params)
+    collectives = {}
+    if shape.kind == "decode":
+        state = S.decode_state_specs(cfg, shape)
+        nbytes["decode_cache"], per_dev["decode_cache"] = _sharded_bytes(
+            mesh, state, shd.decode_state_specs_tree(mesh, state,
+                                                     shape.global_batch))
+        batch = S.decode_specs(cfg, shape)
+    else:
+        batch = S.batch_specs(cfg, shape)
+    nbytes["batch"], per_dev["batch"] = _sharded_bytes(
+        mesh, batch, shd.data_specs(mesh, batch))
+    if shape.kind == "train":
+        nbytes["grads"], per_dev["grads"] = p_bytes, p_dev
+        # mu and nu in float32 on the parameters' specs, the int32 step
+        m_bytes, m_dev = _sharded_bytes(mesh, params, p_specs, itemsize=4)
+        nbytes["opt_state"], per_dev["opt_state"] = 2 * m_bytes + 4, \
+            2 * m_dev + 4
+        flops["backward"] = 2 * flops["forward"]
+        axes = shd.data_axes(mesh, shape.global_batch)
+        n = math.prod(mesh.shape[a] for a in axes) if axes else 1
+        if n > 1:
+            collectives["all-reduce"] = dict(
+                count=1, group=n, axes=list(axes), result_bytes=p_bytes,
+                wire_bytes=2.0 * p_bytes * (n - 1) / n)
+    total = flops["forward"] + flops.get("backward", 0)
+    rec = dict(
+        arch=arch, shape=shape_name,
+        mesh="2x16x16" if multi_pod else "16x16", n_devices=mesh.size,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        param_numel=numel,
+        bytes=nbytes, per_device_bytes=per_dev, flops=flops,
+        cost={"flops": float(total)}, collectives=collectives,
+        not_computed=list(NOT_COMPUTED))
+    if out:
+        os.makedirs(out, exist_ok=True)
+        tag = f"{arch}__{shape_name}__{'multipod' if multi_pod else 'pod'}"
+        with open(os.path.join(out, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="the port's dry run: bytes, "
+                                             "FLOPs and collectives per "
+                                             "(arch, shape) pair")
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every pair on both meshes")
+    ap.add_argument("--out", help="directory for one JSON record per pair")
+    args = ap.parse_args(argv)
+    if args.all:
+        runs = [(a, s, mp) for mp in (False, True) for a in ARCH_IDS
+                for s in INPUT_SHAPES]
+    elif args.arch and args.shape:
+        runs = [(args.arch, args.shape, args.multi_pod)]
+    else:
+        ap.error("give --all, or --arch and --shape")
+    for a, s, mp in runs:
+        rec = run_pair(a, s, multi_pod=mp, out=args.out)
+        print(f"{a} {s} {rec['mesh']}: flops {rec['cost']['flops']:.4e}, "
+              f"params/device {rec['per_device_bytes']['params']:,} B")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""The reference's parameters and decode caches as the port's.
+"""The reference's parameters, optimizer state and decode caches as the
+port's.
 
 Both packages keep the same nested keys and stacked layer axes, so a
 conversion is leaf for leaf: a nested dict of numpy arrays (the JAX
@@ -6,7 +7,8 @@ package's pytree after ``jax.tree.map(np.asarray, ...)``; bf16 arrays may
 be ``ml_dtypes.bfloat16``) becomes the same nested dict of tensors on
 ``device``.  ``params_from_reference`` holds every leaf against
 ``model.param_specs(cfg)``: the same keys, shapes and types, or
-``ValueError``.
+``ValueError``; ``opt_state_from_reference`` holds the AdamW moments
+against the same keys and shapes in float32.
 """
 
 from __future__ import annotations
@@ -70,3 +72,22 @@ def decode_state_from_reference(tree, *, device="cuda"):
             return {k: conv(v) for k, v in t.items()}
         return _tensor(t, _torch_dtype_of(t), dev)
     return conv(tree)
+
+
+def opt_state_from_reference(state, cfg: ModelConfig, *, device="cuda"):
+    """The reference's ``OptState`` (mu, nu: float32 trees like the
+    parameters; step: int32; numpy leaves) as the port's
+    ``training.optimizer.OptState`` on ``device`` (default the card),
+    keys and shapes held against ``model.param_specs(cfg)``."""
+    from repro_torch.training.optimizer import OptState, tree_map
+    dev = resolve_device(device)
+    spec = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                          device="meta"), param_specs(cfg))
+    step = np.asarray(state.step)
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: {step.dtype}{list(step.shape)} where the "
+                         f"port has int32[]")
+    return OptState(mu=_convert(state.mu, spec, dev, "mu"),
+                    nu=_convert(state.nu, spec, dev, "nu"),
+                    step=torch.tensor(int(step), dtype=torch.int32,
+                                      device=dev))

@@ -16,8 +16,14 @@ Forward modes:
 
 Every self-attention prefill is one ``kernels.ops.swa_attention`` call and
 every Mamba2 scan one ``kernels.ops.ssd_scan`` call (``models.attention``,
-``models.mamba2``).  ``remat`` and ``unroll`` are accepted and change
-nothing: there is no scan to unroll, and remat belongs to training.
+``models.mamba2``).  ``remat=True`` runs each block (attention, Mamba2,
+cross, the hybrid's shared block) under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, the
+counterpart of the reference's ``jax.checkpoint`` per layer: the backward
+recomputes the block's forward, kernels included, and keeps only its
+input.  ``cfg.remat_policy`` has no counterpart (every block is
+recomputed whole), and ``unroll`` and ``q_chunk`` change nothing: there is
+no scan to unroll, and one kernel call covers every T.
 
 Inputs (per arch family):
   dense/moe/ssm/hybrid: batch["tokens"]       (B, T) int
@@ -30,6 +36,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -160,6 +167,14 @@ def _hybrid_groups(cfg: ModelConfig):
     return out
 
 
+def _run(block, remat: bool):
+    """``block()``, under activation checkpointing when ``remat`` and grad
+    mode is on (without grad mode there is nothing to keep)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, use_reentrant=False)
+    return block()
+
+
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
             q_chunk: int = 2048, last_only: bool = False,
             unroll: bool = False):
@@ -179,31 +194,37 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = params["layers"]
 
+    def attn_block(p, x):
+        return _run(lambda: _attn_block_apply(p, x, cfg, window=window,
+                                              q_chunk=q_chunk), remat)
+
+    def mamba_block(p, x):
+        return _run(lambda: _mamba_block_apply(p, x, cfg), remat)
+
+    def cross_block(p, x):
+        return _run(lambda: _cross_block_apply(p, x, batch["image_embeds"],
+                                               cfg), remat)
+
     if cfg.arch_type in ("dense", "moe", "audio"):
         for i in range(cfg.n_layers):
-            x, aux = _attn_block_apply(layer(layers, i), x, cfg,
-                                       window=window, q_chunk=q_chunk)
+            x, aux = attn_block(layer(layers, i), x)
             if cfg.is_moe:
                 aux_total = aux_total + aux
     elif cfg.arch_type == "ssm":
         for i in range(cfg.n_layers):
-            x = _mamba_block_apply(layer(layers, i), x, cfg)
+            x = mamba_block(layer(layers, i), x)
     elif cfg.arch_type == "hybrid":
         for ids, shared in _hybrid_groups(cfg):
             for i in ids:
-                x = _mamba_block_apply(layer(layers, i), x, cfg)
+                x = mamba_block(layer(layers, i), x)
             if shared:
-                x, _ = _attn_block_apply(params["shared_attn"], x, cfg,
-                                         window=window, q_chunk=q_chunk)
+                x, _ = attn_block(params["shared_attn"], x)
     elif cfg.arch_type == "vlm":
-        kv = batch["image_embeds"]
         ce = cfg.cross_attn_every
         for g in range(cfg.n_layers // ce):
             for j in range(ce - 1):
-                x, _ = _attn_block_apply(layer(layers, g * (ce - 1) + j), x,
-                                         cfg, window=window, q_chunk=q_chunk)
-            x = _cross_block_apply(layer(params["cross_layers"], g), x, kv,
-                                   cfg)
+                x, _ = attn_block(layer(layers, g * (ce - 1) + j), x)
+            x = cross_block(layer(params["cross_layers"], g), x)
     else:
         raise ValueError(cfg.arch_type)
 
@@ -221,7 +242,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
                       device="cuda"):
     """Zeroed caches on ``device`` (default the card), stacked per layer as
     the reference's are."""
-    dev = resolve_device(device)
+    return _decode_state(cfg, batch, seq_len, resolve_device(device))
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, seq_len: int):
+    """The decode caches' shapes and types on the ``meta`` device."""
+    return _decode_state(cfg, batch, seq_len, torch.device("meta"))
+
+
+def _decode_state(cfg: ModelConfig, batch: int, seq_len: int, dev):
     dtype = _dtype(cfg)
     kv = lambda n: attn.init_cache(cfg, batch, seq_len, dtype,  # noqa: E731
                                    device=dev, stack=(n,))

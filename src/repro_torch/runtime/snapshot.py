@@ -12,7 +12,10 @@ dtypes, per-leaf CRC32s and whole-file digest, so each package's
   ``a:name`` for a NamedTuple field) and written as one ``.npz`` (a
   tmp file and ``os.replace``), with an optional JSON ``meta`` dict in a
   reserved key.  Restore is by path into the structure and dtypes of a
-  template.
+  template.  A bf16 tensor is written as its raw 2-byte records (a
+  ``<V2`` member whose leaf record says ``bfloat16``), the bytes the
+  reference writes for a bf16 array, and restores bit for bit into a
+  bf16 template.
 
 * **Integrity** — each file carries a CRC32 per leaf (value bytes, dtype,
   shape) and a whole-file digest over the leaf records and the meta JSON
@@ -127,12 +130,56 @@ def _tree_map_with_path(fn, tree, path=()):
     return type(tree)(seq)
 
 
+_BF16 = np.dtype("V2")      # a bf16 leaf's bytes on the host
+
+
+def _is_bf16(arr: np.ndarray) -> bool:
+    """A raw 2-byte record: how the reference's npz files hold bf16, and
+    what an ``ml_dtypes`` bf16 array is to numpy."""
+    return (arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+            and arr.dtype.names is None)
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf on the host: a tensor is copied off its device (a CPU tensor
-    too, so a later in-place update cannot reach the copy)."""
+    too, so a later in-place update cannot reach the copy); a bf16 tensor
+    becomes its raw bits, a ``V2`` array (numpy has no bf16 type)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _tensor_from(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A saved leaf as a tensor of ``like``'s type on its device; a bf16
+    record's bits are taken as they are."""
+    if _is_bf16(arr):
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.array(arr))
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _write_npz(path: str, flat: dict):
+    """``np.savez(path, **flat)``, but a bf16 member's header names the
+    type ``<V2``, as numpy writes an ``ml_dtypes`` bf16 array: the
+    reference's member byte for byte."""
+    import zipfile
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in flat.items():
+            val = np.asanyarray(val)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if _is_bf16(val):
+                    head = np.lib.format.header_data_from_array_1_0(val)
+                    head["descr"] = "<V2"
+                    np.lib.format.write_array_header_1_0(fid, head)
+                    fid.write(np.ascontiguousarray(val).tobytes())
+                else:
+                    np.lib.format.write_array(fid, val, allow_pickle=False)
 
 
 # ------------------------------------------------------------- the codec --
@@ -154,8 +201,9 @@ def _json_default(o):
 def _leaf_record(arr: np.ndarray) -> list:
     """[crc32 of the value bytes, dtype, shape]: dtype and shape ride along
     so a header rewrite that reinterprets the same bytes is caught too."""
-    return [zlib.crc32(np.ascontiguousarray(arr).tobytes()),
-            str(arr.dtype), list(arr.shape)]
+    return [zlib.crc32(np.ascontiguousarray(arr)),     # its buffer, no copy
+            "bfloat16" if _is_bf16(arr) else str(arr.dtype),
+            list(arr.shape)]
 
 
 def _file_digest(leaves: dict, meta_json: str | None) -> int:
@@ -180,8 +228,8 @@ def save_pytree(path: str, tree, meta: dict | None = None) -> str:
         {"leaves": leaves, "digest": _file_digest(leaves, meta_json)}))
     if meta_json is not None:
         flat[_META_KEY] = np.asarray(meta_json)
-    tmp = path + ".tmp.npz"   # ends in .npz so np.savez appends nothing
-    np.savez(tmp, **flat)
+    tmp = path + ".tmp.npz"
+    _write_npz(tmp, flat)
     os.replace(tmp, path)
     return path
 
@@ -255,8 +303,7 @@ def load_pytree(path: str, tree_like):
                     f"into a different grid? reshard first "
                     f"(repro_torch.runtime.reshard)")
             if isinstance(leaf, torch.Tensor):
-                return torch.as_tensor(np.array(arr)).to(
-                    device=leaf.device, dtype=leaf.dtype)
+                return _tensor_from(arr, leaf)
             return np.asarray(arr, np.asarray(leaf).dtype)
 
         tree = _tree_map_with_path(restore, tree_like)
