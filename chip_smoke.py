@@ -191,7 +191,16 @@ Phases, one line per result:
    limits must raise.  Bounds: float32 as the
    reference's tests (swa rtol = atol = 2e-5; ssd rtol 2e-4, atol 2e-5);
    bf16 one bf16 ulp (2^-7 relative) more, since kernel and plain version
-   each round float32 sums that differ in order to bf16.
+   each round float32 sums that differ in order to bf16.  Then the
+   backward at the same attention and SSD cases, both dtypes: each
+   route's forward that saves the rows' logsumexp (SSD: its chunk states
+   and decays) against the plain version's (1e-5 relative; -1e30 on rows
+   with no key), and its backward kernels against the plain backward on
+   the same saved tensors (``BWD_TOL``: one bf16 ulp of the largest
+   element for a bf16 gradient, 2e-5 x max(1, max|g|) for a float32
+   one); each backward route's count (``swa_attention_bwd``,
+   ``swa_attention_bwd_packed``, ``swa_attention_bwd_f32``,
+   ``ssd_scan_bwd``) must equal the cases routed to it.
 6. times at the phase-4/5/5n/5d shapes with CUDA events: each kernel's ms
    per call beside its bound (bytes over 3.35 TB/s, operations over 67
    TFLOP/s float32; the sparse steps' bytes are the live slots' and the
@@ -233,8 +242,17 @@ Phases, one line per result:
    at t 16,384, and at mamba2-370m's 32 heads with state 128 (timed in
    the order kernel, plain, plain, kernel, 5 calls each; the device time
    of each of its three launches, and the chunked form's operations
-   beside the exact recurrence's bound).  Then the
-   two-pass tile step at svm-ocr's tile (processor 0's active block of
+   beside the exact recurrence's bound).  Then the backward kernels, each
+   driven once with the counts around it and held against the plain
+   backward (``BWD_TOL``): attention at phase 7t's shapes (B 2 x T 4,096
+   bf16, in place and on a misaligned copy (the packed route); B 1 in
+   float32) and at T 16,384 with a 4,096 window, SSD at zamba2-7b's group
+   (b 2 x t 4,096) and mamba2-370m's (b 4 x t 2,048, state 128); each
+   timed by CUDA events behind a spin beside its bound, the plain
+   backward, the old recompute (autograd through the plain forward; "not
+   measured" where its graph does not fit) and, for attention, the
+   backward of ``F.scaled_dot_product_attention(is_causal=True)``.  Then
+   the two-pass tile step at svm-ocr's tile (processor 0's active block of
    phase 5d, 250,000 x 289, the span route) beside the fused step and the
    cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
    max|d| against the plain version.
@@ -265,13 +283,17 @@ Phases, one line per result:
    (GQA 32/8, Dh 128), bf16, T 4,096: 2 ``swa_attention_tc`` launches,
    the top-5 gate.  The launches add to the LM rows of the table.
 7t. LM training on the card (``repro_torch.training``; after 7m): the
-   SWA and SSD wrappers under autograd run their kernel forward inside
-   ``ops.KernelGrad``, whose backward recomputes the plain version.
+   SWA and SSD wrappers under autograd run inside ``ops.SWAAttention``
+   and ``ops.SSDScan``: the kernel forward also saves the logsumexp or
+   the chunk states, and the backward runs the backward kernels.
    (a) At the shapes of zamba2-7b's first group (B 2 x T 4,096; SWA 32
    heads of 112 in bf16, SSD 112 heads of 64, state 64): each Function's
-   input gradients against autograd through the plain version from the
-   same inputs and upstream gradient, held to two plain runs' max|d|
-   (0.0 when the card repeats itself), the forwards to phase 3l's bounds.
+   input gradients against a float64 autograd of the plain version from
+   the same inputs and upstream gradient, at most twice as far from it
+   (max|d|) as autograd of the plain version in the inputs' own types,
+   plus one ulp of the gradient's type at its largest element (both
+   distances printed); one launch of each forward and backward; the
+   forwards to phase 3l's bounds.
    (b) The group in float32, B 1 x T 4,096: one step's loss (1e-4
    relative) and every gradient leaf (1e-3 relative L2) through the
    kernels against the plain versions.  (c) The group in bf16: the first
@@ -279,22 +301,28 @@ Phases, one line per result:
    block, head), kernel against plain, within the plain run's own change
    under one bf16 rounding of input noise.  Then 20 AdamW steps (bf16
    parameters, float32 moments, lr 1e-3, B 2 x T 4,096 of the Markov
-   pipeline, ``remat=False``): each step exactly 1 ``swa_attention_tc``
-   and 6 ``ssd_scan`` launches; (d) the loss falls by at least
+   pipeline, ``remat=False``): each step exactly 1 ``swa_attention_tc``,
+   1 ``swa_attention_bwd``, 6 ``ssd_scan`` and 6 ``ssd_scan_bwd``
+   launches, and no call of a plain version on a CUDA tensor in the
+   steps; (d) the loss falls by at least
    ``LEARN_MARGIN``; (e) at step 10 a ``training.checkpoint`` round trip
    restores the state bit for bit, and step 11 from it equals the
    uninterrupted step 11 (or lies within two uninterrupted runs' max|d|).
    ms per step (host clock), tokens/s, peak memory, one step's device
-   time behind a spin (CUDA events) with the plain recomputes' share,
+   time behind a spin (CUDA events) with the backward kernels' share,
    and a profiled step's busy and wall time.  mamba2-370m at its full
-   config, bf16, B 4 x T 2,048, 5 steps of 48 ``ssd_scan`` launches, the
-   same numbers.  ``examples.lm_train`` (granite-3-8b's smoke config,
+   config, bf16, B 4 x T 2,048, 5 steps of 48 ``ssd_scan`` and 48
+   ``ssd_scan_bwd`` launches, the same numbers.  ``examples.lm_train`` (granite-3-8b's smoke config,
    float32) for 200 steps on the card must print ``LEARNED``.  The
    launches add to the LM rows of the table.
 
-Prints the kernel table as one JSON line (the serial epoch kernel's row,
-then the baselines' ``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's
-4,096-row shape, with ``replaces`` null), the card's ``nvidia-smi`` line,
+Prints the kernel table as one JSON line (the LM backward kernels' rows
+``swa_attention_bwd``, ``swa_attention_bwd_packed``,
+``swa_attention_bwd_f32`` and ``ssd_scan_bwd`` at phase 7's first shape of
+each, with ``replaces`` null and the old recompute's ms as
+``recompute_ms``; the serial epoch kernel's row, then the baselines'
+``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's 4,096-row shape, with
+``replaces`` null), the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA card it exits 2 before printing any result.
 """
@@ -3001,6 +3029,138 @@ def phase_lm_kernels(dev):
     return worst
 
 
+# the backward kernels against the plain backward on the same saved tensors:
+# max|d| <= BWD_TOL x max(1, max|plain|), one bf16 ulp (relative to the
+# largest element) for a bf16 gradient, the SWA forward tolerance for a
+# float32 one
+BWD_TOL = {True: BF16_ULP, False: 2e-5}
+LSE_TOL = 1e-5             # the saved logsumexp against the plain one
+SWA_BWD_COUNTERS = {"tf32x3": "swa_attention_bwd_f32",
+                    "tensor_cores": "swa_attention_bwd",
+                    "packed": "swa_attention_bwd_packed"}
+
+
+def bwd_within(got, want):
+    """(max|d| over the gradients, whether each is finite, of its plain
+    counterpart's type and within ``BWD_TOL`` of it)."""
+    import torch
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        e = float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+        top = float(w.float().abs().max()) if w.numel() else 0.0
+        worst = max(worst, e)
+        ok &= (e <= BWD_TOL[w.dtype == torch.bfloat16] * max(1.0, top)
+               and g.dtype == w.dtype and bool(torch.isfinite(g).all()))
+    return worst, ok
+
+
+def swa_bwd_case(q, k, v, do, kw):
+    """The attention's forward that saves the logsumexp and its backward,
+    both through ``ops`` (the kernels), against the plain versions on the
+    same tensors: (max|d| of the logsumexp, max|d| of the gradients,
+    whether all are within bounds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as swa
+    o, lse = ops._swa_launch(q, k, v, **kw, lse=True)
+    grads = ops._swa_bwd_launch(q, k, v, o, lse, do, **kw)
+    _, plse = swa.swa_attention_plain(q, k, v, **kw, return_lse=True)
+    want = swa.swa_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    live = plse > swa.NEG_INF / 2
+    e_lse = float((lse - plse).abs()[live].max()) if live.any() else 0.0
+    ok_lse = e_lse <= LSE_TOL * max(1.0, float(plse[live].abs().max())
+                                    if live.any() else 0.0) \
+        and bool((lse[~live] == swa.NEG_INF).all())
+    e, ok = bwd_within(grads, want)
+    return e_lse, e, ok and ok_lse
+
+
+def ssd_bwd_case(x, dt, A, Bm, Cm, dy, chunk):
+    """The SSD forward that keeps its chunk states and its backward, both
+    through ``ops`` (the kernels), against the plain versions on the same
+    tensors: (max|d| of the states, max|d| of the gradients, ok)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    _, states, decay = ops._ssd_launch(x, dt, A, Bm, Cm, chunk=chunk,
+                                       save=True)
+    grads = ops._ssd_scan_bwd(x, dt, A, Bm, Cm, states, decay, dy,
+                              chunk=chunk)
+    _, pst, pdec = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
+                                      return_states=True)
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, decay, dy,
+                                  chunk=chunk)
+    e_st = max(float((states - pst).abs().max()),
+               float((decay - pdec).abs().max()))
+    ok_st = e_st <= SSD_TOL[1] + SSD_TOL[0] * float(pst.abs().max())
+    # in the inputs' types, as ops.SSDScan returns them
+    grads = [g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))]
+    e, ok = bwd_within(grads, want)
+    return e_st, e, ok and ok_st
+
+
+def phase_lm_bwd_kernels(dev):
+    """Phase 3l, the backward: at phase 3l's shapes, in float32 and bf16,
+    each route's forward that saves the logsumexp (the SSD: its chunk
+    states) and its backward kernels against the plain versions on the
+    same tensors; every backward route's launch count must equal the
+    cases routed to it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(33)
+    worst = {}
+    want = {c: 0 for c in SWA_BWD_COUNTERS.values()}
+    want["ssd_scan_bwd"] = 0
+    ops.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        cases = [(c, True) for c in SWA_CASES] \
+            + [(c, True) for c in (SWA_BF16_CASES if bf16
+                                   else SWA_F32_CASES)] \
+            + [(c, False) for c in SWA_MISALIGNED_CASES]
+        for (B, Hq, Hkv, Tq, Tk, Dh, window, causal, off), aligned in cases:
+            route = swa.swa_route(dtype, Dh, aligned)
+            want[SWA_BWD_COUNTERS[route]] += 1
+            q = torch.randn(B, Hq, Tq, Dh, generator=gen, device=dev)
+            do = torch.randn(B, Hq, Tq, Dh, generator=gen, device=dev)
+            k, v = (torch.randn(B, Hkv, Tk, Dh, generator=gen, device=dev)
+                    for _ in range(2))
+            q, k, v, do = (a.to(dtype) for a in (q, k, v, do))
+            if not aligned:
+                q, k, v, do = (misaligned_copy(a) for a in (q, k, v, do))
+            kw = dict(window=window, causal=causal, q_offset=off)
+            e_lse, e, ok = swa_bwd_case(q, k, v, do, kw)
+            worst["swa_bwd", bf16] = max(worst.get(("swa_bwd", bf16), 0.0),
+                                         e)
+            say("3l", f"swa_attention backward {str(dtype)[6:]} ({route}) "
+                      f"B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} Dh={Dh} "
+                      f"window={window} causal={causal} q_offset={off} "
+                      f"{'' if aligned else 'misaligned '}lse max|d|="
+                      f"{e_lse:.3e} gradients max|d|={e:.3e}")
+            check(ok, f"swa_attention's backward disagrees with its plain "
+                      f"version (lse {e_lse:.3e}, gradients {e:.3e})")
+        for b, t, h, dh, n, chunk, fill in SSD_CASES:
+            x, dt, A, Bm, Cm = ssd_inputs(b, t, h, dh, n, gen, dtype)
+            if fill is not None:
+                A = torch.full_like(A, fill)
+            dy = torch.randn(b, t, h, dh, generator=gen,
+                             device=dev).to(dtype)
+            want["ssd_scan_bwd"] += 1
+            e_st, e, ok = ssd_bwd_case(x, dt, A, Bm, Cm, dy, chunk)
+            worst["ssd_bwd", bf16] = max(worst.get(("ssd_bwd", bf16), 0.0),
+                                         e)
+            say("3l", f"ssd_scan backward {str(dtype)[6:]} b={b} t={t} h={h} "
+                      f"dh={dh} n={n} chunk={chunk} A="
+                      f"{'-1e4' if fill else 'drawn'} states max|d|="
+                      f"{e_st:.3e} gradients max|d|={e:.3e}")
+            check(ok, f"ssd_scan's backward disagrees with its plain "
+                      f"version (states {e_st:.3e}, gradients {e:.3e})")
+    torch.cuda.synchronize()
+    got = {k: ops.launch_counts()[k] for k in want}
+    say("3l", f"backward launches by route {got} (cases routed: {want})")
+    check(got == want, f"backward routes {got} != {want}")
+    return worst
+
+
 # zamba2-7b (configs/zamba2_7b.py): 32 attention heads of 112 over d_model
 # 3,584; SSD 112 heads of 64 (expand 2), state 64; sliding window 8,192
 # above full_attn_max 65,536; bf16.  mamba2-370m: 32 SSD heads, state 128.
@@ -3212,6 +3372,186 @@ def phase_lm_full(dev):
                f"{plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f}), no "
                f"single PyTorch call computes it, max|d| {err:.3e}")
         del x, dt, A, Bm, Cm
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The backward kernels at phase 7t's shapes (zamba2-7b's first group: B 2 x
+# T 4,096, 32 heads of 112; its float32 twin at B 1) and at a sliding
+# window (T 16,384, window 4,096, zamba2-7b's heads): (label, B, T, window,
+# dtype name, misaligned); the misaligned case takes the packed route
+SWA_BWD_FULL = [("7t group, causal", 2, 4096, 4096, "bfloat16", False),
+                ("sliding window", 1, 16384, 4096, "bfloat16", False),
+                ("7t group, causal, misaligned", 2, 4096, 4096, "bfloat16",
+                 True),
+                ("7t float32 group, causal", 1, 4096, 4096, "float32",
+                 False)]
+# (label, b, t, h, dh, n): x and B, C in bf16 as phase 7t's gate (a)
+SSD_BWD_FULL = [("zamba2-7b group", 2, 4096, 112, 64, 64),
+                ("mamba2-370m", 4, 2048, 32, 64, 128)]
+
+
+def swa_bwd_bound(B, H, T, Dh, window, elem):
+    """(bound ms, bound_by) of the attention's backward (MHA, causal):
+    q, k, v, o, do and lse read once, dq, dk, dv written once; five
+    products, 10 Dh operations per attended (query, key) pair, at the
+    bf16 tensor-core rate (the float32 FMA rate for 4-byte inputs)."""
+    import torch
+    pos = torch.arange(T, dtype=torch.float64)
+    lo = (pos - window + 1).clamp(min=0)
+    pairs = float((pos - lo + 1).sum()) * B * H
+    nbytes = elem * 8 * B * H * T * Dh + 4 * B * H * T
+    ops_s = 10 * Dh * pairs / (BF16_OPS_S if elem == 2 else F32_OPS_S)
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
+    return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
+
+
+def ssd_bwd_bound(x, n, chunk):
+    """(bound ms, bound_by) of the SSD scan's backward: x, dy, dt, A, B, C
+    and the saved chunk states read once, dx, ddt, dA, dB, dC written
+    once; ~10 n dh float32 operations per (step, head), twice the exact
+    recurrence's forward (the state adjoint's recurrence and the
+    products that take the gradients from it)."""
+    b, t, h, dh = x.shape
+    nbytes = 3 * x.numel() * x.element_size() + 4 * (
+        2 * b * t * h + 2 * h + 4 * b * t * n
+        + b * h * -(-t // chunk) * (n * dh + 1))
+    ops_s = 10 * n * dh * b * t * h / F32_OPS_S
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
+    return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
+
+
+def recompute_ms(plain, inputs, up):
+    """ms of the backward that the kernels replaced: autograd through the
+    plain forward from fresh leaves (the plain recompute), timed by CUDA
+    events behind a spin; None when the card's memory does not hold its
+    graph."""
+    import torch
+
+    def step():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(plain(*xs), xs, up)
+    try:
+        return spin_ms(step, 1, warm=1)
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def sdpa_bwd_ms(q, k, v, do):
+    """ms of the backward of ``F.scaled_dot_product_attention(is_causal=
+    True)`` (full causal attention, whatever the window) on aligned
+    copies, never called by the port: the forward once, then the
+    gradients (``retain_graph``) timed behind a spin."""
+    import torch
+    import torch.nn.functional as F
+    xs = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(*xs, is_causal=True)
+    up = do.clone()                 # aligned, as SDPA's backward needs
+    ms = spin_ms(lambda: torch.autograd.grad(out, xs, up,
+                                             retain_graph=True), 3)
+    del out, xs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def say_bwd(label, what, ms, busy, kern, bound, by, plain_ms, rec_ms,
+            lib, err):
+    say(7, f"{what} backward ({label}): {ms:.4f} ms per call (CUDA events "
+           f"behind a spin; device {busy:.4f} ms per call under the "
+           f"profiler: " + ", ".join(f"{k[:40]}={kms:.4f}"
+                                     for k, kms in kern[:4])
+           + f"), bound {bound:.4f} ms ({by}), plain backward "
+           f"{plain_ms:.4f} ms, the old recompute (autograd through the "
+           f"plain forward) " + (f"{rec_ms:.4f} ms" if rec_ms is not None
+                                 else "not measured (out of memory)")
+           + (f", {lib}" if lib else "") + f", max|d| {err:.3e}")
+
+
+def phase_lm_bwd_full(dev):
+    """Phase 7, the backward: the backward kernels at phase 7t's shapes
+    and at a sliding window, each driven once with the counts set to 0
+    around it, held against the plain backward on the same saved
+    tensors, and timed beside its bound, the plain backward, the old
+    recompute and (attention) SDPA's backward."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = {}
+    H, DH = ZAMBA_HEADS, ZAMBA_HEAD_DIM
+    for label, B, T, window, dname, misaligned in SWA_BWD_FULL:
+        dtype = getattr(torch, dname)
+        q, k, v, do = (torch.randn(B, H, T, DH, generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        if misaligned:
+            q, k, v, do = (misaligned_copy(a) for a in (q, k, v, do))
+        kw = dict(window=window, causal=True, q_offset=0)
+        o, lse = ops._swa_launch(q, k, v, **kw, lse=True)
+        route = swa.swa_route(dtype, DH, not misaligned)
+        counter = SWA_BWD_COUNTERS[route]
+        call = lambda: ops._swa_bwd_launch(q, k, v, o, lse, do,  # noqa
+                                           **kw)
+        grads, n = drive_once(counter, call)
+        want = swa.swa_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        err, ok = bwd_within(grads, want)
+        check(ok, f"{counter} {label}: max|d| {err:.3e} against the plain "
+                  f"backward")
+        del grads, want
+        ms = spin_ms(call, 3)
+        busy, kern = device_ms_per_call(call, 3)
+        plain_ms = spin_ms(lambda: swa.swa_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 1, warm=1)
+        rec = recompute_ms(lambda *a: swa.swa_attention_plain(*a, **kw),
+                           (q, k, v), do)
+        lib_ms = sdpa_bwd_ms(q, k, v, do)
+        bound, by = swa_bwd_bound(B, H, T, DH, window, q.element_size())
+        rows[counter, label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, max_abs_err=err, launches=n,
+            device_ms=busy, recompute_ms=rec)
+        say_bwd(label, f"{counter} {dname} B={B} H={H} T={T} Dh={DH} "
+                       f"window={window}", ms, busy, kern, bound, by,
+                plain_ms, rec, f"SDPA(is_causal) backward {lib_ms:.4f} ms",
+                err)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    for label, b, t, h, dh, nst in SSD_BWD_FULL:
+        x, dt, A, Bm, Cm = ssd_inputs(b, t, h, dh, nst, gen, bf)
+        Bm, Cm = Bm.to(bf), Cm.to(bf)
+        dy = torch.randn(b, t, h, dh, generator=gen, device=dev).to(bf)
+        _, states, decay = ops._ssd_launch(x, dt, A, Bm, Cm, chunk=SSD_CHUNK,
+                                           save=True)
+        call = lambda: ops._ssd_scan_bwd(  # noqa: E731
+            x, dt, A, Bm, Cm, states, decay, dy, chunk=SSD_CHUNK)
+        grads, n = drive_once("ssd_scan_bwd", call)
+        want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, states, decay, dy,
+                                      chunk=SSD_CHUNK)
+        err, ok = bwd_within([g.to(t.dtype) for g, t in
+                              zip(grads, (x, dt, A, Bm, Cm))], want)
+        check(ok, f"ssd_scan_bwd {label}: max|d| {err:.3e} against the "
+                  f"plain backward")
+        del grads, want
+        ms = spin_ms(call, 3)
+        busy, kern = device_ms_per_call(call, 3)
+        plain_ms = spin_ms(lambda: ssd.ssd_scan_bwd_plain(
+            x, dt, A, Bm, Cm, states, decay, dy, chunk=SSD_CHUNK), 1,
+            warm=1)
+        rec = recompute_ms(lambda *a: ssd.ssd_scan_plain(*a, chunk=SSD_CHUNK),
+                           (x, dt, A, Bm, Cm), dy)
+        bound, by = ssd_bwd_bound(x, nst, SSD_CHUNK)
+        rows["ssd_scan_bwd", label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None, max_abs_err=err, launches=n, device_ms=busy,
+            recompute_ms=rec)
+        say_bwd(label, f"ssd_scan_bwd bf16 x, B, C b={b} t={t} h={h} "
+                       f"dh={dh} n={nst} chunk={SSD_CHUNK}", ms, busy, kern,
+                bound, by, plain_ms, rec, "no single PyTorch call computes "
+                                          "it", err)
+        del x, dt, A, Bm, Cm, dy, states, decay
         torch.cuda.empty_cache()
     return rows
 
@@ -3566,40 +3906,72 @@ EXAMPLE_STEPS = 200
 
 
 @contextlib.contextmanager
-def recompute_timer():
-    """Within the ``with``: ``ops.KernelGrad``'s backward (the plain
-    version's recompute) between two CUDA events; yields the list of
-    event pairs, one per backward."""
+def backward_timer():
+    """Within the ``with``: the backward of ``ops.SWAAttention`` and
+    ``ops.SSDScan`` (the backward kernels' launches) between two CUDA
+    events; yields the list of event pairs, one per backward."""
     import torch
     from repro_torch.kernels import ops
-    orig = ops.KernelGrad.backward
+    fns = (ops.SWAAttention, ops.SSDScan)
+    origs = [f.backward for f in fns]
     pairs = []
 
-    def timed(ctx, grad):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = orig(ctx, grad)
-        b.record()
-        pairs.append((a, b))
-        return out
-    ops.KernelGrad.backward = staticmethod(timed)
+    def timer(orig):
+        def timed(ctx, grad):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(ctx, grad)
+            b.record()
+            pairs.append((a, b))
+            return out
+        return staticmethod(timed)
+    for f, orig in zip(fns, origs):
+        f.backward = timer(orig)
     try:
         yield pairs
     finally:
-        ops.KernelGrad.backward = staticmethod(orig)
+        for f, orig in zip(fns, origs):
+            f.backward = staticmethod(orig)
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Within the ``with``: every call of the LM kernels' plain versions
+    (forward and backward) on CUDA tensors is counted; yields the counts
+    by name.  On the card's path nothing may call them."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_attention as swa
+    names = [(swa, "swa_attention_plain"), (swa, "swa_attention_bwd_plain"),
+             (ssd, "ssd_scan_plain"), (ssd, "ssd_scan_bwd_plain")]
+    counts = {name: 0 for _, name in names}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                counts[name] += 1
+            return fn(*args, **kw)
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def step_profile(fn):
     """One call of ``fn`` (a train step): (device ms by CUDA events around
-    it, the recomputes' share of them, profiler wall ms, profiler busy
-    ms, longest kernels).  The events are queued behind a spin, so the
-    step's launches run back to back whatever the host takes."""
+    it, the backward kernels' share of them, profiler wall ms, profiler
+    busy ms, longest kernels).  The events are queued behind a spin, so
+    the step's launches run back to back whatever the host takes."""
     import torch
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    with recompute_timer() as pairs:
+    with backward_timer() as pairs:
         torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
@@ -3638,12 +4010,65 @@ def _state_max_diff(a, b):
                float((a.opt.step - b.opt.step).abs()))
 
 
+def ulp(dtype, mag):
+    """One ulp of ``dtype`` at magnitude ``mag``."""
+    import math
+    import torch
+    if mag <= 0:
+        return 0.0
+    return torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(mag))
+
+
+def swa_f64_grads(q, k, v, up, kw, heads=8):
+    """float64 autograd of the plain attention (the reference of gate
+    (a)), one batch row and ``heads`` query heads (their kv heads) at a
+    time so that its graph fits beside the rest."""
+    import torch
+    from repro_torch.kernels.swa_attention import swa_attention_plain
+    f64 = torch.float64
+    B, Hq = q.shape[:2]
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    step = max(1, heads // rep)
+    out = [torch.empty(t.shape, dtype=f64, device=t.device)
+           for t in (q, k, v)]
+    for b in range(B):
+        for g0 in range(0, Hkv, step):
+            g1 = min(Hkv, g0 + step)
+            sl = (slice(b, b + 1), slice(g0 * rep, g1 * rep))
+            slk = (slice(b, b + 1), slice(g0, g1))
+            xs = [q[sl].to(f64).requires_grad_(),
+                  k[slk].to(f64).requires_grad_(),
+                  v[slk].to(f64).requires_grad_()]
+            g = torch.autograd.grad(swa_attention_plain(*xs, **kw), xs,
+                                    up[sl].to(f64))
+            out[0][sl], out[1][slk], out[2][slk] = g
+            del xs, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_f64_grads(inputs, up, chunk):
+    """float64 autograd of the plain SSD scan (the reference of gate
+    (a))."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    xs = [t.to(torch.float64).requires_grad_() for t in inputs]
+    g = torch.autograd.grad(ssd_scan_plain(*xs, chunk=chunk), xs,
+                            up.to(torch.float64))
+    torch.cuda.empty_cache()
+    return g
+
+
 def kernel_grad_gate(dev, seed=80):
     """Phase 7t (a): at the group's shapes, each kernel's autograd
-    Function against autograd through the plain version from the same
-    inputs and upstream gradient: the input gradients within the two
-    plain runs' own max|d| (0.0 when the card repeats itself), the
-    forward within its phase-3l bound."""
+    Function (the kernel forward that saves its logsumexp or chunk
+    states, then the backward kernels) against a float64 autograd of the
+    plain version from the same inputs and upstream gradient: each input
+    gradient may be at most twice as far from it (max|d|) as autograd of
+    the plain version in the inputs' own types is, plus one ulp of the
+    gradient's type at its largest element; the gradients in the inputs'
+    types; the forward within its phase-3l bound."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -3661,37 +4086,53 @@ def kernel_grad_gate(dev, seed=80):
     qkv = [r(B, 32, T, 112).to(bf16) for _ in range(3)]
     x, dt, A, Bm, Cm = ssd_inputs(B, T, 112, 64, 64, gen, bf16)
     ssd_in = (x, dt, A, Bm.to(bf16), Cm.to(bf16))
-    cases = [("swa_attention_tc", qkv, r(B, 32, T, 112).to(bf16),
+    swa_kw = dict(window=T, causal=True, q_offset=0)
+    cases = [("swa_attention_tc", "swa_attention_bwd", "qkv", qkv,
+              r(B, 32, T, 112).to(bf16),
               lambda *a: ops.swa_attention(*a, window=T),
-              lambda *a: swa_attention_plain(*a, window=T), SWA_TOL),
-             ("ssd_scan", ssd_in, r(B, T, 112, 64).to(bf16),
+              lambda *a: swa_attention_plain(*a, window=T),
+              lambda ins, up: swa_f64_grads(*ins, up, swa_kw), SWA_TOL),
+             ("ssd_scan", "ssd_scan_bwd", ("x", "dt", "A", "B", "C"),
+              ssd_in, r(B, T, 112, 64).to(bf16),
               lambda *a: ops.ssd_scan(*a, chunk=SSD_CHUNK),
-              lambda *a: ssd_scan_plain(*a, chunk=SSD_CHUNK), SSD_TOL)]
+              lambda *a: ssd_scan_plain(*a, chunk=SSD_CHUNK),
+              lambda ins, up: ssd_f64_grads(ins, up, SSD_CHUNK), SSD_TOL)]
     launches = {}
-    for name, inputs, up, kern, plain, tol in cases:
+    for name, bwd, names, inputs, up, kern, plain, ref, tol in cases:
         (out, g), counts = counted(lambda: grads(kern, inputs, up))
-        check_counts("7t", counts, {name: 1})
-        launches[name] = counts[name]
+        check_counts("7t", counts, {name: 1, bwd: 1})
+        for k_ in (name, bwd):
+            launches[k_] = counts[k_]
         out_p, g_p = grads(plain, inputs, up)
-        _, g_p2 = grads(plain, inputs, up)
-        noise = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(g_p, g_p2))
-        d = max(float((a.float() - b.float()).abs().max())
-                for a, b in zip(g, g_p))
-        types_ok = all(a.dtype == t.dtype for a, t in zip(g, inputs))
         err, ok = within(out, out_p, tol, True)
-        check(d <= noise and types_ok and ok,
-              f"{name}: Function gradients max|d| {d:.3e} against plain "
-              f"autograd (two plain runs {noise:.3e}), types {types_ok}, "
-              f"forward max|d| {err:.3e} (ok {ok})")
-        say("7t", f"(a) {name} at {tuple(inputs[0].shape)}: gradients of "
-                  f"the Function (kernel forward, plain recompute) vs "
-                  f"autograd through the plain version max|d| {d:.3e}, two "
-                  f"plain runs {noise:.3e}; gradient types "
-                  f"{[str(a.dtype)[6:] for a in g]}; forward max|d| "
-                  f"{err:.3e} (bound rtol {tol[0]} + 1 bf16 ulp, atol "
-                  f"{tol[1]})")
-        del g, g_p, g_p2, out, out_p
+        del out, out_p
+        g_ref = ref(inputs, up)
+        types_ok = all(a.dtype == t.dtype for a, t in zip(g, inputs))
+        lines, bad = [], []
+        for gname, gk, gp, gr in zip(names, g, g_p, g_ref):
+            d_k = float((gk.double() - gr).abs().max())
+            d_p = float((gp.double() - gr).abs().max())
+            u = ulp(gk.dtype, float(gr.abs().max()))
+            lines.append(f"d{gname} ({str(gk.dtype)[6:]}) kernel "
+                         f"{d_k:.3e}, plain {d_p:.3e}, bound "
+                         f"{2 * d_p + u:.3e}")
+            if not d_k <= 2 * d_p + u:
+                bad.append(gname)
+        del g, g_p, g_ref
+        torch.cuda.empty_cache()
+        check(not bad and types_ok and ok,
+              f"{name}: gradients {bad} farther from the float64 plain "
+              f"autograd than twice the plain version's distance plus one "
+              f"ulp ({'; '.join(lines)}), types {types_ok}, forward max|d| "
+              f"{err:.3e} (ok {ok})")
+        say("7t", f"(a) {name} + {bwd} at {tuple(inputs[0].shape)}: max|d| "
+                  f"from a float64 autograd of the plain version, the "
+                  f"Function's (kernel forward and backward) against "
+                  f"autograd of the plain version in the inputs' types "
+                  f"(bound: twice the latter plus one ulp of the gradient "
+                  f"at its largest element): " + "; ".join(lines)
+                  + f"; forward max|d| {err:.3e} (bound rtol {tol[0]} + 1 "
+                  f"bf16 ulp, atol {tol[1]})")
     return launches
 
 
@@ -3711,7 +4152,9 @@ def f32_group_gate(dev, seed=81):
     step = lambda: T.loss_and_grads(params, batch, cfg,  # noqa: E731
                                     remat=False)
     (total, _, grads), counts = counted(step)
-    check_counts("7t", counts, {"swa_attention_tf32x3": 1, "ssd_scan": 6})
+    check_counts("7t", counts, {"swa_attention_tf32x3": 1, "ssd_scan": 6,
+                                "swa_attention_bwd_f32": 1,
+                                "ssd_scan_bwd": 6})
     with plain_kernels():
         p_total, _, p_grads = step()
     d_loss = abs(float(total) - float(p_total)) / abs(float(p_total))
@@ -3794,8 +4237,10 @@ def bf16_grad_gate(cfg, dev, seed):
 def train_run(label, cfg, ocfg, dev, b, t, steps, want, seed, resume_at=None):
     """``steps`` train steps of ``cfg`` on Markov batches (B ``b`` x T
     ``t``), each in its own launch-count window holding ``want``; at
-    ``resume_at`` the checkpoint round trip (phase 7t (e)).  Returns
-    (losses, step ms, peak bytes, launches, the state and the batches)."""
+    ``resume_at`` the checkpoint round trip (phase 7t (e)); no plain
+    version of the LM kernels may be called on a CUDA tensor in them.
+    Returns (losses, step ms, peak bytes, launches, the state, the step
+    and the batches)."""
     import tempfile
     import torch
     from repro_torch.training import train as T
@@ -3808,28 +4253,34 @@ def train_run(label, cfg, ocfg, dev, b, t, steps, want, seed, resume_at=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     peak = 0
-    for i in range(steps):
-        if i == resume_at:          # the steps' peak, not the gate's
-            peak = max(peak, torch.cuda.max_memory_allocated())
-            with tempfile.TemporaryDirectory() as d:
-                state = resume_gate(label, cfg, ocfg, state, batches[i], d,
-                                    seed, dev)
-            torch.cuda.reset_peak_memory_stats()
-            losses.append(None)
-            continue
-        t0 = time.perf_counter()
-        (state, m), counts = counted(lambda: step(state, batches[i]))
-        ms.append((time.perf_counter() - t0) * 1e3)
-        got = {k: v for k, v in counts.items() if v and k != "sparse_probe"}
-        check(got == want, f"{label} step {i}: launch counts {got} != "
-                           f"{want}")
-        for k, v in want.items():
-            launches[k] = launches.get(k, 0) + v
-        losses.append(float(m["loss"]))
-        check(all(torch.isfinite(x).all() for x in
-                  (m["loss"], m["grad_norm"])),
-              f"{label} step {i}: loss {losses[-1]}, grad_norm "
-              f"{float(m['grad_norm'])}")
+    with plain_calls_on_card() as plain:
+        for i in range(steps):
+            if i == resume_at:          # the steps' peak, not the gate's
+                peak = max(peak, torch.cuda.max_memory_allocated())
+                with tempfile.TemporaryDirectory() as d:
+                    state = resume_gate(label, cfg, ocfg, state, batches[i],
+                                        d, seed, dev)
+                torch.cuda.reset_peak_memory_stats()
+                losses.append(None)
+                continue
+            t0 = time.perf_counter()
+            (state, m), counts = counted(lambda: step(state, batches[i]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v for k, v in counts.items()
+                   if v and k != "sparse_probe"}
+            check(got == want, f"{label} step {i}: launch counts {got} != "
+                               f"{want}")
+            for k, v in want.items():
+                launches[k] = launches.get(k, 0) + v
+            losses.append(float(m["loss"]))
+            check(all(torch.isfinite(x).all() for x in
+                      (m["loss"], m["grad_norm"])),
+                  f"{label} step {i}: loss {losses[-1]}, grad_norm "
+                  f"{float(m['grad_norm'])}")
+    say("7t", f"{label}: plain versions called on CUDA tensors in the "
+              f"{steps} steps: {plain}")
+    check(not any(plain.values()), f"{label}: a plain version ran on the "
+                                   f"card: {plain}")
     peak = max(peak, torch.cuda.max_memory_allocated())
     return losses, ms, peak, launches, state, step, batches
 
@@ -3883,8 +4334,8 @@ def say_train(label, cfg, b, t, losses, ms, peak, prof, smi):
               f"{', '.join(f'{x:.1f}' for x in ms)}), "
               f"{b * t / med * 1e3:.1f} tokens/s, peak "
               f"{peak / 2**30:.3f} GiB; one step behind a spin "
-              f"{step_ms:.4f} ms (CUDA events), of which the plain "
-              f"backward recomputes {share:.3f}; profiled step: wall "
+              f"{step_ms:.4f} ms (CUDA events), of which the backward "
+              f"kernels' Functions {share:.3f}; profiled step: wall "
               f"{wall:.4f} ms, device busy {busy:.4f} ms "
               f"({busy / wall:.3f}); longest: {top}; losses "
               f"{[round(x, 4) if x is not None else 'resume' for x in losses]}"
@@ -3915,7 +4366,8 @@ def phase_lm_train(dev, smi):
     torch.cuda.empty_cache()
     ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=5,
                            total_steps=TRAIN_STEPS)
-    want = {"swa_attention_tc": 1, "ssd_scan": 6}
+    want = {"swa_attention_tc": 1, "ssd_scan": 6, "swa_attention_bwd": 1,
+            "ssd_scan_bwd": 6}
     say("7t", f"zamba2-7b first group: launches per train step {want}")
     losses, ms, peak, launches, state, step, batches = train_run(
         "zamba2-7b group", cfg, ocfg, dev, TRAIN_B, TRAIN_T, TRAIN_STEPS,
@@ -3935,7 +4387,7 @@ def phase_lm_train(dev, smi):
     torch.cuda.empty_cache()
 
     cfg = model_config("mamba2-370m")
-    want = {"ssd_scan": cfg.n_layers}
+    want = {"ssd_scan": cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
     ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
                            total_steps=M370_STEPS)
     losses, ms, peak, launches, state, step, batches = train_run(
@@ -4530,6 +4982,7 @@ def main() -> int:
     say("3t", f"all two-pass cases within {TOL}: worst max|d| "
               f"{worst_t:.3e}")
     worst_l = phase_lm_kernels(dev)
+    worst_l.update(phase_lm_bwd_kernels(dev))
     say("3l", "all LM kernel cases within their bounds: worst max|d| "
               + ", ".join(f"{k} {'bf16' if bf else 'float32'} {e:.3e}"
                           for (k, bf), e in worst_l.items()))
@@ -4587,6 +5040,7 @@ def main() -> int:
     d_rows = phase_dense_times(dense)
     t_row = phase_twopass_times(dense)
     lm = phase_lm_full(dev)
+    lm.update(phase_lm_bwd_full(dev))
     t7m = time.perf_counter()
     model = phase_lm_model(dev)
     say("7m", f"phase 7m passed in {time.perf_counter() - t7m:.1f} s")
@@ -4651,6 +5105,25 @@ def main() -> int:
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
+    # the backward kernels replace no pallas_call: the reference's gradient
+    # is XLA's of its jnp paths (models/attention.py:90 _attend,
+    # models/mamba2.py:106 ssd_chunked); their rows carry the old
+    # recompute's ms beside the plain backward's
+    for counter, label, src in (
+            ("swa_attention_bwd", SWA_BWD_FULL[0][0],
+             "swa_attention_bwd.cu"),
+            ("swa_attention_bwd_packed", SWA_BWD_FULL[2][0],
+             "swa_attention.cu"),
+            ("swa_attention_bwd_f32", SWA_BWD_FULL[3][0],
+             "swa_attention_bwd.cu"),
+            ("ssd_scan_bwd", SSD_BWD_FULL[0][0], "ssd_scan.cu")):
+        r = dict(lm[counter, label])
+        r.pop("device_ms")
+        r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
+                            if k == counter) + train.get(counter, 0)
+        lm_rows.append(dict(name=counter, route="cuda",
+                            source=f"src/repro_torch/csrc/{src}",
+                            replaces=None, **r))
     say("3s", f"serial_epoch row: {serial}; ingest: {ingest}")
     baseline_rows = []
     for name in ("sgd_epoch", "dcd_epoch"):

@@ -23,9 +23,14 @@
 // at zamba2-7b's T 16,384 is ~0.2 ms at 3.35 TB/s beside the attention's
 // ~7 ms.
 //
-// The entry point has a plain C interface for ctypes and returns
-// cudaGetLastError() after the pack's launch when it fails, else what the
-// tensor-core entry point returns.
+// The backward (swa_attention_bwd_packed) packs q, k, v and the upstream
+// gradient the same way (a second launch for the one tensor) and runs the
+// bf16 backward kernels of swa_attention_bwd.cu on the copies; they write
+// the gradients at the true Dh.
+//
+// The entry points have a plain C interface for ctypes and return
+// cudaGetLastError() after a pack's launch when it fails, else what the
+// tensor-core (or backward) entry point returns.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -37,7 +42,15 @@ extern "C" int swa_attention_tc_fwd(const void* q, const void* k,
                                     int Hkv, int Tq, int Tk, int Dh, int ld,
                                     long long window, int causal,
                                     long long q_offset, float scale,
-                                    void* stream);
+                                    float* lse, void* stream);
+extern "C" int swa_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const float* lse, float* dsum, void* dq,
+                                 void* dk, void* dv, int B, int Hq, int Hkv,
+                                 int Tq, int Tk, int Dh, int ld,
+                                 long long window, int causal,
+                                 long long q_offset, float scale,
+                                 int is_bf16, void* stream);
 
 namespace {
 
@@ -79,6 +92,29 @@ swa_pack_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
+// Pack q, k, v (grid.y 3) into ws at rows of ld; then, when dout is
+// given, dout into the rows after them (a second launch of one tensor).
+cudaError_t pack(const void* q, const void* k, const void* v,
+                 const void* dout, void* ws, long long groups_q,
+                 long long groups_kv, int Dh, int ld, cudaStream_t st) {
+  if (groups_q > INT_MAX || groups_kv > INT_MAX) return cudaErrorInvalidValue;
+  const long long most = groups_q > groups_kv ? groups_q : groups_kv;
+  long long blocks = (most + PACK_THREADS - 1) / PACK_THREADS;
+  if (blocks > PACK_MAX_BLOCKS) blocks = PACK_MAX_BLOCKS;
+  swa_pack_kernel<<<dim3((unsigned)blocks, 3), PACK_THREADS, 0, st>>>(
+      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
+      (uint16_t*)ws, (int)groups_q, (int)groups_kv, Dh, ld);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || dout == nullptr) return e;
+  blocks = (groups_q + PACK_THREADS - 1) / PACK_THREADS;
+  if (blocks > PACK_MAX_BLOCKS) blocks = PACK_MAX_BLOCKS;
+  const uint16_t* d = (const uint16_t*)dout;
+  swa_pack_kernel<<<dim3((unsigned)blocks, 1), PACK_THREADS, 0, st>>>(
+      d, d, d, (uint16_t*)ws + (groups_q + 2 * groups_kv) * VEC,
+      (int)groups_q, 0, Dh, ld);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -86,11 +122,13 @@ extern "C" {
 // q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous
 // bf16, q, k, v at any even address, out 16-byte aligned; 1 <= Dh <= 128,
 // Hq % Hkv == 0.  ws: a 16-byte-aligned workspace of (B Hq Tq + 2 B Hkv Tk)
-// * roundup(Dh, 8) bf16.
+// * roundup(Dh, 8) bf16.  lse: null, or (B, Hq, Tq) float32 for the rows'
+// logsumexp (swa_attention_tc_fwd).
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       void* ws, int B, int Hq, int Hkv, int Tq, int Tk,
                       int Dh, long long window, int causal,
-                      long long q_offset, float scale, void* stream) {
+                      long long q_offset, float scale, float* lse,
+                      void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
   if (Dh <= 0 || Dh > 128 || Tk <= 0 || Hkv <= 0 || ws == nullptr ||
       reinterpret_cast<uintptr_t>(ws) % 16 != 0)
@@ -98,23 +136,46 @@ int swa_attention_fwd(const void* q, const void* k, const void* v, void* out,
   const int ld = (Dh + VEC - 1) / VEC * VEC;
   const long long groups_q = (long long)B * Hq * Tq * (ld / VEC);
   const long long groups_kv = (long long)B * Hkv * Tk * (ld / VEC);
-  if (groups_q > INT_MAX || groups_kv > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const long long most = groups_q > groups_kv ? groups_q : groups_kv;
-  long long blocks = (most + PACK_THREADS - 1) / PACK_THREADS;
-  if (blocks > PACK_MAX_BLOCKS) blocks = PACK_MAX_BLOCKS;
-  const dim3 grid((unsigned)blocks, 3);
-  cudaStream_t st = (cudaStream_t)stream;
-  swa_pack_kernel<<<grid, PACK_THREADS, 0, st>>>(
-      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-      (uint16_t*)ws, (int)groups_q, (int)groups_kv, Dh, ld);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = pack(q, k, v, nullptr, ws, groups_q, groups_kv, Dh,
+                             ld, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   const __nv_bfloat16* wq = (const __nv_bfloat16*)ws;
   const __nv_bfloat16* wk = wq + groups_q * VEC;
   const __nv_bfloat16* wv = wk + groups_kv * VEC;
   return swa_attention_tc_fwd(wq, wk, wv, out, B, Hq, Hkv, Tq, Tk, Dh, ld,
-                              window, causal, q_offset, scale, stream);
+                              window, causal, q_offset, scale, lse, stream);
+}
+
+// The packed route's backward: q, k, v and dout (like q) packed as the
+// forward packs q, k, v, then swa_attention_bwd on the copies at the true
+// Dh's scale, which writes dq, dk, dv (rows of Dh, contiguous) directly.
+// o and lse are the forward's; dsum (B, Hq, Tq) float32 scratch; ws: a
+// 16-byte-aligned workspace of (2 B Hq Tq + 2 B Hkv Tk) * roundup(Dh, 8)
+// bf16.
+int swa_attention_bwd_packed(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* dsum, void* dq,
+                             void* dk, void* dv, void* ws, int B, int Hq,
+                             int Hkv, int Tq, int Tk, int Dh,
+                             long long window, int causal,
+                             long long q_offset, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
+  if (Dh <= 0 || Dh > 128 || Tk <= 0 || Hkv <= 0 || ws == nullptr ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int ld = (Dh + VEC - 1) / VEC * VEC;
+  const long long groups_q = (long long)B * Hq * Tq * (ld / VEC);
+  const long long groups_kv = (long long)B * Hkv * Tk * (ld / VEC);
+  const cudaError_t e = pack(q, k, v, dout, ws, groups_q, groups_kv, Dh, ld,
+                             (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  const __nv_bfloat16* wq = (const __nv_bfloat16*)ws;
+  const __nv_bfloat16* wk = wq + groups_q * VEC;
+  const __nv_bfloat16* wv = wk + groups_kv * VEC;
+  const __nv_bfloat16* wdo = wv + groups_kv * VEC;
+  return swa_attention_bwd(wq, wk, wv, o, wdo, lse, dsum, dq, dk, dv, B, Hq,
+                           Hkv, Tq, Tk, Dh, ld, window, causal, q_offset,
+                           scale, 1, stream);
 }
 
 }  // extern "C"

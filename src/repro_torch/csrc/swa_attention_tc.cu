@@ -21,7 +21,9 @@
 // by the online-softmax recurrence with float32 state: scores masked to
 // -1e30, m' = max(m, rowmax s), p = exp(s - m'), l = l exp(m - m') + rowsum p,
 // acc = acc exp(m - m') + p V, out = acc / max(l, 1e-30) in bf16.  A query
-// with no key in its window gets 0.
+// with no key in its window gets 0.  When asked (a gradient is wanted), it
+// also writes each row's logsumexp, m ln 2 + ln l (m is kept in log2
+// units), for the backward kernels of swa_attention_bwd.cu.
 //
 // Design for the card.
 //   * One CTA per (batch x query head, 128 queries): two consumer
@@ -88,6 +90,7 @@ constexpr int CONSUMER_REGS = 232;      // setmaxnreg (<= 64K per SM)
 constexpr int CONSUMER_WARPS = N_WG * 4;
 constexpr float NEG = -1e30f;           // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ PTX helpers --
 
@@ -352,7 +355,8 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_v,
               __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Tq,
               int Tk, int Dh, long long window, int causal,
-              long long q_offset, float scale_log2) {
+              long long q_offset, float scale_log2,
+              float* __restrict__ lse) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int nbox = (Dh + BOX_COLS - 1) / BOX_COLS;
@@ -495,6 +499,12 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv0 = m0 == NEG ? 0.0f : 1.0f / fmaxf(l0, 1e-30f);
   const float inv1 = m1 == NEG ? 0.0f : 1.0f / fmaxf(l1, 1e-30f);
   const int row0 = q0 + wg * WG_ROWS + r_lo;
+  if (lse != nullptr && t4 == 0) {      // the backward's logsumexp
+    float* lp = lse + (long long)bh * Tq;
+    if (row0 < Tq) lp[row0] = m0 == NEG ? NEG : m0 * LN2 + logf(l0);
+    if (row0 + 8 < Tq)
+      lp[row0 + 8] = m1 == NEG ? NEG : m1 * LN2 + logf(l1);
+  }
   __nv_bfloat16* op = out + (long long)bh * Tq * Dh;
   if ((Dh & 1) == 0) {                  // column pairs lie 4-byte aligned
 #pragma unroll
@@ -583,10 +593,13 @@ extern "C" {
 // q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh) bf16 with rows ld elements
 // apart (ld a multiple of 8, at least Dh) and 16-byte-aligned data; out
 // like q, contiguous (rows Dh apart); 1 <= Dh <= 128, Hq % Hkv == 0.
+// lse: null, or (B, Hq, Tq) float32 for each row's logsumexp of its scaled
+// scores (-1e30 for a row with no key), which the backward reads.
 int swa_attention_tc_fwd(const void* q, const void* k, const void* v,
                          void* out, int B, int Hq, int Hkv, int Tq, int Tk,
                          int Dh, int ld, long long window, int causal,
-                         long long q_offset, float scale, void* stream) {
+                         long long q_offset, float scale, float* lse,
+                         void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
   if (Dh <= 0 || Dh > 128 || ld % 8 != 0 || ld < Dh || Tk <= 0 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -609,7 +622,7 @@ int swa_attention_tc_fwd(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * LOG2E;
   swa_tc_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, (__nv_bfloat16*)out, Hq, Hkv, Tq, Tk, Dh, window, causal,
-      q_offset, scale_log2);
+      q_offset, scale_log2, lse);
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,8 @@
 // by the online-softmax recurrence with float32 state: scores masked to
 // -1e30, m' = max(m, rowmax s), p = exp(s - m'), l = l exp(m - m') + rowsum p,
 // acc = acc exp(m - m') + p V, out = acc / max(l, 1e-30).  A query with no
-// key in its window gets 0.
+// key in its window gets 0.  When asked, it also writes each row's
+// logsumexp, m scale + ln l, for the backward (swa_attention_bwd.cu).
 //
 // Arithmetic: split TF32.  Each float32 operand x is split into
 // hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with ties
@@ -189,7 +190,8 @@ __global__ void __launch_bounds__(NT, 1)
 swa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   int Hq, int Hkv, int Tq, int Tk, int Dh, long long window,
-                  int causal, long long q_offset, float scale, int vec) {
+                  int causal, long long q_offset, float scale, int vec,
+                  float* __restrict__ lse) {
   constexpr int LQ = ld_qk<DP>();
   constexpr int LV = ld_v<DP>();
   constexpr int KSTEPS = DP / 8;        // depth steps of Q K^T
@@ -409,6 +411,9 @@ swa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= nq) continue;
     const float inv_l = 1.0f / fmaxf(l_i[r], 1e-30f);
     const bool empty = m_i[r] == NEG;   // no key in this query's window
+    if (lse != nullptr && t == 0)       // the backward's logsumexp
+      lse[(long long)bh * Tq + q0 + row] =
+          empty ? NEG : m_i[r] * scale + logf(l_i[r]);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
@@ -424,7 +429,7 @@ swa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DP>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int Hq, int Hkv, int Tq, int Tk, int Dh, long long window,
-           int causal, long long q_offset, float scale, int vec,
+           int causal, long long q_offset, float scale, int vec, float* lse,
            cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
   static bool ready = false;            // the attribute, set once
@@ -438,7 +443,7 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
   const dim3 grid(B * Hq, (Tq + BQ - 1) / BQ);
   swa_tf32x3_kernel<DP><<<grid, NT, smem, st>>>(
       q, k, v, out, Hq, Hkv, Tq, Tk, Dh, window, causal, q_offset, scale,
-      vec);
+      vec, lse);
   return (int)cudaGetLastError();
 }
 
@@ -447,11 +452,14 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
 extern "C" {
 
 // q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), out like q; all contiguous
-// float32; 1 <= Dh <= 128, Hq % Hkv == 0.  Any alignment of 4 bytes.
+// float32; 1 <= Dh <= 128, Hq % Hkv == 0.  Any alignment of 4 bytes.  lse:
+// null, or (B, Hq, Tq) float32 for each row's logsumexp (as
+// swa_attention_tc_fwd's).
 int swa_attention_tf32x3_fwd(const float* q, const float* k, const float* v,
                              float* out, int B, int Hq, int Hkv, int Tq,
                              int Tk, int Dh, long long window, int causal,
-                             long long q_offset, float scale, void* stream) {
+                             long long q_offset, float scale, float* lse,
+                             void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int vec = Dh % 4 == 0 &&
@@ -461,7 +469,7 @@ int swa_attention_tf32x3_fwd(const float* q, const float* k, const float* v,
 #define SWA_TF32X3_CASE(n)                                                    \
   case n:                                                                     \
     return launch<16 * n>(q, k, v, out, B, Hq, Hkv, Tq, Tk, Dh, window,       \
-                          causal, q_offset, scale, vec, st);
+                          causal, q_offset, scale, vec, lse, st);
   switch ((Dh + 15) / 16) {
     SWA_TF32X3_CASE(1)
     SWA_TF32X3_CASE(2)

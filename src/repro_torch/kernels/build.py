@@ -69,16 +69,23 @@ SIGNATURES = {
         [_P, _L, _I, _I] + [_P] * 7 + [_F, _F, _I, _P],
     # csrc/swa_attention.cu
     "swa_attention_fwd":
-        [_P] * 5 + [_I] * 6 + [_L, _I, _L, _F, _P],
+        [_P] * 5 + [_I] * 6 + [_L, _I, _L, _F, _P, _P],
+    "swa_attention_bwd_packed":
+        [_P] * 11 + [_I] * 6 + [_L, _I, _L, _F, _P],
     # csrc/swa_attention_tc.cu
     "swa_attention_tc_fwd":
-        [_P] * 4 + [_I] * 7 + [_L, _I, _L, _F, _P],
+        [_P] * 4 + [_I] * 7 + [_L, _I, _L, _F, _P, _P],
     # csrc/swa_attention_tf32x3.cu
     "swa_attention_tf32x3_fwd":
-        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P],
+        [_P] * 4 + [_I] * 6 + [_L, _I, _L, _F, _P, _P],
+    # csrc/swa_attention_bwd.cu
+    "swa_attention_bwd":
+        [_P] * 10 + [_I] * 7 + [_L, _I, _L, _F, _I, _P],
     # csrc/ssd_scan.cu
     "ssd_scan_fwd":
         [_P] * 8 + [_I] * 7 + [_P],
+    "ssd_scan_bwd":
+        [_P] * 14 + [_I] * 7 + [_P],
     # csrc/dso_serial.cu
     "dso_serial_epoch":
         [_P] * 4 + [_I] + [_P] * 7 + [_I, _I, _P, _L, _P] + [_F] * 5

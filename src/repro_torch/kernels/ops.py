@@ -45,7 +45,21 @@ Each wrapper counts its kernel launches in a plain int attribute,
     _swa_attention_tf32x3.launches    ... its float32 tensor-core kernel
                                       (split TF32; listed as
                                       ``swa_attention_tf32x3``)
+    _swa_attention_bwd.launches       ... its backward kernels (dq, then
+                                      dk and dv) on bf16 in place (listed
+                                      as ``swa_attention_bwd``; one count
+                                      per backward)
+    _swa_attention_bwd_packed.launches
+                                      ... on a packed bf16 copy (listed as
+                                      ``swa_attention_bwd_packed``)
+    _swa_attention_bwd_f32.launches   ... in float32 (listed as
+                                      ``swa_attention_bwd_f32``)
     ssd_scan.launches                 the Mamba2 SSD scan
+    _ssd_scan_bwd.launches            ... its backward (the state
+                                      adjoint's two launches and the chunk
+                                      gradients; listed as
+                                      ``ssd_scan_bwd``; one count per
+                                      backward)
     dso_serial_epoch.launches         the paper-exact serial epoch (one
                                       launch per epoch; replaces no
                                       pallas_call)
@@ -610,35 +624,60 @@ def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-class KernelGrad(torch.autograd.Function):
-    """A kernel's forward with the gradient of its plain version.
+class SWAAttention(torch.autograd.Function):
+    """Sliding-window attention with its gradient.
 
-    ``apply(forward, plain, kw, *inputs)``: the forward is
-    ``forward(*inputs, **kw)`` (the CUDA launch; the tests pass the plain
-    version), run once with no graph.  The backward recomputes
-    ``plain(*inputs, **kw)`` from the saved inputs under grad mode and
-    returns ``torch.autograd.grad`` of it for the incoming gradient, each
-    input's gradient in that input's type.  This is what the reference
-    does (it differentiates the same math in jnp; it has no custom
-    gradient), at the price of the plain version's time and memory in
-    every backward.  A hand-written backward kernel is later work."""
-
-    @staticmethod
-    def forward(ctx, forward, plain, kw, *inputs):
-        ctx.plain, ctx.kw = plain, kw
-        ctx.save_for_backward(*inputs)
-        return forward(*inputs, **kw)
+    ``apply(forward, backward, kw, q, k, v)``: ``forward(q, k, v, **kw)``
+    returns (out, lse), the output and each row's logsumexp (B, Hq, Tq)
+    float32; ``backward(q, k, v, out, lse, dout, **kw)`` returns (dq, dk,
+    dv) in q's, k's and v's types.  On the card they are the kernels'
+    launches (``_swa_launch(lse=True)``, ``_swa_bwd_launch``); the tests
+    pass the plain pair (``swa_attention_plain(return_lse=True)``,
+    ``swa_attention_bwd_plain``).  The forward saves q, k, v, out and lse;
+    nothing is recomputed but the probabilities, from lse, inside the
+    backward."""
 
     @staticmethod
-    def backward(ctx, grad):
-        need = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
-            out = ctx.plain(*xs, **ctx.kw)
-            got = iter(torch.autograd.grad(
-                out, [x for x, n in zip(xs, need) if n], grad))
-        return (None, None, None, *(next(got) if n else None for n in need))
+    def forward(ctx, forward, backward, kw, q, k, v):
+        out, lse = forward(q, k, v, **kw)
+        ctx.backward, ctx.kw = backward, kw
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = ctx.backward(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        return (None, None, None, *grads)
+
+
+class SSDScan(torch.autograd.Function):
+    """The Mamba2 SSD scan with its gradient.
+
+    ``apply(forward, backward, kw, x, dt, A, B, C)``: ``forward(x, dt, A,
+    B, C, **kw)`` returns (y, states, decay), the float32 state entering
+    each chunk (b, h, n_chunks, n, dh) and the chunks' total decays (b, h,
+    n_chunks); ``backward(x, dt, A, B, C, states, decay, dy, **kw)``
+    returns (dx, ddt, dA, dB, dC).  On the card they are the kernels'
+    launches (``_ssd_launch(save=True)``, whose chunk-state workspace is
+    kept, and ``_ssd_scan_bwd``); the tests pass the plain pair
+    (``ssd_scan_plain(return_states=True)``, ``ssd_scan_bwd_plain``).
+    Each gradient is returned in its input's type."""
+
+    @staticmethod
+    def forward(ctx, forward, backward, kw, x, dt, A, B, C):
+        y, states, decay = forward(x, dt, A, B, C, **kw)
+        ctx.backward, ctx.kw = backward, kw
+        ctx.save_for_backward(x, dt, A, B, C, states, decay)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        *inputs, states, decay = ctx.saved_tensors
+        grads = ctx.backward(*inputs, states, decay, dy.contiguous(),
+                             **ctx.kw)
+        return (None, None, None,
+                *(g.to(t.dtype) for g, t in zip(grads, inputs)))
 
 
 def swa_attention(q, k, v, *, window: int, causal: bool = True,
@@ -657,9 +696,11 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
     for float32, the bf16 tensor-core kernel on q, k, v in place for bf16
     with Dh a multiple of 8 (16-byte-aligned data), the same kernel on a
     packed, aligned copy for the rest; each route counts its own calls.
-    Under grad mode with an input that requires grad, the launch runs
-    inside ``KernelGrad``, whose backward differentiates the plain
-    version; the launches and their counts are the same.
+    Under grad mode with an input that requires grad, the call runs
+    inside ``SWAAttention``: the same launch (and count) also writes the
+    rows' logsumexp, and the backward launches the backward kernels of
+    the route that the backward's tensors take (``_swa_bwd_launch``,
+    counted on its own).
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, T, Dh)")
@@ -684,23 +725,27 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on the card")
     if _wants_grad(q, k, v):
-        return KernelGrad.apply(_swa_launch, _swa.swa_attention_plain, kw,
-                                q, k, v)
+        return SWAAttention.apply(functools.partial(_swa_launch, lse=True),
+                                  _swa_bwd_launch, kw, q, k, v)
     return _swa_launch(q, k, v, **kw)
 
 
-def _swa_launch(q, k, v, *, window: int, causal: bool, q_offset: int):
+def _swa_launch(q, k, v, *, window: int, causal: bool, q_offset: int,
+                lse: bool = False):
     """``swa_attention``'s launch on checked CUDA tensors: the route's
-    kernel into a new output."""
-    Dh, Tq = q.shape[3], q.shape[2]
+    kernel into a new output; with ``lse``, (out, the rows' logsumexp
+    (B, Hq, Tq) float32) from the same launch."""
+    B, Hq, Tq, Dh = q.shape
     out = torch.empty_like(q)
     route = _swa.swa_route(q.dtype, Dh, aligned=all(
         t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
     if -(-Tq // _swa.QUERY_TILES[route]) > 65535:
         raise ValueError(f"Tq {Tq} exceeds the kernel's grid of 65,535 "
                          f"query tiles")
+    rows = torch.empty(B, Hq, Tq, dtype=torch.float32, device=q.device) \
+        if lse else None
     kw = dict(window=window, causal=causal, q_offset=q_offset,
-              scale=1.0 / Dh ** 0.5)
+              scale=1.0 / Dh ** 0.5, lse=rows)
     if route == "tf32x3":
         _swa_attention_tf32x3(q, k, v, out, **kw)
     elif route == "tensor_cores":
@@ -708,10 +753,68 @@ def _swa_launch(q, k, v, *, window: int, causal: bool, q_offset: int):
     else:
         _swa.launch_swa_attention(q, k, v, out, **kw)
         swa_attention.launches += 1
-    return out
+    return (out, rows) if lse else out
 
 
 swa_attention.launches = 0
+
+
+def _swa_bwd_launch(q, k, v, o, lse, do, *, window: int, causal: bool,
+                    q_offset: int):
+    """The backward of ``swa_attention`` on the card: (dq, dk, dv) in q's,
+    k's and v's types from the saved q, k, v, output and logsumexp and
+    the upstream gradient ``do``, by the backward kernels of the route
+    that these tensors take: float32 on ``_swa_attention_bwd_f32``; bf16
+    with Dh a multiple of 8 and q, k, v, do 16-byte aligned in place on
+    ``_swa_attention_bwd``; any other bf16 on a packed copy,
+    ``_swa_attention_bwd_packed``.  Each counts its calls (two launches
+    each, three with the packing)."""
+    B, Hq, Tq, Dh = q.shape
+    Tk = k.shape[2]
+    if -(-max(Tq, Tk) // 64) > 65535:
+        raise ValueError(f"Tq {Tq} or Tk {Tk} exceeds the backward "
+                         f"kernels' grid of 65,535 tiles of 64")
+    do = do.to(q.dtype).contiguous()
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    route = _swa.swa_route(q.dtype, Dh, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, do)))
+    args = (q, k, v, o, lse, do, *grads)
+    kw = dict(window=window, causal=causal, q_offset=q_offset,
+              scale=1.0 / Dh ** 0.5)
+    if route == "tf32x3":
+        _swa_attention_bwd_f32(*args, **kw)
+    elif route == "tensor_cores":
+        _swa_attention_bwd(*args, **kw)
+    else:
+        _swa_attention_bwd_packed(*args, **kw)
+    return grads
+
+
+def _swa_attention_bwd(*args, **kw):
+    """The bf16 backward kernels on q, k, v and do in place, counted."""
+    _swa.launch_swa_attention_bwd(*args, **kw)
+    _swa_attention_bwd.launches += 1
+
+
+_swa_attention_bwd.launches = 0
+
+
+def _swa_attention_bwd_packed(*args, **kw):
+    """The bf16 backward kernels on a packed copy, counted."""
+    _swa.launch_swa_attention_bwd_packed(*args, **kw)
+    _swa_attention_bwd_packed.launches += 1
+
+
+_swa_attention_bwd_packed.launches = 0
+
+
+def _swa_attention_bwd_f32(*args, **kw):
+    """The float32 backward kernels, counted."""
+    _swa.launch_swa_attention_bwd(*args, **kw)
+    _swa_attention_bwd_f32.launches += 1
+
+
+_swa_attention_bwd_f32.launches = 0
 
 
 def _swa_attention_tc(q, k, v, out, **kw):
@@ -744,9 +847,11 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
     and a state size n whose shared memory does not fit one CTA makes the
     launch fail with ``RuntimeError``.  One call is three CUDA launches
     (chunk states, state passing, chunk output), counted as one.  Under
-    grad mode with an input that requires grad, the launch runs inside
-    ``KernelGrad`` (the gradients from the plain version, dt's, A's, B's
-    and C's in their callers' types)."""
+    grad mode with an input that requires grad, the call runs inside
+    ``SSDScan``: the same launches (and count) keep their chunk-state
+    workspace for the backward, whose three launches (the state adjoint's
+    two, the chunk gradients) count on ``_ssd_scan_bwd``; dt's, A's, B's
+    and C's gradients come back in their callers' types."""
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be a 4-D float32 or bf16 tensor, got "
                         f"{x.dtype} of shape {tuple(x.shape)}")
@@ -771,22 +876,50 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int | None = None):
         raise ValueError(f"the SSD kernels take dh <= {_ssd.MAX_HEAD_DIM}, "
                          f"got {dh}")
     if _wants_grad(x, dt, A, B, C):
-        return KernelGrad.apply(_ssd_launch, _ssd.ssd_scan_plain,
-                                dict(chunk=chunk), x, dt, A, B, C)
+        return SSDScan.apply(functools.partial(_ssd_launch, save=True),
+                             _ssd_scan_bwd, dict(chunk=chunk),
+                             x, dt, A, B, C)
     return _ssd_launch(x, dt, A, B, C, chunk=chunk)
 
 
-def _ssd_launch(x, dt, A, B, C, *, chunk: int):
+def _ssd_launch(x, dt, A, B, C, *, chunk: int, save: bool = False):
     """``ssd_scan``'s launch on checked CUDA tensors: dt, A, B, C as
-    float32 copies, y new."""
+    float32 copies, y new; with ``save``, (y, the states entering each
+    chunk, the chunks' decays) from the same launches."""
     f32 = [a.to(torch.float32).contiguous() for a in (dt, A, B, C)]
     y = torch.empty_like(x)
-    _ssd.launch_ssd_scan(x, *f32, y, chunk=chunk)
+    states, decay = _ssd.launch_ssd_scan(x, *f32, y, chunk=chunk)
     ssd_scan.launches += 1
-    return y
+    return (y, states, decay) if save else y
 
 
 ssd_scan.launches = 0
+
+
+def _ssd_scan_bwd(x, dt, A, B, C, states, decay, dy, *, chunk: int):
+    """The backward of ``ssd_scan`` on the card: (dx, ddt, dA, dB, dC)
+    from the saved inputs, states and decays and the upstream gradient
+    ``dy``: the three backward launches (counted once, listed as
+    ``ssd_scan_bwd``), then dB and dC summed over the heads and dA over
+    (batch, chunk) by ``torch.sum`` (a fixed order: no atomics).  dx is in
+    x's type, the rest float32."""
+    b, t, h, _ = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    dtf, Af, Bf, Cf = (a.to(f32).contiguous() for a in (dt, A, B, C))
+    dy = dy.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    ddt = torch.empty(b, t, h, dtype=f32, device=x.device)
+    dBh = torch.empty(b, t, h, n, dtype=f32, device=x.device)
+    dCh = torch.empty_like(dBh)
+    dAp = torch.empty_like(decay)
+    _ssd.launch_ssd_scan_bwd(x, dtf, Af, Bf, Cf, states, decay, dy, dx, ddt,
+                             dBh, dCh, dAp, chunk=chunk)
+    _ssd_scan_bwd.launches += 1
+    return dx, ddt, dAp.sum((0, 2)), dBh.sum(2), dCh.sum(2)
+
+
+_ssd_scan_bwd.launches = 0
 
 # ---------------------------------------------------------------- serial --
 
@@ -966,8 +1099,9 @@ _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             dso_bucketed_block_step, _dso_bucketed_block_step_shared,
             dso_block_step, dso_tile_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
-            _swa_attention_tf32x3, ssd_scan, dso_serial_epoch, sgd_epoch,
-            dcd_epoch)
+            _swa_attention_tf32x3, _swa_attention_bwd,
+            _swa_attention_bwd_packed, _swa_attention_bwd_f32, ssd_scan,
+            _ssd_scan_bwd, dso_serial_epoch, sgd_epoch, dcd_epoch)
 
 
 def reset_launch_counts():
@@ -979,6 +1113,9 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Each wrapper's launch count by its public name (the two-pass
     step's under ``dso_tile_step_twopass``, the tensor-core attention's
-    under ``swa_attention_tc`` and ``swa_attention_tf32x3``, the bucketed
-    shared route's under ``dso_bucketed_block_step_shared``)."""
+    under ``swa_attention_tc`` and ``swa_attention_tf32x3``, the
+    attention's backward under ``swa_attention_bwd`` (bf16 in place),
+    ``swa_attention_bwd_packed`` and ``swa_attention_bwd_f32``, the SSD
+    scan's under ``ssd_scan_bwd``, the bucketed shared route's under
+    ``dso_bucketed_block_step_shared``)."""
     return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

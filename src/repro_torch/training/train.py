@@ -3,7 +3,8 @@ host loop (the port of ``repro.training.train``).
 
 The state is a ``TrainState`` of nested dicts of tensors.  A step takes
 the gradient of ``lm_loss`` by autograd (through the SWA and SSD kernels
-on the card: ``kernels.ops.KernelGrad``) and returns a new state from
+and their backward kernels on the card: ``kernels.ops.SWAAttention`` and
+``kernels.ops.SSDScan``) and returns a new state from
 ``optimizer.apply``; the old one is left as it was.  The step holds the
 old and the new parameters and moments at once, as the reference's
 undonated step would.
