@@ -248,10 +248,12 @@ Phases, one line per result:
    bf16, in place and on a misaligned copy (the packed route); B 1 in
    float32) and at T 16,384 with a 4,096 window, SSD at zamba2-7b's group
    (b 2 x t 4,096) and mamba2-370m's (b 4 x t 2,048, state 128); each
-   timed by CUDA events behind a spin beside its bound, the plain
-   backward, the old recompute (autograd through the plain forward; "not
-   measured" where its graph does not fit) and, for attention, the
-   backward of ``F.scaled_dot_product_attention(is_causal=True)``.  Then
+   timed by CUDA events behind a spin beside its bound (float32
+   attention: split TF32's, 3 TF32 products per float32 product, with the
+   float32 FMA rate's beside it), the plain backward, the old recompute
+   (autograd through the plain forward; "not measured" where its graph
+   does not fit) and, for attention, the backward of
+   ``F.scaled_dot_product_attention(is_causal=True)``.  Then
    the two-pass tile step at svm-ocr's tile (processor 0's active block of
    phase 5d, 250,000 x 289, the span route) beside the fused step and the
    cuBLAS mat-vec pair.  Each: ms per call (CUDA events), bound, plain ms,
@@ -319,9 +321,10 @@ Phases, one line per result:
 Prints the kernel table as one JSON line (the LM backward kernels' rows
 ``swa_attention_bwd``, ``swa_attention_bwd_packed``,
 ``swa_attention_bwd_f32`` and ``ssd_scan_bwd`` at phase 7's first shape of
-each, with ``replaces`` null and the old recompute's ms as
-``recompute_ms``; the serial epoch kernel's row, then the baselines'
-``sgd_epoch`` and ``dcd_epoch`` rows, at phase 3b's 4,096-row shape, with
+each, with ``replaces`` null, the old recompute's ms as
+``recompute_ms`` and the rate of the bound as ``bound_rate``; the serial
+epoch kernel's row, then the baselines' ``sgd_epoch`` and ``dcd_epoch``
+rows, at phase 3b's 4,096-row shape, with
 ``replaces`` null), the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA card it exits 2 before printing any result.
@@ -3391,17 +3394,32 @@ SSD_BWD_FULL = [("zamba2-7b group", 2, 4096, 112, 64, 64),
                 ("mamba2-370m", 4, 2048, 32, 64, 128)]
 
 
-def swa_bwd_bound(B, H, T, Dh, window, elem):
+SWA_BWD_RATES = {"bf16": "10 Dh per pair at the bf16 tensor-core rate "
+                          "(989 TFLOP/s)",
+                  "tf32x3": "3 TF32 products per float32 product, 30 Dh "
+                            "per pair at the TF32 tensor-core rate "
+                            "(495 TFLOP/s)",
+                  "fma": "10 Dh per pair at the float32 FMA rate "
+                         "(67 TFLOP/s)"}
+
+
+def swa_bwd_bound(B, H, T, Dh, window, elem, rate=None):
     """(bound ms, bound_by) of the attention's backward (MHA, causal):
     q, k, v, o, do and lse read once, dq, dk, dv written once; five
-    products, 10 Dh operations per attended (query, key) pair, at the
-    bf16 tensor-core rate (the float32 FMA rate for 4-byte inputs)."""
+    products, 10 Dh operations per attended (query, key) pair, at the rate
+    ``rate`` names in ``SWA_BWD_RATES``: by default the bf16 tensor-core
+    rate for 2-byte inputs and, for float32 ones, split TF32 as the
+    float32 kernels take them (3 TF32 products per float32 product); "fma"
+    for the float32 FMA rate."""
     import torch
+    rate = rate or ("bf16" if elem == 2 else "tf32x3")
     pos = torch.arange(T, dtype=torch.float64)
     lo = (pos - window + 1).clamp(min=0)
     pairs = float((pos - lo + 1).sum()) * B * H
     nbytes = elem * 8 * B * H * T * Dh + 4 * B * H * T
-    ops_s = 10 * Dh * pairs / (BF16_OPS_S if elem == 2 else F32_OPS_S)
+    ops_s = {"bf16": 10 * Dh * pairs / BF16_OPS_S,
+             "tf32x3": 30 * Dh * pairs / TF32_OPS_S,
+             "fma": 10 * Dh * pairs / F32_OPS_S}[rate]
     by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
     return max(nbytes / HBM_BYTES_S, ops_s) * 1e3, by
 
@@ -3508,14 +3526,21 @@ def phase_lm_bwd_full(dev):
                            (q, k, v), do)
         lib_ms = sdpa_bwd_ms(q, k, v, do)
         bound, by = swa_bwd_bound(B, H, T, DH, window, q.element_size())
+        rate = "bf16" if dtype == torch.bfloat16 else "tf32x3"
         rows[counter, label] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=lib_ms, max_abs_err=err, launches=n,
-            device_ms=busy, recompute_ms=rec)
+            device_ms=busy, recompute_ms=rec,
+            bound_rate=SWA_BWD_RATES[rate])
+        also = f"SDPA(is_causal) backward {lib_ms:.4f} ms"
+        if rate == "tf32x3":
+            fma, _ = swa_bwd_bound(B, H, T, DH, window, 4, "fma")
+            rows[counter, label]["fma_bound_ms"] = fma
+            also += (f"; bound {SWA_BWD_RATES[rate]}, at "
+                     f"{SWA_BWD_RATES['fma']} {fma:.4f} ms")
         say_bwd(label, f"{counter} {dname} B={B} H={H} T={T} Dh={DH} "
                        f"window={window}", ms, busy, kern, bound, by,
-                plain_ms, rec, f"SDPA(is_causal) backward {lib_ms:.4f} ms",
-                err)
+                plain_ms, rec, also, err)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     bf = torch.bfloat16
@@ -5115,7 +5140,7 @@ def main() -> int:
             ("swa_attention_bwd_packed", SWA_BWD_FULL[2][0],
              "swa_attention.cu"),
             ("swa_attention_bwd_f32", SWA_BWD_FULL[3][0],
-             "swa_attention_bwd.cu"),
+             "swa_attention_bwd_tf32x3.cu"),
             ("ssd_scan_bwd", SSD_BWD_FULL[0][0], "ssd_scan.cu")):
         r = dict(lm[counter, label])
         r.pop("device_ms")

@@ -74,6 +74,7 @@
 #include <cuda_bf16.h>
 
 #include "async_copy.cuh"
+#include "swa_wgmma.cuh"
 
 namespace {
 
@@ -82,8 +83,6 @@ constexpr int N_WG = 2;                 // consumer warpgroups per CTA
 constexpr int BQ = N_WG * WG_ROWS;      // query rows per CTA
 constexpr int BK = 64;                  // keys per kv tile
 constexpr int STAGES = 3;               // kv ring depth
-constexpr int BOX_COLS = 64;            // bf16 columns per TMA box (128 B)
-constexpr int BOX_BYTES = 64 * 128;     // one box of 64 rows
 constexpr int NT = (N_WG + 1) * 128;    // + the producer warpgroup
 constexpr int PRODUCER_REGS = 40;       // registers per thread after
 constexpr int CONSUMER_REGS = 232;      // setmaxnreg (<= 64K per SM)
@@ -100,176 +99,7 @@ using acp::mbar_init;
 using acp::mbar_wait;
 using acp::smem_u32;
 using acp::tma_load_3d;
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses of wgmma registers across the
-// fence / wait instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F8(d, i) F4(d, i), F4(d, i + 4)
-#define F16(d, i) F8(d, i), F8(d, i + 8)
-
-// d (64 x 64, float32 fragments) (+)= A (64 x 16, smem) B (16 x 64, smem),
-// both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N) += A (64 x 16, registers) B (16 x N, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
-      "p, 1, 1, 1;\n}\n"
-      : F8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : F16(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F8(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F16
-#undef F8
-#undef F4
-
-// One 16-key step of P V into an output chunk of n (16..64) columns.
-__device__ __forceinline__ void pv_chunk(float* d, const uint32_t* a,
-                                         uint64_t db, int n) {
-  switch (n) {
-    case 16: wgmma_rs_n16(d, a, db); break;
-    case 32: wgmma_rs_n32(d, a, db); break;
-    case 48: wgmma_rs_n48(d, a, db); break;
-    default: wgmma_rs_n64(d, a, db); break;
-  }
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Split two float32 probabilities (lower column first) into the bf16x2
-// registers of P_hi and P_lo.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// 2^x by the SFU (relative error ~2^-22; -1e30 gives 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S (64 x 64 scores of one warpgroup, float32 fragments) = Q K^T of a
-// tile: Q's 64 rows of this warpgroup at q_w, K's 64 keys at ks, both as
-// boxes of 64 columns (K-major, 128-byte swizzle); issued, not waited for.
-__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_w, uint32_t ks,
-                                         int ksteps) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    if (kk < ksteps) {
-      const uint32_t off = (kk & 3) * 32;
-      wgmma_ss_n64(sc, smem_desc(q_w + (kk >> 2) * N_WG * BOX_BYTES + off,
-                                 16, 1024),
-                   smem_desc(ks + (kk >> 2) * BOX_BYTES + off, 16, 1024),
-                   kk > 0);
-    }
-  }
-}
-
-// O += P_hi V + P_lo V of a tile, V's boxes at vs; issued, not waited for.
-// V's depth step kk is rows 16 kk.. of a box (2048 B further); one
-// instruction covers at most one box's 64 columns, so both offsets are the
-// 1024 B between groups of 8 rows.
-__device__ __forceinline__ void issue_pv(float* o, const uint32_t* ph,
-                                         const uint32_t* pl, uint32_t vs,
-                                         int n0, int n1) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t d0 = smem_desc(vs + kk * 2048, 1024, 1024);
-    pv_chunk(o, ph + 4 * kk, d0, n0);
-    pv_chunk(o, pl + 4 * kk, d0, n0);
-    if (n1 > 0) {
-      const uint64_t d1 = smem_desc(vs + BOX_BYTES + kk * 2048, 1024, 1024);
-      pv_chunk(o + 32, ph + 4 * kk, d1, n1);
-      pv_chunk(o + 32, pl + 4 * kk, d1, n1);
-    }
-  }
-}
+using namespace swa_wg;
 
 // Where a tile's scores are masked: key k0 + col against query qb + row,
 // dk = k0 - qb, keys from col kvalid on past Tk.
@@ -458,7 +288,7 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (nq_w > 0 && k0 <= khi_w && k0 + BK - 1 >= klo_w) {
       float sc[32];
       wgmma_fence();
-      issue_qk(sc, q_s + wg * BOX_BYTES, ks, ksteps);
+      issue_ss(sc, q_s + wg * BOX_BYTES, N_WG * BOX_BYTES, ks, ksteps);
       wgmma_commit();
       wgmma_wait0();
       fence_regs<32>(sc);
@@ -483,7 +313,7 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs<16>(ph);
       fence_regs<16>(pl);
       wgmma_fence();
-      issue_pv(o, ph, pl, ks + nbox * BOX_BYTES, n0, n1);
+      issue_rs<true, 2>(o, ph, pl, ks + nbox * BOX_BYTES, n0, n1);
       wgmma_commit();
       wgmma_wait0();
       fence_regs<64>(o);
@@ -539,51 +369,6 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-// --------------------------------------------------------------- host side --
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map over (rows, T, Dh) bf16 with rows of ld elements, seen as
-// (Dh, T, rows), innermost first: boxes of 64 columns x 64 positions of one
-// row, 128-byte swizzle, zeros outside the tensor (columns ld - Dh past
-// each row are never read).
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
-              int T, int Dh, int ld) {
-  const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)T,
-                              (cuuint64_t)rows};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
-                                 (cuuint64_t)T * ld * 2};
-  const cuuint32_t box[3] = {BOX_COLS, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

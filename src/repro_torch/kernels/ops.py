@@ -767,8 +767,10 @@ def _swa_bwd_launch(q, k, v, o, lse, do, *, window: int, causal: bool,
     that these tensors take: float32 on ``_swa_attention_bwd_f32``; bf16
     with Dh a multiple of 8 and q, k, v, do 16-byte aligned in place on
     ``_swa_attention_bwd``; any other bf16 on a packed copy,
-    ``_swa_attention_bwd_packed``.  Each counts its calls (two launches
-    each, three with the packing)."""
+    ``_swa_attention_bwd_packed``.  Each counts its calls: bf16 three
+    launches (D = rowsum(do o), the dq kernel, then the dk/dv kernel),
+    five on the packed route (two pack launches first); float32 two (dq,
+    which takes D, then dk/dv)."""
     B, Hq, Tq, Dh = q.shape
     Tk = k.shape[2]
     if -(-max(Tq, Tk) // 64) > 65535:
@@ -791,7 +793,8 @@ def _swa_bwd_launch(q, k, v, o, lse, do, *, window: int, causal: bool,
 
 
 def _swa_attention_bwd(*args, **kw):
-    """The bf16 backward kernels on q, k, v and do in place, counted."""
+    """The bf16 backward kernels (wgmma, TMA) on q, k, v and do in place,
+    counted."""
     _swa.launch_swa_attention_bwd(*args, **kw)
     _swa_attention_bwd.launches += 1
 
@@ -809,7 +812,8 @@ _swa_attention_bwd_packed.launches = 0
 
 
 def _swa_attention_bwd_f32(*args, **kw):
-    """The float32 backward kernels, counted."""
+    """The float32 backward kernels (split TF32 on the tensor cores),
+    counted."""
     _swa.launch_swa_attention_bwd(*args, **kw)
     _swa_attention_bwd_f32.launches += 1
 

@@ -122,11 +122,14 @@ def launch_swa_attention_tf32x3(q, k, v, out, *, window: int,
 def launch_swa_attention_bwd(q, k, v, o, lse, dout, dq, dk, dv, *,
                              window: int, causal: bool, q_offset: int,
                              scale: float):
-    """The backward kernels of ``csrc/swa_attention_bwd.cu`` on contiguous
-    q, k, v, the forward's output ``o`` and logsumexp ``lse``, the
-    upstream gradient ``dout`` (like q) and new dq, dk, dv (like q, k, v),
-    read in place (row stride Dh): bf16 (the tensor-core route's data) or
-    float32.  D, rowsum(dout o), goes through a (B, Hq, Tq) float32
+    """The backward kernels on contiguous q, k, v, the forward's output
+    ``o`` and logsumexp ``lse``, the upstream gradient ``dout`` (like q)
+    and new dq, dk, dv (like q, k, v), read in place (row stride Dh):
+    bf16 (the tensor-core route's data: Dh a multiple of 8, 16-byte
+    aligned) on ``csrc/swa_attention_bwd.cu``'s wgmma kernels (three
+    launches: D = rowsum(dout o), dq, then dk and dv), float32 on
+    ``csrc/swa_attention_bwd_tf32x3.cu``'s split-TF32 ones (two: dq, which
+    takes D, then dk and dv).  D goes through a (B, Hq, Tq) float32
     scratch that ``torch.empty`` allocates here."""
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]

@@ -176,6 +176,150 @@ def test_swa_plain_lse_is_the_masked_logsumexp():
     assert torch.all(lse[..., ~live] == NEG_INF)
 
 
+# ------------------------------------------- the kernels' arithmetic --
+#
+# A plain-PyTorch emulation of what the backward kernels round where, at
+# small shapes (the kernels run only on the card): bf16 as
+# ``csrc/swa_attention_bwd.cu`` takes it (float32 accumulators, P and dS
+# rounded once to bf16 for the three products that take them, the
+# gradients rounded to bf16 once); float32 in split TF32 as
+# ``csrc/swa_attention_bwd_tf32x3.cu`` chains its mma.sync steps
+# (``_mm_tf32`` of ``test_torch_lm_kernels.py``: S and dP over the whole
+# depth, dQ's share of each tile of keys and dK's, dV's of each tile of
+# queries of each query head from zero, then added in float32; tiles of 32
+# rows for a padded Dh up to 112, else 16).  Held against
+# ``jax.vjp`` of the reference: bf16 by phase 7t's gate (a) (at most twice
+# the plain backward's distance, plus one bf16 ulp of the largest
+# element), float32 by phase 7's ``BWD_TOL`` (2e-5 x max(1, max|g|)).
+
+from test_torch_lm_kernels import _mm_tf32  # noqa: E402
+
+LOG2E = 1.4426950408889634
+F32_BWD_TOL = 2e-5
+
+
+def _kernel_tile(dh):
+    """Rows of the float32 kernels' streamed tiles at head size ``dh``."""
+    return 32 if -(-dh // 16) * 16 <= 112 else 16
+
+# (B, Hq, Hkv, Tq, Tk, Dh, window, causal, q_offset)
+KERNEL_CASES = [
+    (1, 4, 1, 256, 256, 112, 256, True, 0),    # GQA 4, causal, Dh 112
+    (1, 4, 1, 192, 192, 36, 48, True, 0),      # a window, Dh 36
+    (1, 4, 2, 16, 64, 36, 4, True, 60),        # an offset: rows 7.. no key
+    (1, 2, 1, 96, 160, 112, 40, False, 0),     # not causal, Tq != Tk
+]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _kernel_bwd(q, k, v, o, lse, do, *, window, causal, q_offset, arith):
+    """(dq, dk, dv) float32 as the kernels compute them from float32 q, k,
+    v, o, lse, do: ``arith`` "bf16" (P and dS rounded to bf16, the bf16
+    kernels'),
+    "tf32x3" (split TF32) or "tf32" (one TF32 product per float32
+    product, the variant that misses the float32 bound)."""
+    B, Hq, Tq, Dh = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / Dh ** 0.5
+    T = _kernel_tile(Dh)
+
+    def mm(a, b):
+        if arith == "bf16":
+            return a @ b
+        return _mm_tf32(a, b, arith == "tf32x3")
+
+    def mm_p(x, b):                     # P or dS (float32) times bf16 b
+        return _bf16(x) @ b
+
+    qpos = torch.arange(Tq)[:, None] + q_offset
+    kpos = torch.arange(Tk)[None, :]
+    ok = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+    dq = torch.zeros(B, Hq, Tq, Dh)
+    dk = torch.zeros(B, Hkv, Tk, Dh)
+    dv = torch.zeros(B, Hkv, Tk, Dh)
+    for b in range(B):
+        for h in range(Hq):
+            g = h // rep
+            Q, dO, K, V = q[b, h], do[b, h], k[b, g], v[b, g]
+            D = (dO * o[b, h]).sum(-1)
+            S = mm(Q, K.T)
+            dP = mm(dO, V.T)
+            P = torch.where(ok, torch.exp2(S * (scale * LOG2E)
+                                           - lse[b, h][:, None] * LOG2E),
+                            torch.zeros(()))
+            dS = P * (dP - D[:, None])
+            if arith == "bf16":
+                dq[b, h] = mm_p(dS, K)
+                dv[b, g] += mm_p(P.T, dO)
+                dk[b, g] += mm_p(dS.T, Q)
+                continue
+            for j in range(0, Tk, T):
+                dq[b, h] += mm(dS[:, j:j + T], K[j:j + T])
+            for i in range(0, Tq, T):
+                dv[b, g] += mm(P[i:i + T].T, dO[i:i + T])
+                dk[b, g] += mm(dS[i:i + T].T, Q[i:i + T])
+    return dq * scale, dk * scale, dv
+
+
+def _kernel_case(case, seed, arith):
+    """(the emulated kernels' gradients, the plain backward's, the
+    reference's vjp) on one case's numpy inputs, bf16-valued for "bf16";
+    rows with no key get an upstream gradient of 0 (the reference's
+    softmax over an empty row is uniform)."""
+    window, causal, q_offset = case[6:]
+    kw = dict(window=window, causal=causal, q_offset=q_offset)
+    q, k, v, do = _swa_inputs(case, seed)
+    if arith == "bf16":
+        q, k, v, do = (_bf16(torch.from_numpy(a)).numpy()
+                       for a in (q, k, v, do))
+    Tq, Tk = case[3], case[4]
+    pos = q_offset + np.arange(Tq)
+    empty = np.maximum(pos - window + 1, 0) > np.minimum(
+        pos if causal else Tk - 1, Tk - 1)
+    do = np.where(empty[None, None, :, None], 0.0, do).astype(np.float32)
+    dtype = torch.bfloat16 if arith == "bf16" else torch.float32
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
+    o, lse = swa_attention_plain(*t[:3], **kw, return_lse=True)
+    plain = swa_attention_bwd_plain(*t[:3], o, lse, t[3], **kw)
+    got = _kernel_bwd(*(a.float() for a in t[:3]), o.float(), lse,
+                      t[3].float(), **kw, arith=arith)
+    if arith == "bf16":
+        got = [_bf16(g) for g in got]
+    _, vjp = jax.vjp(lambda a, b, c: jref.swa_attention_ref(a, b, c, **kw),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(w, np.float64) for w in vjp(jnp.asarray(do))]
+    return got, plain, want
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=_swa_ids)
+@pytest.mark.parametrize("arith", ["bf16", "tf32x3"])
+def test_swa_bwd_kernel_arithmetic_holds_the_gates(case, arith):
+    got, plain, want = _kernel_case(case, 9, arith)
+    for name, g, p, w in zip("qkv", got, plain, want):
+        d_k = float(np.abs(g.double().numpy() - w).max())
+        top = float(np.abs(w).max())
+        if arith == "bf16":
+            d_p = float(np.abs(p.double().numpy() - w).max())
+            ulp = 2.0 ** -7 * 2.0 ** np.floor(np.log2(top))
+            assert d_k <= 2 * d_p + ulp, (f"d{name}", d_k, d_p, ulp)
+        else:
+            assert d_k <= F32_BWD_TOL * max(1.0, top), (f"d{name}", d_k, top)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES[:2], ids=_swa_ids)
+def test_swa_bwd_one_tf32_product_misses_the_float32_bound(case):
+    """The float32 kernels' three TF32 products per float32 product are
+    what holds ``BWD_TOL``: one TF32 product misses it on some gradient."""
+    got, _, want = _kernel_case(case, 9, "tf32")
+    assert any(float(np.abs(g.double().numpy() - w).max())
+               > F32_BWD_TOL * max(1.0, float(np.abs(w).max()))
+               for g, w in zip(got, want))
+
+
 # ------------------------------------------------------------- SSD --
 
 # (b, t, h, dh, n, chunk)
