@@ -1,33 +1,47 @@
-"""The LM backward kernels on the card: a quick check, and the attention
-backward's A/B against the kernels it replaced.
+"""The LM backward kernels on the card: a quick check, and the A/Bs of the
+attention's and the SSD's backward against the kernels they replaced.
 
 Builds the library and, started together with it into
-``build/bench_lm_bwd``, the ``mma.sync`` baseline: ``bench/swa_bwd_mma.cu``,
-the kernels that the library's ``csrc/swa_attention_bwd.cu`` and
-``swa_attention_bwd_tf32x3.cu`` replaced (with ``csrc/swa_attention.cu``
-and ``swa_attention_tc.cu``, so that the packed route's entry links to
-them).  The baseline runs through ``ops`` with ``kernels/swa_attention.py``'s
+``build/bench_lm_bwd``, two libraries of the bench's own: the ``mma.sync``
+baseline, ``bench/swa_bwd_mma.cu``, the kernels that the library's
+``csrc/swa_attention_bwd.cu`` and ``swa_attention_bwd_tf32x3.cu`` replaced
+(with ``csrc/swa_attention.cu`` and ``swa_attention_tc.cu``, so that the
+packed route's entry links to them), and ``bench/ssd_bwd_parts.cu`` (with
+``csrc/ssd_chunk_grad.cu``), the SSD backward one launch at a time.  The
+baseline runs through ``ops`` with ``kernels/swa_attention.py``'s
 ``library`` swapped for it (its entry points, the library's for the rest).
 Then:
 
 1. checks: each attention route and each SSD width at small edge shapes
-   (GQA, windows, decode offsets, rows with no key, ragged t and chunks):
-   the forward that saves the rows' logsumexp or the chunk states and the
-   backward kernels against the plain backward on the same saved tensors;
-   a case is bad past 2e-2 x max(1, max|g|) in bf16, 1e-4 x in float32
-   (attention; SSD 1e-3), or with a gradient that is not finite;
+   (GQA, windows, decode offsets, rows with no key, ragged t and chunks;
+   SSD: ragged head groups, n != dh, dh past 64, B and C in bf16 or
+   float32, each case on its chunk-gradient plan, printed, and on the
+   CUDA-core kernel): the forward that
+   saves the rows' logsumexp or the chunk states and the backward kernels
+   against the plain backward on the same saved tensors; a case is bad
+   past 2e-2 x max(1, max|g|) in bf16, 1e-4 x in float32 (attention; SSD
+   in the inputs' types: 2^-7 x in bf16, one rounding, 1e-3 x in
+   float32), or with a gradient that is not finite;
 2. times at the backward shapes of ``chip_smoke.py`` phase 7 (zamba2-7b's
    32 heads of 112: bf16 B 2 x T 4,096 causal, T 16,384 with a 4,096
    window, the misaligned packed case, float32 B 1 x T 4,096): the library
    and the baseline in turns (library, mma.sync, mma.sync, library), each
    by CUDA events around 3 calls queued behind a spin, the library's
-   kernels under the profiler, and SDPA's backward in the same run; the
-   SSD backward at zamba2-7b's group.
+   kernels under the profiler, and SDPA's backward in the same run; then
+   the SSD backward at phase 7's shapes (zamba2-7b's group, mamba2-370m;
+   x, B, C bf16): ``ops._ssd_scan_bwd`` with the tensor-core chunk
+   gradients (``csrc/ssd_chunk_grad.cu``) and with the CUDA-core kernel
+   they replaced (``ssd_chunk_grad_kernel``, the route that
+   ``chunk_grad_plan`` keeps for shapes past the new kernel, forced by
+   swapping ``chunk_grad_plan``) in turns (tc, fma, fma, tc), and each
+   route's launches apart by CUDA events (``ssd_scan_bwd_part``): the
+   state adjoint's two, the chunk gradients, the two ``torch.sum``s.
 
     PYTHONPATH=src python -m repro_torch.bench.lm_bwd
 
 Prints the card's ``nvidia-smi`` name and power limit, ptxas's registers
-and spills of the backward kernels, one line per case and per time, and
+and spills of the backward kernels (the attention's and the SSD's chunk
+gradients), one line per case and per time, and
 last ``ALL OK`` or ``SOME BAD`` (exit 1).  Needs a CUDA card; exits 2
 without one.  ``chip_smoke.py`` phases 3l, 7 and 7t hold the same kernels
 to their gates.
@@ -76,12 +90,21 @@ SWA_CASES = [
     (1, 2, 2, 100, 100, 64, 100, False, 0, "float32", True),
     (1, 2, 1, 260, 260, 128, 300, True, 0, "float32", False),
 ]
-# (b, t, h, dh, n, chunk), each in float32 and bf16
+# (b, t, h, dh, n, chunk), each in float32 and bf16 (B and C float32), and
+# those with n a multiple of 8 in bf16 with B and C bf16 too
 SSD_CASES = [(1, 128, 2, 32, 16, 64), (2, 256, 3, 32, 16, 64),
              (1, 100, 2, 16, 8, 32), (1, 1000, 4, 64, 64, 128),
              (1, 300, 2, 64, 128, 128), (1, 260, 2, 128, 64, 128),
              (2, 130, 2, 160, 16, 64), (1, 70, 1, 256, 8, 64),
-             (1, 250, 2, 48, 24, 100), (2, 2100, 2, 112, 48, 64)]
+             (1, 250, 2, 48, 24, 100), (2, 2100, 2, 112, 48, 64),
+             (2, 300, 9, 64, 128, 128), (1, 256, 12, 64, 64, 128),
+             (1, 200, 3, 36, 20, 128)]
+# chip_smoke.py's SSD_BWD_FULL: (label, b, t, h, dh, n)
+SSD_FULL = [("zamba2-7b group", 2, 4096, 112, 64, 64),
+            ("mamba2-370m", 4, 2048, 32, 64, 128)]
+FMA = ssd.GradPlan(False, 1, 1, False)    # the CUDA-core chunk gradients
+_PART_ARGS = build.SIGNATURES["ssd_scan_bwd"][:-1] + [ctypes.c_int,
+                                                      ctypes.c_void_p]
 
 
 # ------------------------------------------------------------ baseline --
@@ -90,7 +113,7 @@ def _nvcc(name, sources):
     """Start nvcc on ``sources`` ({file name: text}) into one library in
     ``OUT_DIR`` (not waited for): (process, library path)."""
     tag = hashlib.sha1(" ".join(build.NVCC_FLAGS).encode())
-    for f in sorted(build.CSRC.glob("*.cuh")):
+    for f in sorted(build.CSRC.glob("*.cu*")):      # what sources include
         tag.update(f.read_bytes())
     for fname, text in sorted(sources.items()):
         tag.update(fname.encode() + b"\0" + text.encode())
@@ -108,19 +131,25 @@ def _nvcc(name, sources):
 
 
 def start_build():
-    """nvcc of the mma.sync baseline (started, not waited for)."""
+    """nvcc of the mma.sync baseline and of the SSD backward's parts
+    (started, not waited for): {name: (process, library path)}."""
+    bench = build.CSRC.parent / "bench"
     src = {f: (build.CSRC / f).read_text()
            for f in ("swa_attention.cu", "swa_attention_tc.cu")}
-    src["swa_bwd_mma.cu"] = (build.CSRC.parent / "bench" /
-                             "swa_bwd_mma.cu").read_text()
-    return _nvcc("mma_sync", src)
+    src["swa_bwd_mma.cu"] = (bench / "swa_bwd_mma.cu").read_text()
+    parts = {"ssd_bwd_parts.cu": (bench / "ssd_bwd_parts.cu").read_text(),
+             "ssd_chunk_grad.cu": (build.CSRC /
+                                   "ssd_chunk_grad.cu").read_text()}
+    return {"mma.sync": _nvcc("mma_sync", src),
+            "ssd parts": _nvcc("ssd_parts", parts)}
 
 
 def ptxas_notes(name, log):
     """ptxas's registers and spills of each backward kernel in ``log``."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        hit = re.search(r"Compiling entry function '(\w*swa_bwd\w*)'", line)
+        hit = re.search(r"Compiling entry function "
+                        r"'(\w*(?:swa_bwd|ssd_chunk_grad)\w*)'", line)
         if hit:
             notes = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                      if "registers" in x or "spill" in x]
@@ -135,7 +164,8 @@ def load(name, proc, path):
         raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{log}")
     ptxas_notes(name, log)
     cdll = ctypes.CDLL(str(path))
-    for entry, argtypes in build.SIGNATURES.items():
+    sigs = dict(build.SIGNATURES, ssd_scan_bwd_part=_PART_ARGS)
+    for entry, argtypes in sigs.items():
         if hasattr(cdll, entry):
             fn = getattr(cdll, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -153,6 +183,19 @@ class _Merged:
             return getattr(self._variant, name)
         except AttributeError:
             return getattr(self._own, name)
+
+
+@contextlib.contextmanager
+def routed(plan):
+    """``ops._ssd_scan_bwd``'s chunk gradients on ``plan`` (None: the
+    plan ``chunk_grad_plan`` picks)."""
+    own = ssd.chunk_grad_plan
+    if plan is not None:
+        ssd.chunk_grad_plan = lambda *a: plan
+    try:
+        yield
+    finally:
+        ssd.chunk_grad_plan = own
 
 
 @contextlib.contextmanager
@@ -223,34 +266,48 @@ def check_swa(gen, dev):
 
 def check_ssd(gen, dev):
     ok_all = True
-    for b, t, h, dh, n, chunk in SSD_CASES:
-        for dname in ("float32", "bfloat16"):
-            dtype = getattr(torch, dname)
-            r = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
-                                       device=dev)
-            x, dy = r(b, t, h, dh).to(dtype), r(b, t, h, dh).to(dtype)
-            dt = r(b, t, h).abs() * 0.1 + 0.01
-            A = -(r(h) * 0.3 + 1.0).abs()
-            B, C = r(b, t, n) / n ** 0.5, r(b, t, n) / n ** 0.5
-            ops.reset_launch_counts()
-            _, states, decay = ops._ssd_launch(x, dt, A, B, C, chunk=chunk,
-                                               save=True)
-            grads = ops._ssd_scan_bwd(x, dt, A, B, C, states, decay, dy,
+    bf = torch.bfloat16
+    runs = [(c, d, False) for c in SSD_CASES for d in ("float32", "bfloat16")]
+    runs += [(c, "bfloat16", True) for c in SSD_CASES if c[4] % 8 == 0]
+    for (b, t, h, dh, n, chunk), dname, bc16 in runs:
+        dtype = getattr(torch, dname)
+        r = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                   device=dev)
+        x, dy = r(b, t, h, dh).to(dtype), r(b, t, h, dh).to(dtype)
+        dt = r(b, t, h).abs() * 0.1 + 0.01
+        A = -(r(h) * 0.3 + 1.0).abs()
+        B, C = r(b, t, n) / n ** 0.5, r(b, t, n) / n ** 0.5
+        if bc16:
+            B, C = B.to(bf), C.to(bf)
+        _, states, decay = ops._ssd_launch(x, dt, A, B, C, chunk=chunk,
+                                           save=True)
+        _, pst, _ = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                       return_states=True)
+        want = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, states, decay, dy,
                                       chunk=chunk)
-            torch.cuda.synchronize()
-            _, pst, _ = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                                           return_states=True)
-            want = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, states, decay, dy,
+        for force in (None, FMA):
+            plan = force or ops._ssd_grad_plan(x, B, C, chunk=chunk)
+            ops.reset_launch_counts()
+            with routed(force):
+                grads = ops._ssd_scan_bwd(x, dt, A, B, C, states, decay, dy,
                                           chunk=chunk)
+            torch.cuda.synchronize()
             counts = {k: c for k, c in ops.launch_counts().items() if c}
-            errs = [_err(g, w) for g, w in zip(grads, want)]
-            bad = (any(e > 1e-3 * max(1.0, top) for e, top in errs) or
-                   not all(bool(torch.isfinite(g).all()) for g in grads))
+            # in the inputs' types, as ops.SSDScan returns them; a bf16
+            # gradient within one bf16 rounding of its largest element
+            grads = [g.to(w.dtype) for g, w in zip(grads, want)]
+            errs = [_err(g.float(), w.float()) for g, w in zip(grads, want)]
+            tols = [2.0 ** -7 if w.dtype == bf else 1e-3 for w in want]
+            bad = (any(e > tol * max(1.0, top)
+                       for (e, top), tol in zip(errs, tols)) or
+                   not all(bool(torch.isfinite(g).all()) for g in grads) or
+                   counts.get("ssd_scan_bwd_fma", 0) != (not plan.tc))
             ok_all &= not bad
             print(f"SSD {dname} b={b} t={t} h={h} dh={dh} n={n} "
-                  f"chunk={chunk} {counts} states max|d| "
-                  f"{_err(states, pst)[0]:.3e} gradients (max|d|, max|g|) "
-                  f"{errs} {'BAD' if bad else 'ok'}", flush=True)
+                  f"chunk={chunk} B, C {str(B.dtype)[6:]} "
+                  f"{'forced ' if force else ''}{plan} {counts} states "
+                  f"max|d| {_err(states, pst)[0]:.3e} gradients (max|d|, "
+                  f"max|g|) {errs} {'BAD' if bad else 'ok'}", flush=True)
     return ok_all
 
 
@@ -303,7 +360,7 @@ def _sdpa_bwd_ms(q, k, v, do):
     return ms
 
 
-def times(baseline, gen, dev):
+def times(baseline, parts, gen, dev):
     """The attention backward at phase 7's shapes, the library and the
     baseline in turns, beside SDPA's backward; then the SSD backward."""
     for label, B, T, window, dname, misaligned in FULL:
@@ -338,18 +395,98 @@ def times(baseline, gen, dev):
                 f"{fwd:.4f}", flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+    for label, b, t, h, dh, n in SSD_FULL:
+        times_ssd(label, b, t, h, dh, n, parts, gen, dev)
+
+
+def _ssd_split(parts, x, dt, A, B, C, states, decay, dy, plan, chunk,
+               n_rep=3):
+    """ms of each of ``plan``'s launches and the two sums apart: CUDA events
+    between them (``ssd_scan_bwd_part`` of ``parts``, the bench's build of
+    ``ssd_scan.cu``), ``n_rep`` rounds queued behind a spin, averaged:
+    {launch 1' (the adjoint's local sums), launch 2' (its pass), the chunk
+    gradients, sum dB, sum dC}."""
+    b, t, h, dh = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    dtf, Af, Bf, Cf = (a.to(f32).contiguous() for a in (dt, A, B, C))
+    Bk, Ck = (B, C) if plan.bc_bf16 else (Bf, Cf)
+    dx = torch.empty_like(x)
+    ddt = torch.empty(b, t, h, dtype=f32, device=x.device)
+    dAp = torch.empty_like(decay)
+    dBp = torch.empty(b, t, -(-h // plan.g), n, dtype=f32, device=x.device)
+    dCp = torch.empty_like(dBp)
+    wsz = torch.empty_like(states)
+    names = ["adjoint 1'", "adjoint 2'", "chunk gradients", "sum dB",
+             "sum dC"]
+
+    def part(k):
+        return lambda: build.check("ssd_scan_bwd_part",
+                                   parts.lib.ssd_scan_bwd_part(
+            x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
+            Cf.data_ptr(), dy.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), wsz.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), Bk.data_ptr(),
+            Ck.data_ptr(), b, t, h, dh, n, chunk,
+            int(x.dtype == torch.bfloat16), int(plan.tc), plan.g, plan.xs,
+            int(plan.bc_bf16), k, build.stream(dx)))
+    steps = [part(1), part(2), part(3), lambda: dBp.sum(2),
+             lambda: dCp.sum(2)]
+    for fn in steps:
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+    got = [0.0] * len(steps)
+    for _ in range(n_rep):
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        for k, fn in enumerate(steps):
+            fn()
+            ev[k + 1].record()
+        ev[-1].synchronize()
+        for k in range(len(steps)):
+            got[k] += ev[k].elapsed_time(ev[k + 1]) / n_rep
+    return dict(zip(names, got))
+
+
+def times_ssd(label, b, t, h, dh, n, parts, gen, dev, chunk=128):
+    """The SSD backward at one of phase 7's shapes: ``ops._ssd_scan_bwd``
+    with the tensor-core chunk gradients and with the CUDA-core ones in
+    turns (tc, fma, fma, tc), then each route's launches apart."""
     bf = torch.bfloat16
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
-    x, dy = r(2, 4096, 112, 64).to(bf), r(2, 4096, 112, 64).to(bf)
-    dt = r(2, 4096, 112).abs() * 0.1 + 0.01
-    A = -(r(112) * 0.3 + 1.0).abs()
-    B, C = r(2, 4096, 64) / 8, r(2, 4096, 64) / 8
-    _, states, decay = ops._ssd_launch(x, dt, A, B, C, chunk=128, save=True)
-    bwd = _ms(lambda: ops._ssd_scan_bwd(x, dt, A, B, C, states, decay, dy,
-                                        chunk=128))
-    fwd = _ms(lambda: ops._ssd_launch(x, dt, A, B, C, chunk=128))
-    print(f"SSD backward bf16 x b=2 t=4096 h=112 dh=64 n=64 chunk=128: "
-          f"{bwd:.4f} ms per call; forward {fwd:.4f} ms", flush=True)
+    x, dy = r(b, t, h, dh).to(bf), r(b, t, h, dh).to(bf)
+    dt = r(b, t, h).abs() * 0.1 + 0.01
+    A = -(r(h) * 0.3 + 1.0).abs()
+    B, C = (r(b, t, n) / n ** 0.5).to(bf), (r(b, t, n) / n ** 0.5).to(bf)
+    _, states, decay = ops._ssd_launch(x, dt, A, B, C, chunk=chunk,
+                                       save=True)
+    tc = ops._ssd_grad_plan(x, B, C, chunk=chunk)
+    runs = {"tc": None, "fma": FMA}
+    order = ["tc", "fma", "fma", "tc"]
+    got = {k: [] for k in runs}
+    for name in order:
+        with routed(runs[name]):
+            got[name].append(_ms(lambda: ops._ssd_scan_bwd(
+                x, dt, A, B, C, states, decay, dy, chunk=chunk)))
+    split = {k: _ssd_split(parts, x, dt, A, B, C, states, decay, dy, p,
+                           chunk)
+             for k, p in (("tc", tc), ("fma", FMA))}
+    fwd = _ms(lambda: ops._ssd_launch(x, dt, A, B, C, chunk=chunk))
+    n_chunks = -(-t // chunk)
+    print(f"SSD backward {label} (bf16 x, B, C; b={b} t={t} h={h} dh={dh} "
+          f"n={n} chunk={chunk}), ms per call in turns {order}: "
+          + "; ".join(f"{k} {sum(v) / len(v):.4f} "
+                      f"({', '.join(f'{y:.4f}' for y in v)})"
+                      for k, v in got.items())
+          + f"; tc plan {tc}, its grid {b * n_chunks * -(-h // tc.g)} CTAs "
+            f"(132 SMs), the CUDA-core kernel's {b * n_chunks * h}; "
+          + "; ".join(f"{k} launches apart: "
+                      + ", ".join(f"{n_} {m:.4f}" for n_, m in v.items())
+                      for k, v in split.items())
+          + f"; forward {fwd:.4f}", flush=True)
+    del x, dy, states, decay
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -359,18 +496,19 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    proc, path = start_build()
+    procs = start_build()
     lib = build.library()
     print(f"built {lib.path} in {lib.build_s:.2f} s", flush=True)
     ptxas_notes("library", lib.log)
-    baseline = load("mma.sync", proc, path)
+    baseline, parts = (load(k, *procs[k]) for k in ("mma.sync",
+                                                    "ssd parts"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     ok = check_swa(gen, dev)
     ok &= check_ssd(gen, dev)
-    times(baseline, gen, dev)
+    times(baseline, parts, gen, dev)
     print("ALL OK" if ok else "SOME BAD")
     return 0 if ok else 1
 

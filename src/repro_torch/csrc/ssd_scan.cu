@@ -38,8 +38,9 @@
 // dh / 64 rounded up) in registers, fed by two 16-byte shared loads per
 // depth step (8 FMAs per shared load; the old one-CTA-per-head kernel did
 // one).  Operands sit in shared memory with a row stride of 68 floats
-// (16-byte aligned).  TF32 on the tensor cores would miss the reference's
-// rtol 2e-4, so the products stay on the CUDA cores.
+// (16-byte aligned).  One TF32 product on the tensor cores would miss the
+// reference's rtol 2e-4; the forward keeps its products on the CUDA cores
+// (split TF32, as the backward's chunk gradients take it, is later work).
 //
 // The ragged end of t is masked in the kernels: steps past t read dt = 0,
 // x = B = C = 0, which is the reference's padding (a zero step is a no-op)
@@ -57,9 +58,9 @@
 // (step, head), against the card's float32 rate; the chunked form does
 // ~L/2 times that in exchange for its parallelism.
 //
-// The backward (ssd_scan_bwd; the reference has no backward kernel: it
-// trains through its jnp ssd_chunked, src/repro/models/mamba2.py:106, and
-// XLA differentiates that; these launches port that gradient) reads the
+// The backward (ssd_scan_bwd) stands beside no TPU kernel: the reference
+// trains through its jnp ssd_chunked (src/repro/models/mamba2.py:106) and
+// XLA takes that gradient; these launches port it.  It reads the
 // forward's workspace after its state pass, i.e. the state S_c entering
 // each chunk, and its decays, and makes three launches:
 //
@@ -68,24 +69,42 @@
 //   2'. launch 2 run from the last chunk (REV): Z_c, the adjoint of the
 //       state that chunk c leaves, Z_c = exp(s_L[c+1]) Z_{c+1} +
 //       loc[c+1], Z of the last chunk 0;
-//   3'. the chunk gradients, one CTA of 256 threads per (batch x head,
-//       chunk): 64 x 64 tiles of G = C B^T and R = dy x^T for each pair
-//       of a t tile and an earlier-or-equal tau tile, the decays taken
-//       only for tau <= t, then dx, ddt, dB, dC and the chunk's share of
-//       dA (ssd_chunk_grad_kernel's note).  dB and dC are written per
-//       head and dA per chunk, and the caller sums them (torch.sum, a
-//       fixed order): no atomics, so two runs give the same bits.
+//   3'. the chunk gradients dx, ddt, dB, dC and the chunks' shares of dA:
+//       ssd_chunk_grad_tc (csrc/ssd_chunk_grad.cu, whose note gives the
+//       design: split TF32 on mma.sync, one CTA per (batch, chunk, g
+//       heads), G = C B^T shared by them, dB and dC summed over them in
+//       registers) for chunks of at most 128 steps and n <= 128 where its
+//       shared memory fits; else ssd_chunk_grad_kernel below (one CTA per
+//       (batch x head, chunk), 64 x 64 float32 tiles on the CUDA cores,
+//       dB and dC per head), which ops counts apart as ssd_scan_bwd_fma:
+//       chunks past 128, n past 128, and float32 B and C at n 128 (their
+//       tiles alone take 139,264 bytes).  The caller sums the partials of
+//       dB and dC over the head groups and dA over the chunks (torch.sum,
+//       a fixed order): no atomics, so two runs give the same bits.
 //
-// Bound: operations, ~10 n dh float32 operations per (step, head) of the
-// exact recurrence's backward; the chunked form does ~L times that, in
-// float32 FMAs on the CUDA cores as the forward.  Launch 3' takes
-// 8 (3 L64 + 16) + 4 (5 * 64 * 68 + 64 (64 DT + 4) + 2 L64) bytes of
-// shared memory: 108,672 at dh 64, chunk 128, so two CTAs share an SM.
+// Bound: operations.  The exact recurrence's backward does ~10 n dh
+// operations per (step, head); the chunked form ~L / 2 times that in
+// exchange for its parallelism: ~0.46 ms of split-TF32 products at
+// zamba2-7b's training group (b 2 x t 4,096, 112 heads) against ~0.56 ms
+// of the recurrence's float32 operations (PERF.md row 8b).  Launch 3'
+// by ssd_chunk_grad_kernel takes 8 (3 L64 + 16) + 4 (5 * 64 * 68 + 64
+// (64 DT + 4) + 2 L64) bytes of shared memory: 108,672 at dh 64, chunk
+// 128, so two CTAs share an SM.
 //
 // The entry points have a plain C interface for ctypes and return the
 // first error of their launches (cudaGetLastError()).
 
 #include "float_io.cuh"
+
+namespace ssd_tc {
+int launch_chunk_grad(const void* x, const float* dt, const float* A,
+                      const void* B, const void* C, const void* dy,
+                      const float* ws, const float* wsz, const float* decay,
+                      void* dx, float* ddt, float* dBp, float* dCp,
+                      float* dAp, int b, int t, int h, int dh, int n, int L,
+                      int g, int xs, int x_bf16, int bc_bf16,
+                      cudaStream_t st);
+}  // namespace ssd_tc
 
 namespace {
 
@@ -510,11 +529,14 @@ __host__ __device__ constexpr size_t grad_smem(int L64) {
                           2 * (size_t)L64);
 }
 
-// Launch 3 of the backward: every gradient of one (batch x head, chunk),
-// from the state S entering it (the forward's workspace after its state
-// pass) and the adjoint Z of the state it leaves (launches 1 and 2 run as
-// the adjoint).  With G = C B^T, R = dy x^T, E = exp(s_t - s_tau) for tau
-// <= t (else 0, never exp of a later tau), w = dt exp(s_L - s):
+// Launch 3 of the backward where ssd_chunk_grad_tc does not take the shape
+// (chunks past 128 steps, n past 128, tiles past its shared memory such as
+// float32 B and C at n 128): every gradient of
+// one (batch x head, chunk), from the state S entering it (the forward's
+// workspace after its state pass) and the adjoint Z of the state it
+// leaves (launches 1 and 2 run as the adjoint).  With G = C B^T, R = dy
+// x^T, E = exp(s_t - s_tau) for tau <= t (else 0, never exp of a later
+// tau), w = dt exp(s_L - s):
 //   dx = dt dxt, dxt = (G E)^T dy + exp(s_L - s) (B Z)
 //   dC = (E R dt) B + exp(s) dy S^T,   dB = (E R dt)^T C + w x Z^T
 //   ds = rowsum(W) - colsum(W) + exp(s) dy . (C S) - u w, W = G E R dt,
@@ -841,12 +863,26 @@ ssd_chunk_grad_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// The chunk-gradient launch's route (tc: ssd_chunk_grad_tc, else
+// ssd_chunk_grad_kernel) and what ssd_chunk_grad_tc takes: B and C as it
+// reads them (bf16 when bc_bf16), heads per CTA g, stages xs of x and dy.
+struct GradRoute {
+  bool tc;
+  const void* B;
+  const void* C;
+  int g, xs, bc_bf16;
+};
+
+// The backward's launches 1', 2' and 3' in order, or with part 1, 2 or 3
+// that launch alone (a timing of the launches apart; the entry point
+// makes all three).
 template <typename T, int DT>
 int launch_bwd(const void* x, const float* dt, const float* A, const float* B,
                const float* C, const void* dy, const float* ws,
                const float* decay, float* wsz, void* dx, float* ddt,
-               float* dBh, float* dCh, float* dAp, int b, int t, int h,
-               int dh, int n, int L, cudaStream_t stream) {
+               float* dBp, float* dCp, float* dAp, int b, int t, int h,
+               int dh, int n, int L, const GradRoute& route, int part,
+               cudaStream_t stream) {
   const int L64 = round64(L);
   const int n_chunks = (t + L - 1) / L;
   const int n_kt = (n + TILE - 1) / TILE;
@@ -860,7 +896,7 @@ int launch_bwd(const void* x, const float* dt, const float* A, const float* B,
   cudaError_t e = cudaFuncSetAttribute(
       ssd_chunk_state_kernel<T, DT, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
-  if (e == cudaSuccess)
+  if (e == cudaSuccess && !route.tc)
     e = cudaFuncSetAttribute(ssd_chunk_grad_kernel<T, DT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sg);
@@ -870,18 +906,29 @@ int launch_bwd(const void* x, const float* dt, const float* A, const float* B,
   }
   // the state adjoint: local sums (launch 1 as the adjoint), then the pass
   // from the last chunk (launch 2 reversed), in place on wsz
-  ssd_chunk_state_kernel<T, DT, true><<<(unsigned)g1, NT, s1, stream>>>(
-      (const T*)dy, dt, A, C, wsz, nullptr, t, h, dh, n, L, n_chunks, n_kt);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (part == 0 || part == 1) {
+    ssd_chunk_state_kernel<T, DT, true><<<(unsigned)g1, NT, s1, stream>>>(
+        (const T*)dy, dt, A, C, wsz, nullptr, t, h, dh, n, L, n_chunks,
+        n_kt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
   const long long ne = (long long)n * dh;
   const long long total = bh * ne;
-  ssd_state_pass_kernel<true>
-      <<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-          wsz, decay, n_chunks, ne, total);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (part == 0 || part == 2) {
+    ssd_state_pass_kernel<true>
+        <<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+            wsz, decay, n_chunks, ne, total);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (part != 0 && part != 3) return (int)cudaGetLastError();
+  if (route.tc)
+    return ssd_tc::launch_chunk_grad(
+        x, dt, A, route.B, route.C, dy, ws, wsz, decay, dx, ddt, dBp, dCp,
+        dAp, b, t, h, dh, n, L, route.g, route.xs,
+        (int)(sizeof(T) == 2), route.bc_bf16, stream);
   ssd_chunk_grad_kernel<T, DT><<<(unsigned)g3, NT, sg, stream>>>(
       (const T*)x, dt, A, B, C, (const T*)dy, ws, wsz, decay, (T*)dx, ddt,
-      dBh, dCh, dAp, t, h, dh, n, L, n_chunks);
+      dBp, dCp, dAp, t, h, dh, n, L, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -889,12 +936,14 @@ template <typename T>
 int launch_bwd_dt(const void* x, const float* dt, const float* A,
                   const float* B, const float* C, const void* dy,
                   const float* ws, const float* decay, float* wsz, void* dx,
-                  float* ddt, float* dBh, float* dCh, float* dAp, int b,
-                  int t, int h, int dh, int n, int L, cudaStream_t st) {
+                  float* ddt, float* dBp, float* dCp, float* dAp, int b,
+                  int t, int h, int dh, int n, int L, const GradRoute& route,
+                  int part, cudaStream_t st) {
 #define SSD_BWD_CASE(k)                                                     \
   case k:                                                                   \
     return launch_bwd<T, k>(x, dt, A, B, C, dy, ws, decay, wsz, dx, ddt,    \
-                            dBh, dCh, dAp, b, t, h, dh, n, L, st);
+                            dBp, dCp, dAp, b, t, h, dh, n, L, route, part,  \
+                            st);
   switch ((dh + TILE - 1) / TILE) {
     SSD_BWD_CASE(1)
     SSD_BWD_CASE(2)
@@ -990,26 +1039,33 @@ int ssd_scan_fwd(const void* x, const float* dt, const float* A,
 // The backward of ssd_scan_fwd: x, dt, A, B, C as there; dy like x (the
 // upstream gradient); ws and decay the forward's workspace and decays
 // after its run (ws then holds the state entering each chunk); wsz
-// scratch like ws.  Writes dx like x, ddt (b, t, h), the per-head parts
-// dBh and dCh (b, t, h, n) and dAp (b, h, n_chunks), all float32 but dx;
-// the caller sums dBh and dCh over h and dAp over b and the chunks.
+// scratch like ws.  Bk and Ck are B and C as the chunk-gradient launch
+// reads them: bf16 when bc_bf16 (then x is bf16), else float32.  With tc
+// the chunk gradients run on ssd_chunk_grad_tc with g heads per CTA and
+// xs stages of x and dy (ssd_chunk_grad_smem gives its shared memory),
+// and dBp, dCp are (b, t, ceil(h / g), n); else on ssd_chunk_grad_kernel,
+// and they are (b, t, h, n).  Writes dx like x, ddt (b, t, h), dBp, dCp
+// and dAp (b, h, n_chunks), all float32 but dx; the caller sums dBp and
+// dCp over their third axis and dAp over b and the chunks.
 int ssd_scan_bwd(const void* x, const float* dt, const float* A,
                  const float* B, const float* C, const void* dy,
                  const float* ws, const float* decay, float* wsz, void* dx,
-                 float* ddt, float* dBh, float* dCh, float* dAp, int b,
-                 int t, int h, int dh, int n, int L, int is_bf16,
-                 void* stream) {
+                 float* ddt, float* dBp, float* dCp, float* dAp,
+                 const void* Bk, const void* Ck, int b, int t, int h, int dh,
+                 int n, int L, int is_bf16, int tc, int g, int xs,
+                 int bc_bf16, void* stream) {
   if (b <= 0 || t <= 0 || h <= 0) return (int)cudaGetLastError();
   if (L < 1 || n < 1 || dh < 1 || dh > MAX_DT * TILE)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const GradRoute route{tc != 0, Bk, Ck, g, xs, bc_bf16};
   return is_bf16
              ? launch_bwd_dt<__nv_bfloat16>(x, dt, A, B, C, dy, ws, decay,
-                                            wsz, dx, ddt, dBh, dCh, dAp, b,
-                                            t, h, dh, n, L, st)
+                                            wsz, dx, ddt, dBp, dCp, dAp, b,
+                                            t, h, dh, n, L, route, 0, st)
              : launch_bwd_dt<float>(x, dt, A, B, C, dy, ws, decay, wsz, dx,
-                                    ddt, dBh, dCh, dAp, b, t, h, dh, n, L,
-                                    st);
+                                    ddt, dBp, dCp, dAp, b, t, h, dh, n, L,
+                                    route, 0, st);
 }
 
 }  // extern "C"

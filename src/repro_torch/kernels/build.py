@@ -85,7 +85,10 @@ SIGNATURES = {
     "ssd_scan_fwd":
         [_P] * 8 + [_I] * 7 + [_P],
     "ssd_scan_bwd":
-        [_P] * 14 + [_I] * 7 + [_P],
+        [_P] * 16 + [_I] * 11 + [_P],
+    # csrc/ssd_chunk_grad.cu
+    "ssd_chunk_grad_smem":
+        [_I] * 5,
     # csrc/dso_serial.cu
     "dso_serial_epoch":
         [_P] * 4 + [_I] + [_P] * 7 + [_I, _I, _P, _L, _P] + [_F] * 5

@@ -900,29 +900,55 @@ def _ssd_launch(x, dt, A, B, C, *, chunk: int, save: bool = False):
 ssd_scan.launches = 0
 
 
+def _ssd_grad_plan(x, B, C, *, chunk: int) -> _ssd.GradPlan:
+    """The chunk-gradient launch ``_ssd_scan_bwd`` makes for these tensors:
+    ``_ssd.chunk_grad_plan`` at x's and B's shapes and types and the
+    card's shared memory (B and C passed in bf16 when both are bf16)."""
+    return _ssd.chunk_grad_plan(
+        B.shape[-1], chunk, x.shape[2], x.dtype == torch.bfloat16,
+        B.dtype == C.dtype == torch.bfloat16,
+        shared_memory_limit(x.device), _ssd.chunk_grad_smem)
+
+
 def _ssd_scan_bwd(x, dt, A, B, C, states, decay, dy, *, chunk: int):
     """The backward of ``ssd_scan`` on the card: (dx, ddt, dA, dB, dC)
     from the saved inputs, states and decays and the upstream gradient
     ``dy``: the three backward launches (counted once, listed as
-    ``ssd_scan_bwd``), then dB and dC summed over the heads and dA over
+    ``ssd_scan_bwd``; where ``_ssd_grad_plan`` sends the chunk gradients
+    to the CUDA-core kernel, counted once more as ``ssd_scan_bwd_fma``),
+    then dB and dC summed over the head groups' partials and dA over
     (batch, chunk) by ``torch.sum`` (a fixed order: no atomics).  dx is in
     x's type, the rest float32."""
     b, t, h, _ = x.shape
     n = B.shape[-1]
     f32 = torch.float32
+    plan = _ssd_grad_plan(x, B, C, chunk=chunk)
     dtf, Af, Bf, Cf = (a.to(f32).contiguous() for a in (dt, A, B, C))
+    Bk, Ck = ((B.contiguous(), C.contiguous()) if plan.bc_bf16
+              else (None, None))
     dy = dy.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     ddt = torch.empty(b, t, h, dtype=f32, device=x.device)
-    dBh = torch.empty(b, t, h, n, dtype=f32, device=x.device)
-    dCh = torch.empty_like(dBh)
     dAp = torch.empty_like(decay)
-    _ssd.launch_ssd_scan_bwd(x, dtf, Af, Bf, Cf, states, decay, dy, dx, ddt,
-                             dBh, dCh, dAp, chunk=chunk)
+    dBp = torch.empty(b, t, -(-h // plan.g), n, dtype=f32, device=x.device)
+    dCp = torch.empty_like(dBp)
+    launch = _ssd.launch_ssd_scan_bwd if plan.tc else _ssd_scan_bwd_fma
+    launch(x, dtf, Af, Bf, Cf, states, decay, dy, dx, ddt, dBp, dCp, dAp,
+           chunk=chunk, plan=plan, Bk=Bk, Ck=Ck)
     _ssd_scan_bwd.launches += 1
-    return dx, ddt, dAp.sum((0, 2)), dBh.sum(2), dCh.sum(2)
+    return dx, ddt, dAp.sum((0, 2)), dBp.sum(2), dCp.sum(2)
 
 
+def _ssd_scan_bwd_fma(*args, **kw):
+    """The backward launches with the chunk gradients on the CUDA-core
+    ``ssd_chunk_grad_kernel``, the route ``_ssd_grad_plan`` takes where
+    the tensor-core kernel does not fit (chunks past 128, n past 128,
+    float32 B and C at n 128), counted on its own."""
+    _ssd.launch_ssd_scan_bwd(*args, **kw)
+    _ssd_scan_bwd_fma.launches += 1
+
+
+_ssd_scan_bwd_fma.launches = 0
 _ssd_scan_bwd.launches = 0
 
 # ---------------------------------------------------------------- serial --
@@ -1105,7 +1131,8 @@ _COUNTED = (sparse_probe, dso_primal_update, dso_sparse_block_step,
             _dso_tile_step_twopass, swa_attention, _swa_attention_tc,
             _swa_attention_tf32x3, _swa_attention_bwd,
             _swa_attention_bwd_packed, _swa_attention_bwd_f32, ssd_scan,
-            _ssd_scan_bwd, dso_serial_epoch, sgd_epoch, dcd_epoch)
+            _ssd_scan_bwd, _ssd_scan_bwd_fma, dso_serial_epoch, sgd_epoch,
+            dcd_epoch)
 
 
 def reset_launch_counts():
@@ -1120,6 +1147,7 @@ def launch_counts() -> dict:
     under ``swa_attention_tc`` and ``swa_attention_tf32x3``, the
     attention's backward under ``swa_attention_bwd`` (bf16 in place),
     ``swa_attention_bwd_packed`` and ``swa_attention_bwd_f32``, the SSD
-    scan's under ``ssd_scan_bwd``, the bucketed shared route's under
+    scan's under ``ssd_scan_bwd`` (its CUDA-core chunk gradients also
+    under ``ssd_scan_bwd_fma``), the bucketed shared route's under
     ``dso_bucketed_block_step_shared``)."""
     return {fn.__name__.lstrip("_"): fn.launches for fn in _COUNTED}

@@ -17,10 +17,15 @@ padded with dt = 0, a step that changes nothing (the reference's rule,
 Replaces the reference's Pallas kernel ``_ssd_kernel``
 (``src/repro/kernels/ssd_scan.py:32``, pallas_call :84) by three launches
 (chunk states, state passing, chunk output); the note in
-``csrc/ssd_scan.cu`` gives the design.
+``csrc/ssd_scan.cu`` gives the design.  The backward (no pallas_call: the
+reference's gradient is XLA's) is three launches too, the last of them
+the chunk gradients of ``csrc/ssd_chunk_grad.cu`` where
+``chunk_grad_plan`` finds that they fit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +33,44 @@ from repro_torch.kernels.build import check, library, stream
 
 DEFAULT_CHUNK = 128
 MAX_HEAD_DIM = 256          # the kernels' widest dh (4 tiles of 64)
+# ssd_chunk_grad_tc (csrc/ssd_chunk_grad.cu): the longest chunk and the
+# largest state it takes, and the most heads a CTA takes (G = C B^T and dB,
+# dC shared by them)
+TC_MAX_CHUNK, TC_MAX_STATE, TC_MAX_HEADS = 128, 128, 8
+
+
+class GradPlan(NamedTuple):
+    """The chunk-gradient launch: ``tc`` (``ssd_chunk_grad_tc``, else the
+    float32 CUDA-core ``ssd_chunk_grad_kernel``), its heads per CTA ``g``
+    (1 for the CUDA-core kernel: dB and dC per head), stages ``xs`` of x and
+    dy, and B and C passed in bf16 (``bc_bf16``)."""
+    tc: bool
+    g: int
+    xs: int
+    bc_bf16: bool
+
+
+def chunk_grad_plan(n: int, chunk: int, h: int, x_bf16: bool,
+                    bc_bf16: bool, smem_limit: int, smem) -> GradPlan:
+    """The chunk-gradient launch for state size ``n``, ``chunk`` steps, ``h``
+    heads: ``ssd_chunk_grad_tc`` with the most heads per CTA (up to
+    ``TC_MAX_HEADS``, at most h) whose shared memory ``smem(n, g, xs,
+    x_bf16, bc_bf16)`` (the C entry ``ssd_chunk_grad_smem``) fits
+    ``smem_limit``, with 2 stages of x and dy if they fit, else 1; B and C in
+    bf16 only with bf16 x and n a multiple of 8 (16-byte rows).  A chunk
+    past ``TC_MAX_CHUNK``, a state past ``TC_MAX_STATE`` or a shape that
+    fits in no way (float32 B and C at n 128: their tiles alone take
+    139,264 bytes) takes the CUDA-core kernel."""
+    bc_bf16 = bool(bc_bf16 and x_bf16 and n % 8 == 0)
+    if chunk <= TC_MAX_CHUNK and n <= TC_MAX_STATE:
+        for g in (8, 4, 2, 1):
+            if g > max(1, min(h, TC_MAX_HEADS)):
+                continue
+            for xs in (2, 1):
+                need = smem(n, g, xs, int(x_bf16), int(bc_bf16))
+                if 0 < need <= smem_limit:
+                    return GradPlan(True, g, xs, bc_bf16)
+    return GradPlan(False, 1, 1, False)
 
 
 def launch_ssd_scan(x, dt, A, B, C, y, *, chunk: int):
@@ -50,23 +93,34 @@ def launch_ssd_scan(x, dt, A, B, C, y, *, chunk: int):
     return ws, decay
 
 
-def launch_ssd_scan_bwd(x, dt, A, B, C, states, decay, dy, dx, ddt, dBh,
-                        dCh, dAp, *, chunk: int):
+def chunk_grad_smem(n, g, xs, x_bf16, bc_bf16) -> int:
+    """Bytes of shared memory of ``ssd_chunk_grad_tc`` (the C entry)."""
+    return int(library().lib.ssd_chunk_grad_smem(n, g, xs, x_bf16,
+                                                 bc_bf16))
+
+
+def launch_ssd_scan_bwd(x, dt, A, B, C, states, decay, dy, dx, ddt, dBp,
+                        dCp, dAp, *, chunk: int, plan: GradPlan, Bk=None,
+                        Ck=None):
     """The backward kernels on contiguous tensors: x, dt, A, B, C as
     ``launch_ssd_scan`` takes them, ``states`` and ``decay`` as it returns
-    them, ``dy`` like x.  Writes dx (like x), ddt (b, t, h), the per-head
-    parts dBh and dCh (b, t, h, n) and dAp (b, h, n_chunks), float32;
-    allocates the state adjoint's workspace (like ``states``) with
-    ``torch.empty`` for the call."""
+    them, ``dy`` like x; ``Bk``, ``Ck`` B and C in bf16 for a plan with
+    ``bc_bf16``.  Writes dx (like x), ddt (b, t, h), dAp (b, h, n_chunks)
+    and the partials dBp, dCp (b, t, ceil(h / plan.g), n), each summed over
+    ``plan.g`` heads, float32; the chunk-gradient launch is ``plan``'s
+    (``chunk_grad_plan``).  Allocates the state adjoint's workspace (like
+    ``states``) with ``torch.empty`` for the call."""
     b, t, h, dh = x.shape
     n = B.shape[-1]
     wsz = torch.empty_like(states)
+    Bk, Ck = (Bk, Ck) if plan.bc_bf16 else (B, C)
     check("ssd_scan_bwd", library().lib.ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), dy.data_ptr(), states.data_ptr(), decay.data_ptr(),
-        wsz.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dBh.data_ptr(),
-        dCh.data_ptr(), dAp.data_ptr(), b, t, h, dh, n, chunk,
-        int(x.dtype == torch.bfloat16), stream(dx)))
+        wsz.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dBp.data_ptr(),
+        dCp.data_ptr(), dAp.data_ptr(), Bk.data_ptr(), Ck.data_ptr(), b, t,
+        h, dh, n, chunk, int(x.dtype == torch.bfloat16), int(plan.tc),
+        plan.g, plan.xs, int(plan.bc_bf16), stream(dx)))
 
 
 def _compute_dtype(x):

@@ -33,7 +33,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.models import mamba2 as jmamba
-from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (GradPlan, chunk_grad_plan,
+                                          ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.kernels.swa_attention import (NEG_INF,
                                                swa_attention_bwd_plain,
                                                swa_attention_plain)
@@ -192,7 +193,8 @@ def test_swa_plain_lse_is_the_masked_logsumexp():
 # the plain backward's distance, plus one bf16 ulp of the largest
 # element), float32 by phase 7's ``BWD_TOL`` (2e-5 x max(1, max|g|)).
 
-from test_torch_lm_kernels import _mm_tf32  # noqa: E402
+from test_torch_lm_kernels import (_mm_tf32, _tf32,  # noqa: E402
+                                   _toward_zero)
 
 LOG2E = 1.4426950408889634
 F32_BWD_TOL = 2e-5
@@ -459,6 +461,235 @@ def test_ssd_bwd_plain_stays_finite_past_the_decay_overflow():
     assert not all(np.isfinite(np.asarray(a)).all() for a in ref)
 
 
+# The arithmetic of ``csrc/ssd_chunk_grad.cu`` (the chunk gradients of the
+# SSD backward on the tensor cores), emulated in PyTorch: every product in
+# split TF32 as its mma.sync steps chain (``_mm_tf32``: the 8-deep steps
+# of lo*hi, hi*lo, hi*hi in order into one float32 accumulator truncated
+# toward zero); G = C B^T once per chunk, shared
+# by the group's heads; R and R^T over dh and C S, B Z over n, each 8-deep
+# step from zero, then added in float32 (``_steps``); dC's share of each
+# 16 tau and dB's of each 16 t from zero, then added in float32, and both
+# summed over the group's heads in head order;
+# dxt chained over the t tiles from exp(s_L - s) B Z; ds, colsum(W),
+# ddt's direct part, u and the last step's terms in float64.  The state
+# adjoint (launches 1', 2', unchanged float32 CUDA-core kernels) is taken
+# in float32.  Held against ``jax.vjp`` of the reference within TOL x
+# max(1, max|g|).
+
+def _steps(a, b, split):
+    """a (m, k) @ b (k, n): each 8-deep step by ``_mm_tf32`` from zero,
+    then added in float32 (round to nearest)."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        acc = acc + _mm_tf32(a[:, k0:k0 + 8], b[k0:k0 + 8], split)
+    return acc
+
+
+def _ssd_kernel_bwd(x, dt, A, B, C, states, decay, dy, chunk, split,
+                    heads=8):
+    """(dx, ddt, dA, dB, dC) float32 as the chunk-gradient kernel computes
+    them (``split``; else one TF32 product per float32 product) from
+    float32 inputs, the forward's states and decays and dy; groups of
+    ``heads`` heads."""
+    b, t, h, dh = x.shape
+    n, L = B.shape[-1], chunk
+    nch = -(-t // L)
+    pad = nch * L - t
+
+    def padded(a):
+        return torch.nn.functional.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+    xp, dyp, Bp, Cp = padded(x), padded(dy), padded(B), padded(C)
+    dtp = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    tri = torch.ones(L, L, dtype=torch.bool).tril()
+    dx = torch.zeros_like(xp)
+    ddt = torch.zeros_like(dtp)
+    dA = torch.zeros(h)
+    dB = torch.zeros(b, nch * L, n)
+    dC = torch.zeros_like(dB)
+    for bi in range(b):
+        # the state adjoint in float32: Z_c = decay_{c+1} Z_{c+1} + loc_{c+1}
+        Z = torch.zeros(h, nch, n, dh)
+        run = torch.zeros(h, n, dh)
+        for c in reversed(range(nch)):
+            Z[:, c] = run
+            rows = slice(c * L, (c + 1) * L)
+            s = torch.cumsum(A[:, None] * dtp[bi, rows].T, -1)
+            loc = torch.einsum("tk,htd->hkd", Cp[bi, rows],
+                               dyp[bi, rows].transpose(0, 1)
+                               * torch.exp(s)[..., None])
+            run = decay[bi, :, c, None, None] * run + loc
+        for c in range(nch):
+            rows = slice(c * L, (c + 1) * L)
+            nv = min(L, t - c * L)
+            Cc, Bc = Cp[bi, rows], Bp[bi, rows]
+            G = _mm_tf32(Cc, Bc.T, split)
+            for h0 in range(0, h, heads):
+                accC = torch.zeros(L, n)
+                accB = torch.zeros(L, n)
+                for hd in range(h0, min(h, h0 + heads)):
+                    dtv = dtp[bi, rows, hd]
+                    s = torch.cumsum(A[hd] * dtv, 0)
+                    xs, dys = xp[bi, rows, hd], dyp[bi, rows, hd]
+                    S, Zh = states[bi, hd, c], Z[hd, c]
+                    E = torch.where(tri, torch.exp(s[:, None] - s[None, :]),
+                                    torch.zeros(()))
+                    es = torch.exp(s)
+                    live = torch.arange(L) < nv
+                    el = torch.where(live, torch.exp(s[-1] - s),
+                                     torch.zeros(()))
+                    ds = torch.zeros(L, dtype=torch.float64)
+                    dd = torch.zeros(L, dtype=torch.float64)
+                    # pass 1: the t rows
+                    CS = _steps(Cc, S, split)
+                    accC = accC + es[:, None] * _mm_tf32(dys, S.T, split)
+                    ds += (es * (CS * dys).sum(-1)).double()
+                    R = _steps(dys, xs.T, split)
+                    V = E * dtv[None, :] * R
+                    ds += (G * V).double().sum(-1)
+                    for j in range(0, L, 16):
+                        accC = accC + _mm_tf32(V[:, j:j + 16],
+                                               Bc[j:j + 16], split)
+                    # pass 2: the tau rows
+                    BZ = _steps(Bc, Zh, split)
+                    w = dtv * el
+                    accB = accB + w[:, None] * _mm_tf32(xs, Zh.T, split)
+                    u = (BZ.double() * xs.double()).sum(-1)
+                    uw = u * dtv.double() * el.double()
+                    ds -= uw
+                    dd += u * el.double()
+                    Rt = _steps(xs, dys.T, split)
+                    Mt = G.T * E.T
+                    Vt = E.T * dtv[:, None] * Rt
+                    ds -= (G.T * Vt).double().sum(-1)
+                    dd += (Mt.double() * Rt.double()).sum(-1)
+                    dxt = _mm_tf32(Mt, dys, split, acc=BZ * el[:, None])
+                    for j in range(0, L, 16):
+                        accB = accB + _mm_tf32(Vt[:, j:j + 16],
+                                               Cc[j:j + 16], split)
+                    dx[bi, rows, hd] = dtv[:, None] * dxt
+                    # the epilogue
+                    ds[L - 1] += uw.sum() + decay[bi, hd, c].double() * (
+                        S.double() * Zh.double()).sum()
+                    da = ds.flip(0).cumsum(0).flip(0)
+                    ddt[bi, rows, hd] = (A[hd].double() * da + dd).float()
+                    dA[hd] += float((dtv.double() * da).sum())
+                dB[bi, rows] += accB
+                dC[bi, rows] += accC
+    return dx[:, :t], ddt[:, :t], dA, dB[:, :t], dC[:, :t]
+
+
+# (b, t, h, dh, n, chunk): two chunks of 128 (eight 16-row stripes each),
+# a ragged t, n != dh
+SSD_KERNEL_CASES = [(1, 256, 2, 16, 8, 128),
+                    (1, 200, 2, 8, 12, 128)]
+
+
+def _ssd_kernel_case(case, split):
+    b, t, h, dh, n, chunk = case
+    x, dt, A, B, C, dy = _ssd_inputs(b, t, h, dh, n, 11)
+    tens = [torch.from_numpy(a) for a in (x, dt, A, B, C, dy)]
+    _, states, decay = ssd_scan_plain(*tens[:5], chunk=chunk,
+                                      return_states=True)
+    got = _ssd_kernel_bwd(*tens[:5], states, decay, tens[5], chunk, split)
+    want = _ssd_ref_vjp(x, dt, A, B, C, dy, chunk)
+    return got, want
+
+
+@pytest.mark.parametrize("case", SSD_KERNEL_CASES,
+                         ids=lambda c: "b{}-t{}-h{}-dh{}-n{}-chunk{}".format(
+                             *c))
+def test_ssd_bwd_kernel_arithmetic_matches_reference_vjp(case):
+    got, want = _ssd_kernel_case(case, True)
+    for name, g, w in zip(("x", "dt", "A", "B", "C"), got, want):
+        _assert_close(g, np.asarray(w), f"d{name}")
+
+
+def test_ssd_bwd_one_tf32_product_misses_the_bound():
+    """Split TF32 is what holds the bound: one TF32 product per float32
+    product misses it on some gradient."""
+    got, want = _ssd_kernel_case(SSD_KERNEL_CASES[0], False)
+    assert any(float(np.abs(g.double().numpy() - np.asarray(w)).max())
+               > TOL * max(1.0, float(np.abs(np.asarray(w)).max()))
+               for g, w in zip(got, want))
+
+
+def _tc_smem(n, g, xs, x_bf16, bc_bf16):
+    """``ssd_chunk_grad_smem`` of ``csrc/ssd_chunk_grad.cu`` (bytes)."""
+    if bc_bf16:
+        ld, esize = -(-n // 64) * 64 + 8, 2
+    else:
+        ld, esize = -(-n // 16) * 16 + 8, 4
+    return (2 * 128 * ld * esize + 4 * 10240
+            + xs * 2 * 128 * 72 * (2 if x_bf16 else 4) + 4 * 4 * 32 * 72
+            + g * 3200)
+
+
+# (n, chunk, h, x bf16, B and C bf16) -> the plan on an H100 (232,448 bytes)
+PLAN_CASES = [
+    ((64, 128, 112, True, True), GradPlan(True, 8, 2, True)),  # zamba2-7b
+    ((128, 128, 32, True, True), GradPlan(True, 8, 1, True)),  # mamba2-370m
+    ((64, 128, 112, False, False), GradPlan(True, 2, 1, False)),   # float32
+    ((64, 128, 3, True, True), GradPlan(True, 2, 2, True)),    # g <= h
+    ((12, 128, 4, True, True), GradPlan(True, 4, 2, False)),   # n % 8 != 0
+    ((64, 128, 4, False, True), GradPlan(True, 2, 1, False)),  # float32 x
+    ((64, 256, 8, True, True), GradPlan(False, 1, 1, False)),  # chunk 256
+    ((256, 128, 8, True, True), GradPlan(False, 1, 1, False)),  # n 256
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES, ids=[
+    "n{}-L{}-h{}-x{:d}-bc{:d}".format(*a) for a, _ in PLAN_CASES])
+def test_ssd_chunk_grad_plan(args, want):
+    """The chunk-gradient launch: the tensor-core kernel with the most heads
+    per CTA (then 2 stages of x and dy) that fits the card's shared memory,
+    bf16 B and C only with bf16 x and n a multiple of 8; past chunk 128 or
+    state 128 the CUDA-core kernel."""
+    assert chunk_grad_plan(*args, 232448, _tc_smem) == want
+    assert _tc_smem(64, 8, 2, 1, 1) == 214016
+    assert _tc_smem(128, 8, 1, 1, 1) == 209920
+
+
+# (n, chunk, B and C bf16) -> the plan's route: tensor cores (True) or the
+# CUDA-core kernel, which float32 B and C at n 128 take as chunk 256 does
+ROUTE_CASES = [((64, 128, False), True), ((128, 128, True), True),
+               ((128, 128, False), False), ((64, 256, True), False)]
+
+
+@pytest.mark.parametrize("args,tc", ROUTE_CASES, ids=[
+    "n{}-L{}-bc{:d}".format(*a) for a, _ in ROUTE_CASES])
+def test_ssd_bwd_counts_the_cuda_core_route(monkeypatch, args, tc):
+    """``ops._ssd_scan_bwd`` launches the plan ``_ssd_grad_plan`` picks at
+    an H100's shared memory, counts every call as ``ssd_scan_bwd`` and the
+    CUDA-core route's also as ``ssd_scan_bwd_fma``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as tssd
+    n, chunk, bc16 = args
+    plans = []
+
+    def launch(x, dt, A, B, C, states, decay, dy, dx, ddt, dBp, dCp, dAp,
+               *, chunk, plan, Bk=None, Ck=None):
+        plans.append(plan)
+        assert dBp.shape == dCp.shape == (1, 300, -(-8 // plan.g), n)
+        assert (Bk is not None) == plan.bc_bf16
+
+    monkeypatch.setattr(tssd, "launch_ssd_scan_bwd", launch)
+    monkeypatch.setattr(ops, "shared_memory_limit", lambda dev: 232448)
+    monkeypatch.setattr(tssd, "chunk_grad_smem", _tc_smem)
+    x = torch.zeros(1, 300, 8, 64, dtype=torch.bfloat16)
+    bc = torch.zeros(1, 300, n, dtype=torch.bfloat16 if bc16 else
+                     torch.float32)
+    nch = -(-300 // chunk)
+    ops.reset_launch_counts()
+    ops._ssd_scan_bwd(x, torch.ones(1, 300, 8), -torch.ones(8), bc, bc,
+                      torch.zeros(1, 8, nch, n, 64), torch.ones(1, 8, nch),
+                      x, chunk=chunk)
+    counts = ops.launch_counts()
+    assert [p.tc for p in plans] == [tc]
+    assert plans[0] == ops._ssd_grad_plan(x, bc, bc, chunk=chunk)
+    assert counts["ssd_scan_bwd"] == 1
+    assert counts["ssd_scan_bwd_fma"] == (not tc)
+
+
 # ------------------------------------------------------- launchers --
 
 
@@ -504,7 +735,7 @@ def _launch_cases():
         "ssd_scan_bwd": lambda: tssd.launch_ssd_scan_bwd(
             x, dt, A, B, B, states, decay, x, x.clone(), dt.clone(),
             torch.zeros(1, 8, 2, 3), torch.zeros(1, 8, 2, 3), decay.clone(),
-            chunk=8),
+            chunk=8, plan=tssd.GradPlan(False, 1, 1, False)),
     }, lse
 
 

@@ -330,6 +330,10 @@ class _Plain:
             monkeypatch.setattr(tswa, name, self.swa_bwd)
         monkeypatch.setattr(tssd, "launch_ssd_scan", self.ssd_fwd)
         monkeypatch.setattr(tssd, "launch_ssd_scan_bwd", self.ssd_bwd)
+        # the chunk-gradient plan reads the card's limit and the kernel's
+        # shared memory: an H100's, and a size that fits
+        monkeypatch.setattr(ops, "shared_memory_limit", lambda dev: 232448)
+        monkeypatch.setattr(tssd, "chunk_grad_smem", lambda *a: 1)
 
     def _counted(self, fn):
         def call(*a, **kw):
@@ -359,14 +363,14 @@ class _Plain:
 
     @staticmethod
     def ssd_bwd(x, dt, A, B, C, states, decay, dy, dx, ddt, dBh, dCh, dAp,
-                *, chunk):
+                *, chunk, plan=None, Bk=None, Ck=None):
         gx, gdt, gA, gB, gC = _PLAIN["ssd_bwd"](x, dt, A, B, C, states,
                                                 decay, dy, chunk=chunk)
         dx.copy_(gx)
         ddt.copy_(gdt)
         dBh.zero_()
         dCh.zero_()
-        dBh[:, :, 0] = gB               # every head's part on head 0
+        dBh[:, :, 0] = gB               # every head's part on part 0
         dCh[:, :, 0] = gC
         dAp.zero_()
         dAp[0, :, 0] = gA

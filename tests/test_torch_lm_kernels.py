@@ -224,8 +224,9 @@ def _toward_zero(x):
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _mm_tf32(a, b, split):
-    """a (m, k) @ b (k, n) of float32 as ``swa_attention_tf32x3.cu`` chains
+def _mm_tf32(a, b, split, acc=None):
+    """a (m, k) @ b (k, n) of float32 (added to ``acc``, else from zero) as
+    ``swa_attention_tf32x3.cu`` chains
     its mma.sync m16n8k8 steps: per 8-deep step, lo*hi, hi*lo and hi*hi of
     the split operands (plain TF32: hi*hi alone), one after the other into
     one float32 accumulator.  Each mma is modelled as the exact sum of its
@@ -239,7 +240,8 @@ def _mm_tf32(a, b, split):
     ah, bh = _tf32(a), _tf32(b)
     al, bl = _tf32(a - ah), _tf32(b - bh)
     terms = [(al, bh), (ah, bl), (ah, bh)] if split else [(ah, bh)]
-    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    if acc is None:
+        acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
     for k0 in range(0, a.shape[1], 8):
         for x, y in terms:
             acc = _toward_zero(acc.double() + x[:, k0:k0 + 8].double()
