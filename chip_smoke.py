@@ -122,7 +122,17 @@ Phases, one line per result:
    tile's bucket rectangle, p launches per inner iteration) against
    ``sparse_bucketed_pallas`` and ``sparse_bucketed_jnp_switch`` on the
    card, w within 1e-5; launches per epoch and s/epoch of each.
-   Phases 8r-8w run right after 5d, each run in its own launch-count
+8c. ``solve(init=)`` on phases 4's, 5's and 5n's grids (block-ELL, the
+   shared and the hot routes) from a state whose w lies at twice its
+   box's upper edge, 3 epochs, against the plain twin on the card, w
+   within 1e-5, alpha within max(1e-5, 3x the float32 plain twin's
+   distance) of a float64 plain twin's (the kernels' alpha from w at the
+   box's edge printed beside it): the first epoch's block steps take launch A alone
+   and launch B on every column (``TileBackend.clamp_step``; one each a
+   row tile and inner iteration), the later ones the folded step; the
+   folded step from the start, the route before the entering state was
+   checked, is printed beside it.
+   Phases 8r-8c run right after 5d, each run in its own launch-count
    window, which must hold the design's launches.
 3b. the baselines' epoch kernels (``csrc/baselines.cu``; they replace no
    pallas_call; one thread-block cluster per worker, the plan of
@@ -183,7 +193,10 @@ Phases, one line per result:
    v not 16-byte aligned; in bf16 also Dh 1, 30, 33 and 127 and a
    misaligned Dh 36 (the packed route); SSD with n 128, dh 112-256,
    n = dh = 128, 32 and 64 chunks, b 2 with a ragged t, chunk 100, total
-   decay;
+   decay; a phase-9t rank's heads: attention 8 heads of Dh 112, SSD 28
+   heads (zamba2-7b's 112 over 4: the chunk gradients' groups of 8 and a
+   tail of 4) and 8 heads at n 128 (mamba2-370m's 32 over 4), B and C
+   in the inputs' type;
    float32 runs the split-TF32 tensor-core kernel, bf16 with Dh a
    multiple of 8 (aligned) the bf16 tensor-core one in place, other bf16
    the same kernel on a packed copy, and each route's launch
@@ -322,6 +335,26 @@ Phases, one line per result:
    config, bf16, B 4 x T 2,048, 5 steps of 48 ``ssd_scan`` and 48
    ``ssd_scan_bwd`` launches, the same numbers.  ``examples.lm_train`` (granite-3-8b's smoke config,
    float32) for 200 steps on the card must print ``LEARNED``.  The
+   launches add to the LM rows of the table.
+9t. tensor parallelism over ``model``: ``make_sharded_train_step`` on a
+   (1, 4) mesh, 4 worker processes on the one card over gloo (staged
+   through pinned host memory; the library built before they start),
+   zamba2-7b's first group at full width (depth cut), each rank holding
+   its shards by the reference's fitted specs and running the SWA and
+   SSD kernels on its 8 attention and 28 SSD heads.  The one-process
+   runs come first, in this process, and free the card.  (t1) float32
+   B 1 x T 4,096: the loss within 1e-5 relative of the one-process
+   step's, every gradient leaf (the sums over its slices) within 1e-3
+   relative L2 (gate (b)'s bound), grad_norm within 1e-5.  (t2) 3 bf16
+   steps of seed 82 at lr 3e-4, B 2 x T 4,096: the mean |loss - the
+   one-process run's| within gate (d)'s 0.007, and the first step's
+   gradient leaves (gathered) within 0.05 relative L2 of the one-process
+   run's.  On every rank: the
+   kernels' launches per step equal the design and no plain version is
+   called on the card; the parameter and moment bytes held equal 1/4 of
+   the split leaves' plus the whole leaves'; the peak, ms per step (host
+   clock) and each kind of collective's calls, bytes and host-clock
+   share are printed, with the batch's memory reckoning.  The ranks'
    launches add to the LM rows of the table.
 
 Prints the kernel table as one JSON line (the LM backward kernels' rows
@@ -2312,6 +2345,96 @@ def phase_health(dev, ctx, cfg):
     return dict(rel=rel)
 
 
+CLAMP_EPOCHS = 3
+# 8c: the kernels' alpha may lie this many times as far from the float64
+# plain twin's as the float32 plain twin's does
+CLAMP_ALPHA_FACTOR = 3
+
+
+def phase_clamp(dev, ctx, cfg):
+    """Phase 8c: ``solve(init=)`` on a phase's grid from a state whose w
+    lies at twice its box's upper edge, ``CLAMP_EPOCHS`` epochs through the
+    kernels against the plain twin on the card.  The first epoch's block
+    steps must take launch A alone and launch B on every column
+    (``TileBackend.clamp_step``: one of each per row tile and inner
+    iteration), the later ones the folded step.  w, the solution, must
+    lie within 1e-5 (``max_rel_err``) of the plain twin's.  alpha is held
+    against a float64 plain twin (``run_epochs`` on a float64 copy of the
+    grid and the state, the same visit orders and step sizes): the
+    kernels' max|d| from it must be within max(TOL, CLAMP_ALPHA_FACTOR x
+    the float32 plain twin's own), since with every margin that large the
+    dual step amplifies the order of the sums in the plain version too.
+    Beside it, the kernels' alpha from w at the box's edge (the folded
+    step throughout) and the folded step from the start (the route
+    before the entering state was checked)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import w_bounds
+    from repro_torch.engine import get_backend, init_state_data, solve
+    from repro_torch.engine.backends import resolve_backend_for_layout
+    from repro_torch.engine.data import eta_schedule
+    from repro_torch.engine.driver import run_epochs
+    from repro_torch.engine.schedules import cyclic_perms
+    from repro_torch.runtime.snapshot import DSOSnapshot
+    grid, layout = ctx["grid"], ctx["layout"]
+    w_lo, w_hi = w_bounds(ctx["loss"], ctx["lam"])
+    fresh = init_state_data(ctx["loss"], grid, cfg.alpha0)
+    kw = dict(grid_kw(ctx, cfg, dev), epochs=CLAMP_EPOCHS)
+
+    def run(backend, w):
+        snap = DSOSnapshot(fresh._replace(w_grid=torch.full_like(
+            fresh.w_grid, w)), torch.Generator().manual_seed(0), 0, (), {})
+        return counted(lambda: solve(grid, backend=backend, init=snap,
+                                     **kw))
+
+    def f64(v):
+        if isinstance(v, tuple):
+            return tuple(f64(x) for x in v)
+        return v.double() if isinstance(v, torch.Tensor) \
+            and v.is_floating_point() else v
+    kern, counts = run("auto", 2 * w_hi)
+    check_counts("8c", counts, {ctx["counter"]: CLAMP_EPOCHS * P,
+                                "dso_primal_update": P})
+    plain, _ = run("jnp", 2 * w_hi)
+    exact = run_epochs(   # solve's cyclic orders and AdaGrad step sizes
+        grid._replace(**{k: f64(v) for k, v in grid._asdict().items()}),
+        fresh._replace(**{k: f64(v) for k, v in fresh._asdict().items()
+                          if k != "w_grid"},
+                       w_grid=torch.full_like(fresh.w_grid, 2 * w_hi,
+                                              dtype=torch.float64)),
+        cyclic_perms(CLAMP_EPOCHS, P),
+        eta_schedule(cfg.eta0, 0, CLAMP_EPOCHS, True),
+        float(np.float32(ctx["lam"])), float(np.float32(ctx["m"])), w_lo,
+        w_hi, backend=resolve_backend_for_layout("jnp", layout,
+                                                 device_type="cuda"),
+        loss_name=ctx["loss"], reg_name="l2")
+    be = resolve_backend_for_layout("auto", layout, device_type="cuda")
+    folded, _ = run(get_backend(be)._replace(clamp_step=None), 2 * w_hi)
+    edge, counts = run("auto", w_hi)
+    check_counts("8c", counts, {ctx["counter"]: CLAMP_EPOCHS * P})
+    edge_plain, _ = run("jnp", w_hi)
+    e_w, ok_w = max_rel_err(kern.w, plain.w)
+    e_a, _ = max_rel_err(kern.alpha, plain.alpha)
+    e_f, ok_f = max_rel_err(folded.w, plain.w)
+    e_ea, _ = max_rel_err(edge.alpha, edge_plain.alpha)
+    e_k64 = float((kern.state.alpha.double() - exact.alpha).abs().max())
+    e_p64 = float((plain.state.alpha.double() - exact.alpha).abs().max())
+    lim_a = max(TOL, CLAMP_ALPHA_FACTOR * e_p64)
+    say("8c", f"{cfg.loss}-{cfg.dataset} ({layout}, {ctx['counter']}): "
+              f"solve(init=) from w = 2 w_hi ({2 * w_hi:.4f}), "
+              f"{CLAMP_EPOCHS} epochs: kernels vs plain twin max|d| w "
+              f"{e_w:.3e} alpha {e_a:.3e}; alpha vs the float64 plain twin: "
+              f"kernels {e_k64:.3e}, float32 plain twin {e_p64:.3e} (limit "
+              f"{lim_a:.3e}); from w = w_hi (the folded step throughout) "
+              f"alpha {e_ea:.3e}; the folded step from 2 w_hi: w {e_f:.3e} "
+              f"(within 1e-5: {ok_f}); max w {float(kern.w.max()):.4f}, "
+              f"folded {float(folded.w.max()):.4f}")
+    check(ok_w, f"8c: solve(init=) from outside the box is off the plain "
+                f"twin: w {e_w:.3e}")
+    check(e_k64 <= lim_a, f"8c: alpha from outside the box is {e_k64:.3e} "
+                          f"off the float64 plain twin (limit {lim_a:.3e})")
+
+
 def phase_reshard(dev, ctx, cfg, snap_store):
     """Phase 8s: p 4 -> 4 on svm-real-sim must give the same grid arrays
     and the same state exactly; p 4 -> 2 through ``reshard`` (the grid
@@ -2874,7 +2997,8 @@ SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
              (2, 8, 2, 8, 4096, 112, 4096, True, 4088),   # decode, Dh 112
              (1, 4, 1, 130, 190, 112, 50, False, 0),      # ragged Tq != Tk
              (1, 4, 1, 16, 32, 64, 4, True, 30),          # rows 5.. see no key
-             (1, 2, 1, 77, 77, 36, 20, True, 0)]          # Dh 36: packed
+             (1, 2, 1, 77, 77, 36, 20, True, 0),          # Dh 36: packed
+             (1, 8, 8, 1024, 1024, 112, 1024, True, 0)]   # a 9t rank's heads
 # float32 only: the edges of the split-TF32 kernel's tiling (128 queries
 # per CTA in warps of 16 rows, kv tiles of 32, depth padded to 16)
 SWA_F32_CASES = [(1, 2, 1, 141, 141, 112, 1000, True, 0),  # ragged warp
@@ -2920,6 +3044,12 @@ SSD_CASES = [(1, 128, 2, 32, 16, 64, None),
 # and C at n 128 above do
 SSD_BWD_FMA_CASES = [(1, 600, 2, 64, 32, 256, None),   # chunk 256, ragged
                      (1, 300, 2, 64, 256, 128, None)]  # n 256
+# a tensor-parallel rank's SSD heads (phase 9t), B and C in the inputs'
+# type as the model gives them: zamba2-7b's 112 / 4 = 28 (the chunk
+# gradients' groups of 8 with a tail of 4) and mamba2-370m's 32 / 4 = 8
+# at n 128 (bf16 B, C: the tensor-core chunk gradients)
+SSD_RANK_CASES = [(2, 1024, 28, 64, 64, 128, None),
+                  (2, 1024, 8, 64, 128, 128, None)]
 SWA_TOL = (2e-5, 2e-5)       # (rtol, atol) of the reference's swa tests
 SSD_TOL = (2e-4, 2e-5)       # ... and of its ssd tests
 
@@ -2997,8 +3127,11 @@ def phase_lm_kernels(dev):
             check(ok and got.dtype == dtype,
                   f"swa_attention disagrees with its plain version "
                   f"(max|d| {e:.3e})")
-        for b, t, h, dh, n, chunk, fill in SSD_CASES:
+        for case in SSD_CASES + SSD_RANK_CASES:
+            b, t, h, dh, n, chunk, fill = case
             x, dt, A, Bm, Cm = ssd_inputs(b, t, h, dh, n, gen, dtype)
+            if case in SSD_RANK_CASES:
+                Bm, Cm = Bm.to(dtype), Cm.to(dtype)
             if fill is not None:
                 A = torch.full_like(A, fill)
             got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
@@ -3152,8 +3285,11 @@ def phase_lm_bwd_kernels(dev):
                       f"{e_lse:.3e} gradients max|d|={e:.3e}")
             check(ok, f"swa_attention's backward disagrees with its plain "
                       f"version (lse {e_lse:.3e}, gradients {e:.3e})")
-        for b, t, h, dh, n, chunk, fill in SSD_CASES + SSD_BWD_FMA_CASES:
+        for case in SSD_CASES + SSD_BWD_FMA_CASES + SSD_RANK_CASES:
+            b, t, h, dh, n, chunk, fill = case
             x, dt, A, Bm, Cm = ssd_inputs(b, t, h, dh, n, gen, dtype)
+            if case in SSD_RANK_CASES:
+                Bm, Cm = Bm.to(dtype), Cm.to(dtype)
             if fill is not None:
                 A = torch.full_like(A, fill)
             dy = torch.randn(b, t, h, dh, generator=gen,
@@ -4558,6 +4694,414 @@ def phase_lm_train(dev, smi):
     return total
 
 
+# phase 9t: tensor parallelism over model, TP_RANKS worker processes on the
+# one card (gloo, staged through pinned host memory), zamba2-7b's first
+# group at full width: (t1) one float32 step at gate (b)'s shape against
+# the one-process step, (t2) TP_STEPS bf16 steps against the one-process
+# kernel run at the same seed, batch and lr (gate (d)'s distance)
+TP_RANKS = 4
+TP_GROUP = dict(n_layers=6)          # zamba2-7b's first group: depth cut
+TP_T = 4096
+TP_F32_B, TP_F32_SEED = 1, 81
+TP_BF16_B, TP_STEPS, TP_SEED = 2, 3, 82    # (t2)
+TP_LOSS_TOL, TP_NORM_TOL = 1e-5, 1e-5    # (t1), relative
+# (t2): each first-step bf16 gradient leaf, gathered, against the one-process
+# bf16 step's (relative L2)
+TP_BF16_GRAD_TOL = 0.05
+TP_TIMEOUT = 600                     # seconds a rank may take
+TP_STEP_LAUNCHES = {"f32": {"swa_attention_tf32x3": 1, "ssd_scan": 6,
+                            "swa_attention_bwd_f32": 1, "ssd_scan_bwd": 6},
+                    "bf16": GROUP_STEP_LAUNCHES}
+
+
+def tp_shapes(b, t):
+    import torch
+    meta = torch.empty((b, t), dtype=torch.int64, device="meta")
+    return {"tokens": meta, "targets": meta}
+
+
+def tp_worker(rank, init, job, out):
+    """One rank of phase 9t (a process of its own on the card named by
+    ``job["device"]``): puts ``(rank, results)`` on ``out``, or
+    ``(rank, the error)``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        res = _tp_rank(rank, init, job, dist, datetime, torch)
+    except BaseException as e:           # the parent fails the phase
+        out.put((rank, f"{type(e).__name__}: {e}"))
+        raise
+    out.put((rank, res))
+
+
+def _tp_rank(rank, init, job, dist, datetime, torch):
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.library()                  # built by the parent: loaded
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", init_method=init, world_size=TP_RANKS,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    mesh = make_host_mesh(1, TP_RANKS)
+    res = {}
+
+    def setup(cfg, b, seed):
+        fn, ssh, _ = T.make_sharded_train_step(cfg, ocfg, mesh,
+                                               tp_shapes(b, job["t"]),
+                                               remat=False)
+        whole = M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, device=dev)
+        params = tpm.shard_tree(whole, mesh, rank)
+        del whole
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        state = T.TrainState(params, opt.init(params))
+        specs = dict(leaves_with_paths(ssh.params))
+        held = sum(t.numel() * t.element_size()
+                   for tree in (state.params, state.opt.mu, state.opt.nu)
+                   for _, t in leaves_with_paths(tree))
+        return fn, specs, state, dict(held=held)
+
+    def rel_l2(grads, file):
+        """Each gradient leaf's relative L2 distance from the one-process
+        gradients in ``file`` (read through a memory map, this rank's
+        slices; a split leaf's sums taken over the ranks)."""
+        ref = torch.load(file, mmap=True, weights_only=True)["grads"]
+        d2, r2, split = [], [], []
+        for path, g in leaves_with_paths(grads):
+            r = ref[path]
+            i = tpm.model_dim(specs[path])
+            if i is not None:
+                s = r.shape[i] // TP_RANKS
+                r = r.narrow(i, rank * s, s)
+            r = r.to(dev).float()
+            d2.append(((g.float() - r) ** 2).sum())
+            r2.append((r ** 2).sum())
+            split.append(i is not None)
+        sums = torch.stack([torch.stack(d2), torch.stack(r2)], dim=1).cpu()
+        split = torch.tensor(split)[:, None]
+        part = sums * split              # the slices' sums over the ranks
+        dist.all_reduce(part)
+        sums = torch.where(split, part, sums)
+        return {p: float((d / r) ** 0.5) if r > 0 else float(d ** 0.5)
+                for (p, _), (d, r) in zip(leaves_with_paths(grads),
+                                          sums.tolist())}
+
+    def run(fn):
+        """(fn's result, its launches, plain calls on the card,
+        collectives and host ms)."""
+        ops.reset_launch_counts()
+        tpm.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        with plain_calls_on_card() as plain:
+            got = fn()
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return got, dict(launches={k: v for k, v in ops.launch_counts()
+                                   .items() if v},
+                         plain=dict(plain), collectives=tpm.counts(), ms=ms)
+
+    # (t1) float32, one step against the one-process step's loss, norm and
+    # gradients (read through a memory map, this rank's slices)
+    ocfg = opt.AdamWConfig(lr=LEARN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS)
+    cfg = model_config("zamba2-7b", dtype="float32", **job["group"])
+    fn, specs, state, held = setup(cfg, TP_F32_B, TP_F32_SEED)
+    batch = markov_batches(cfg, TP_F32_B, job["t"], 1, TP_F32_SEED, dev)[0]
+    (total, met, grads), rec = run(lambda: fn.loss_and_grads(state.params,
+                                                             batch))
+    rel = rel_l2(grads, job["ref"])
+    del grads
+    (_, m), step = run(lambda: fn(state, batch))
+    res["f32"] = dict(rec, loss=float(met["loss"]),
+                      grad_norm=float(m["grad_norm"]), rel=rel,
+                      step_ms=step["ms"], **held,
+                      peak=torch.cuda.max_memory_allocated(dev) if cuda
+                      else 0)
+    del fn, state, batch, m
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (t2) bf16, TP_STEPS steps
+    cfg = model_config("zamba2-7b", **job["group"])
+    fn, specs, state, held = setup(cfg, TP_BF16_B, TP_SEED)
+    batches = markov_batches(cfg, TP_BF16_B, job["t"], TP_STEPS, TP_SEED,
+                             dev)
+    (_, _, grads), first = run(lambda: fn.loss_and_grads(state.params,
+                                                         batches[0]))
+    first["rel"] = rel_l2(grads, job["ref2"])
+    del grads
+    steps = []
+    for batch in batches:
+        (state, m), rec = run(lambda: fn(state, batch))
+        steps.append(dict(rec, loss=float(m["loss"])))
+    res["bf16"] = dict(steps=steps, grads=first, **held,
+                       peak=torch.cuda.max_memory_allocated(dev) if cuda
+                       else 0)
+    dist.destroy_process_group()
+    return res
+
+
+def tp_reference(cfg, b, seed, dev, path):
+    """(t1)'s one-process float32 step in this process: its loss, norm and
+    gradients written to ``path`` (host tensors by leaf path)."""
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    params = M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg, device=dev)
+    batch = markov_batches(cfg, b, TP_T, 1, seed, dev)[0]
+    (total, met, grads), counts = counted(
+        lambda: T.loss_and_grads(params, batch, cfg, remat=False))
+    gnorm = float(opt.global_norm(grads))
+    torch.save({"loss": float(met["loss"]), "grad_norm": gnorm,
+                "grads": {p: g.detach().cpu()
+                          for p, g in leaves_with_paths(grads)}}, path)
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return float(met["loss"]), gnorm, counts
+
+
+def tp_losses(cfg, ocfg, b, dev, path):
+    """(t2)'s one-process kernel run: TP_STEPS bf16 losses from TP_SEED,
+    and the first step's gradients written to ``path`` (host tensors by
+    leaf path)."""
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.training import train as T
+    batches = markov_batches(cfg, b, TP_T, TP_STEPS, TP_SEED, dev)
+    state = T.init_state(torch.Generator(device=dev).manual_seed(TP_SEED),
+                         cfg, device=dev)
+    (_, _, grads), c0 = counted(lambda: T.loss_and_grads(
+        state.params, batches[0], cfg, remat=False))
+    torch.save({"grads": {p: g.detach().cpu()
+                          for p, g in leaves_with_paths(grads)}}, path)
+    del grads
+    step = T.make_train_step(cfg, ocfg, remat=False)
+    out, counts = [], [c0]
+    for batch in batches:
+        (state, m), c = counted(lambda: step(state, batch))
+        out.append(float(m["loss"]))
+        counts.append(c)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def tp_spawn(job, tmp):
+    """Runs TP_RANKS ``tp_worker`` processes; returns their results by
+    rank.  Any rank's error, or one past TP_TIMEOUT, stops every rank and
+    fails the phase."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.SimpleQueue()
+    init = "file://" + os.path.join(tmp, "tp_store")
+    procs = [ctx.Process(target=tp_worker, args=(r, init, job, q))
+             for r in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    got, t0 = {}, time.perf_counter()
+    try:
+        while len(got) < TP_RANKS:
+            if not q.empty():
+                rank, res = q.get()
+                check(isinstance(res, dict), f"9t rank {rank}: {res}")
+                got[rank] = res
+                continue
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            check(not dead, f"9t: a rank exited with {dead}")
+            check(time.perf_counter() - t0 < TP_TIMEOUT + 60,
+                  "9t: the ranks did not finish in time")
+            time.sleep(0.2)
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return got
+
+
+def phase_tp(dev, smi):
+    """Phase 9t: the tensor-parallel train step (``make_sharded_train_step``
+    on a (1, TP_RANKS) mesh) with TP_RANKS worker processes on the one
+    card over gloo, zamba2-7b's first group at full width (depth cut).
+    The one-process runs come first, in this process, and free the card;
+    the kernel library is built before any rank starts (phase 2).  Gates:
+    (t1) float32 B 1 x T 4,096, the loss within 1e-5 relative of the
+    one-process step's, every gradient leaf (its slices' sums over the
+    ranks) within gate (b)'s 1e-3 relative L2, the step's grad_norm
+    within 1e-5; (t2) TP_STEPS bf16 steps at B TP_BF16_B within gate
+    (d)'s mean loss distance of the one-process kernel run, the first
+    step's gradient leaves within TP_BF16_GRAD_TOL relative L2 of its
+    (an out-of-memory error fails the phase; the largest B that fits is
+    reckoned from the measured peak); on every rank the SWA and SSD
+    forward and backward kernels launched and no plain version called on
+    the card.  Returns the launches by counter, the ranks' and the
+    one-process runs'."""
+    import tempfile
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    cfg32 = model_config("zamba2-7b", dtype="float32", **TP_GROUP)
+    cfg16 = model_config("zamba2-7b", **TP_GROUP)
+    ocfg = opt.AdamWConfig(lr=LEARN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS)
+    fitted = dict(leaves_with_paths(shd.param_shardings(
+        make_host_mesh(1, TP_RANKS), M.param_specs(cfg16))))
+    want_held = {}
+    for kind, cfg in (("bf16", cfg16), ("f32", cfg32)):
+        # each leaf in its type and two float32 moments, its slice if split
+        want_held[kind] = sum(
+            x.numel() // (TP_RANKS if tpm.model_dim(fitted[p]) is not None
+                          else 1) * (x.element_size() + 8)
+            for p, x in leaves_with_paths(M.param_specs(cfg)))
+    n_split = sum(x.numel() for p, x in leaves_with_paths(
+        M.param_specs(cfg16)) if tpm.model_dim(fitted[p]) is not None)
+    n_whole = sum(x.numel() for _, x in leaves_with_paths(
+        M.param_specs(cfg16))) - n_split
+    say("9t", f"zamba2-7b first group ({cfg16.n_layers} layers, d "
+              f"{cfg16.d_model}): {n_split:,} parameters in leaves split over "
+              f"model, {n_whole:,} in whole leaves; each of {TP_RANKS} ranks "
+              f"holds {n_split // TP_RANKS + n_whole:,} (parameters and "
+              f"moments {want_held['bf16'] / 2**30:.3f} GiB bf16, "
+              f"{want_held['f32'] / 2**30:.3f} GiB float32)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "t1_reference.pt")
+        loss1, norm1, c1 = tp_reference(cfg32, TP_F32_B, TP_F32_SEED, dev,
+                                        ref)
+        check_counts("9t", c1, TP_STEP_LAUNCHES["f32"])
+        ref2 = os.path.join(tmp, "t2_reference.pt")
+        plain2, c2 = tp_losses(cfg16, ocfg, TP_BF16_B, dev, ref2)
+        for c in c2:
+            check_counts("9t", c, TP_STEP_LAUNCHES["bf16"])
+        torch.cuda.synchronize()
+        say("9t", f"one-process runs: (t1) loss {loss1:.6f}, grad_norm "
+                  f"{norm1:.6f}; (t2) losses {plain2}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        got = tp_spawn(dict(device=str(dev), ref=ref, group=TP_GROUP,
+                            ref2=ref2, t=TP_T), tmp)
+    say("9t", f"{TP_RANKS} ranks ran in {time.perf_counter() - t_spawn:.1f} "
+              f"s (start-up included)")
+    total = {}
+    for c in [c1] + c2:             # the one-process runs' launches too
+        for k, v in c.items():
+            if v and k != "sparse_probe":
+                total[k] = total.get(k, 0) + v
+    for rank in range(TP_RANKS):
+        r = got[rank]
+        f32, bf = r["f32"], r["bf16"]
+        runs = [("f32", f32), ("bf16 gradients", bf["grads"])] + [
+            (f"bf16 step {i}", s) for i, s in enumerate(bf["steps"])]
+        for label, rec in runs:
+            kind = "f32" if label == "f32" else "bf16"
+            check(rec["launches"] == TP_STEP_LAUNCHES[kind]
+                  and not any(rec["plain"].values()),
+                  f"9t rank {rank} {label}: launches {rec['launches']} != "
+                  f"{TP_STEP_LAUNCHES[kind]}, plain calls on the card "
+                  f"{rec['plain']}")
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(bf["held"] == want_held["bf16"]
+              and f32["held"] == want_held["f32"],
+              f"9t rank {rank}: holds {bf['held']} / {f32['held']} bytes of "
+              f"parameters and moments, not {want_held}")
+        coll = bf["steps"][-1]["collectives"]
+        ms = [s["ms"] for s in bf["steps"]]
+        share = sum(c["seconds"] for c in coll.values()) * 1e3 / ms[-1]
+        say("9t", f"rank {rank}: launches per bf16 step "
+                  f"{bf['steps'][-1]['launches']}, float32 "
+                  f"{f32['launches']}; plain calls on the card "
+                  f"{bf['steps'][-1]['plain']}; parameters and moments held "
+                  f"{bf['held'] / 2**30:.3f} GiB (bf16), "
+                  f"{f32['held'] / 2**30:.3f} GiB (float32); peak "
+                  f"{bf['peak'] / 2**30:.3f} GiB (bf16, B {TP_BF16_B}), "
+                  f"{f32['peak'] / 2**30:.3f} GiB (float32, B {TP_F32_B}); "
+                  f"ms per bf16 step (host clock) "
+                  f"{', '.join(f'{x:.1f}' for x in ms)}, float32 "
+                  f"gradients {f32['ms']:.1f}, step {f32['step_ms']:.1f}; "
+                  f"collectives of the last bf16 step: "
+                  + ", ".join(f"{k} {v['calls']} calls {v['bytes']:,} B "
+                              f"{v['seconds'] * 1e3:.1f} ms"
+                              for k, v in coll.items())
+                  + f" (host-clock share {share:.3f}); {smi}")
+    peak = max(got[r]["bf16"]["peak"] for r in range(TP_RANKS))
+    card = torch.cuda.get_device_properties(dev).total_memory if \
+        dev.type == "cuda" else 0
+    act = max(peak - want_held["bf16"], 1)
+    fits = int(TP_BF16_B * (card / TP_RANKS - want_held["bf16"]) / act)
+    say("9t", f"(t2) the batch's reckoning: {TP_RANKS} ranks x peak "
+              f"{peak / 2**30:.3f} GiB = {TP_RANKS * peak / 2**30:.3f} GiB "
+              f"of the card's {card / 2**30:.3f} GiB; at "
+              f"{(peak - want_held['bf16']) / 2**30:.3f} GiB a rank above "
+              f"its parameters and moments for B {TP_BF16_B} (activations, "
+              f"gradients and the update's new trees), the largest B that "
+              f"fits is about {fits}")
+    f32 = got[0]["f32"]
+    d_loss = abs(f32["loss"] - loss1) / abs(loss1)
+    d_norm = abs(f32["grad_norm"] - norm1) / norm1
+    worst = max(f32["rel"], key=f32["rel"].get)
+    say("9t", f"(t1) float32 B {TP_F32_B} x T {TP_T}: loss {f32['loss']:.6f} "
+              f"vs one process {loss1:.6f} ({d_loss:.3e} relative, bound "
+              f"{TP_LOSS_TOL}); grad_norm {f32['grad_norm']:.6f} vs "
+              f"{norm1:.6f} ({d_norm:.3e}, bound {TP_NORM_TOL}); worst "
+              f"gradient leaf {worst} {f32['rel'][worst]:.3e} relative L2 "
+              f"(bound {F32_GRAD_TOL}) over {len(f32['rel'])} leaves")
+    check(d_loss <= TP_LOSS_TOL and d_norm <= TP_NORM_TOL
+          and f32["rel"][worst] <= F32_GRAD_TOL,
+          f"(t1) the float32 TP step is off the one-process step: loss "
+          f"{d_loss:.3e}, grad_norm {d_norm:.3e}, {worst} "
+          f"{f32['rel'][worst]:.3e}")
+    losses = [[s["loss"] for s in got[r]["bf16"]["steps"]]
+              for r in range(TP_RANKS)]
+    check(all(x == losses[0] for x in losses),
+          f"(t2) the ranks' losses differ: {losses}")
+    dist = sum(abs(a - b) for a, b in zip(losses[0], plain2)) / TP_STEPS
+    say("9t", f"(t2) bf16 B {TP_BF16_B} x T {TP_T}, {TP_STEPS} steps of seed "
+              f"{TP_SEED} at lr {LEARN_LR:g}: losses {losses[0]}, one "
+              f"process {plain2}; mean |d| {dist:.4f} (gate <= {TRACK_TOL})")
+    check(dist <= TRACK_TOL, f"(t2) the TP losses part from the one-process "
+                             f"run's by {dist:.4f}")
+    rel2 = got[0]["bf16"]["grads"]["rel"]
+    order = sorted(rel2, key=rel2.get, reverse=True)
+    say("9t", f"(t2) the first step's bf16 gradients against the one-process "
+              f"run's, relative L2 over {len(rel2)} leaves: worst "
+              + ", ".join(f"{p} {rel2[p]:.3e}" for p in order[:3])
+              + f"; median {rel2[order[len(order) // 2]]:.3e} (bound "
+              f"{TP_BF16_GRAD_TOL})")
+    check(rel2[order[0]] <= TP_BF16_GRAD_TOL,
+          f"(t2) the bf16 TP gradient of {order[0]} is {rel2[order[0]]:.3e} "
+          f"off the one-process step's")
+    say("9t", f"phase 9t passed in {time.perf_counter() - t0:.1f} s; "
+              f"launches (the ranks' and the one-process runs') {total}")
+    return total
+
+
 def phase_twopass_times(ctx):
     """Phase 7, row 6: the two-pass tile step at svm-ocr's tile (processor
     0's active block of phase 5d, row-strided), driven once with the
@@ -5157,7 +5701,10 @@ def main() -> int:
                   runtime["svm-real-sim"]["store"])
     phase_obs(dev, buck, CONFIGS["logistic-real-sim"])
     phase_switch(dev, buck, CONFIGS["logistic-real-sim"])
-    say(8, f"phases 8r, 8h, 8s, 8o, 8w passed in "
+    for ctx, name in ((uni, "svm-real-sim"), (buck, "logistic-real-sim"),
+                      (news, "logistic-news20")):
+        phase_clamp(dev, ctx, CONFIGS[name])
+    say(8, f"phases 8r, 8h, 8s, 8o, 8w, 8c passed in "
            f"{time.perf_counter() - t8:.1f} s")
     t10 = time.perf_counter()
     full = realsim_problem(uni, dev)
@@ -5190,6 +5737,13 @@ def main() -> int:
     t7t = time.perf_counter()
     train = phase_lm_train(dev, smi)
     say("7t", f"phase 7t passed in {time.perf_counter() - t7t:.1f} s")
+    # the phases' grids and states are done with (their launch counts
+    # stay): the card is 9t's ranks'
+    for ctx in (uni, buck, news, dense):
+        for k in [k for k in ctx if k not in ("counts", "counter")]:
+            del ctx[k]
+    torch.cuda.empty_cache()
+    tp = phase_tp(dev, smi)
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -5244,7 +5798,7 @@ def main() -> int:
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
                             if k == counter) + model.get(counter, 0) \
-            + train.get(counter, 0)
+            + train.get(counter, 0) + tp.get(counter, 0)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
@@ -5263,7 +5817,8 @@ def main() -> int:
         r = dict(lm[counter, label])
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
-                            if k == counter) + train.get(counter, 0)
+                            if k == counter) + train.get(counter, 0) \
+            + tp.get(counter, 0)
         lm_rows.append(dict(name=counter, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=None, **r))

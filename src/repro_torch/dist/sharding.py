@@ -25,9 +25,11 @@ Rules (in order):
      ``model``.
 
 The port's sharded train step (``training.train.make_sharded_train_step``)
-is data-parallel only: it splits the batch by ``data_specs`` and keeps
-whole parameters on every rank.  The parameter specs describe the
-reference's layout, which the dry run prices.
+splits the batch by ``data_specs`` and, over ``model``, the parameters by
+``param_shardings``: each rank holds its slice of every leaf whose fitted
+spec names ``model`` (``dist.tensor_parallel``), for the dense, audio,
+ssm and hybrid archs; the MoE expert stacks (rule 2) and the vlm's
+cross-attention wait for a later slice.  The dry run prices the layout.
 """
 
 from __future__ import annotations

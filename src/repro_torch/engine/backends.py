@@ -40,6 +40,13 @@ wrapper runs the kernel's plain version).
 ``TileBackend.payload`` ("flat" | "buckets") names the bucketed payload a
 backend reads; the driver passes it to ``as_tile_data``.
 
+``TileBackend.clamp_step``, where set, is the block step for a state that
+may hold w outside its box: the CUDA sparse steps leave a column their
+row tile does not hold as it was, where the plain step clamps every
+column, so the driver runs a state entering with w outside the box
+(``solve(init=)``, a rollback) through ``clamp_step`` for its first epoch
+(launch A, then launch B on every column), and ``block_step`` after.
+
 ``auto`` keeps the reference's layout rules (``SPARSE_DENSITY_THRESHOLD``,
 ``BUCKET_SKEW_THRESHOLD``) and then, unlike the reference (which always
 picks jnp), picks the layout's kernel backend when the data lives on a
@@ -48,6 +55,7 @@ CUDA device and the plain twin on the CPU; it never picks a switch.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -65,6 +73,7 @@ class TileBackend(NamedTuple):
     layout: str             # "dense" | "sparse" | "bucketed"
     block_step: Callable    # see module docstring
     payload: str = "flat"   # bucketed payload: "flat" | "buckets"
+    clamp_step: Callable | None = None   # see module docstring
 
 
 def _needs_adagrad(meta, name):
@@ -161,23 +170,28 @@ def _dense_pallas_fused_block_step(meta, data, state, blk_ids, eta_t,
 
 
 def _sparse_pallas_block_step(meta, data, state, blk_ids, eta_t,
-                              row_batches):
+                              row_batches, every_column=False):
     lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
     _needs_adagrad(meta, "the sparse CUDA kernel")
     cols_g, vals_g = data.arrays
     ops.dso_sparse_block_step(
         cols_g, vals_g, blk_ids, *_stats_args(data, state),
         (eta_t, lam, m, w_lo, w_hi), row_batches=row_batches,
-        loss_name=loss_name, reg_name=reg_name)
+        loss_name=loss_name, reg_name=reg_name, every_column=every_column)
+
+
+def _clamping(step):
+    """``step`` with launch B on every column (``clamp_step``)."""
+    return functools.partial(step, every_column=True)
 
 
 def _make_bucketed_block_step(step, name):
-    def block_step(meta, data, state, blk_ids, eta_t, row_batches):
+    def block_step(meta, data, state, blk_ids, eta_t, row_batches, **kw):
         lam, m, loss_name, reg_name, _, w_lo, w_hi = meta
         _needs_adagrad(meta, name)
         step(*data.arrays, blk_ids, *_stats_args(data, state),
              (eta_t, lam, m, w_lo, w_hi), row_batches=row_batches,
-             loss_name=loss_name, reg_name=reg_name)
+             loss_name=loss_name, reg_name=reg_name, **kw)
     return block_step
 
 
@@ -320,18 +334,22 @@ register_backend(TileBackend("dense_pallas_block", "dense",
                              _dense_pallas_block_step))
 register_backend(TileBackend("sparse_jnp", "sparse", _sparse_jnp_block_step))
 register_backend(TileBackend("sparse_pallas", "sparse",
-                             _sparse_pallas_block_step))
+                             _sparse_pallas_block_step,
+                             clamp_step=_clamping(_sparse_pallas_block_step)))
 register_backend(TileBackend(
     "sparse_bucketed_jnp", "bucketed",
     _make_bucketed_block_step(dso_sparse.dso_bucketed_block_step_plain,
                               "sparse_bucketed_jnp")))
+_bucketed_pallas_block_step = _make_bucketed_block_step(
+    ops.dso_bucketed_block_step, "the bucketed CUDA kernel")
 register_backend(TileBackend(
-    "sparse_bucketed_pallas", "bucketed",
-    _make_bucketed_block_step(ops.dso_bucketed_block_step,
-                              "the bucketed CUDA kernel")))
+    "sparse_bucketed_pallas", "bucketed", _bucketed_pallas_block_step,
+    clamp_step=_clamping(_bucketed_pallas_block_step)))
 register_backend(TileBackend(
     "sparse_bucketed_jnp_switch", "bucketed",
     _make_switch_block_step(_sparse_jnp_block_step), payload="buckets"))
 register_backend(TileBackend(
     "sparse_bucketed_pallas_switch", "bucketed",
-    _make_switch_block_step(_sparse_pallas_block_step), payload="buckets"))
+    _make_switch_block_step(_sparse_pallas_block_step), payload="buckets",
+    clamp_step=_make_switch_block_step(
+        _clamping(_sparse_pallas_block_step))))

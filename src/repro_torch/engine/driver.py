@@ -306,6 +306,13 @@ def _state_copy(state, dev: torch.device) -> DSOState:
          for k, v in state._asdict().items()}, device=dev)
 
 
+def _outside_box(state, w_lo: float, w_hi: float) -> bool:
+    """Whether any w of a state entering the run lies outside its box:
+    one reduction on the device (``TileBackend.clamp_step``)."""
+    w = state.w_grid
+    return bool(((w < w_lo) | (w > w_hi)).any())
+
+
 def _schedule_key(key, sched) -> torch.Generator:
     """The schedule's ``torch.Generator`` from a snapshot's key: a
     Generator, or the uint8 state ``get_state()`` gives (as the port's
@@ -364,7 +371,11 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
     the end; the state is live, so the store copies it before returning.
     ``init`` (a ``DSOSnapshot``) resumes from a snapshot: its state is
     copied onto ``device`` (the snapshot survives the run), its key
-    seeds the schedule's generator and its cursor the step sizes.
+    seeds the schedule's generator and its cursor the step sizes.  A
+    state entering so (or by a rollback) with any w outside its box runs
+    its first epoch, as a chunk of its own, through the backend's
+    ``clamp_step`` (every column stepped, so clamped, as the plain step
+    does), found by one reduction on the device.
 
     Health seam (``repro_torch.runtime.health``): ``health`` (e.g.
     ``HealthGuard``) is called at every chunk boundary —
@@ -474,7 +485,9 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
         key = _schedule_key(init.key, sched)
         t = int(init.epochs_done)
         history = list(init.history)
+        outside = _outside_box(state, w_lo, w_hi)
     else:
+        outside = False
         state = init_state_data(loss_name, data, alpha0)
         key = torch.Generator().manual_seed(int(seed))
         t, history = 0, []
@@ -497,6 +510,12 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
             stops.append(_next_multiple(t, chunk))
         if checkpoint_every:
             stops.append(_next_multiple(t, checkpoint_every))
+        run = kw
+        if outside and be.clamp_step is not None:
+            # the entering state's first epoch steps every column
+            stops.append(t + 1)
+            run = dict(kw, backend=be._replace(block_step=be.clamp_step))
+        outside = False
         n = min(stops) - t
         key, perms = sched.draw(key, t, n, p_, **sched_ctx)
         etas = eta_schedule(eta_live, t, n, use_adagrad)
@@ -510,14 +529,14 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
         if telemetry is not None:
             t_tel = time.perf_counter()
             state, tbuf = run_epochs_telemetry(tile, state, perms, etas,
-                                               lam_f, m_f, w_lo, w_hi, **kw)
+                                               lam_f, m_f, w_lo, w_hi, **run)
         elif scan_epochs:
             state = run_epochs(tile, state, perms, etas, lam_f, m_f, w_lo,
-                               w_hi, **kw)
+                               w_hi, **run)
         else:
             for k in range(n):
                 state = run_epoch(tile, state, perms[k], etas[k], lam_f,
-                                  m_f, w_lo, w_hi, **kw)
+                                  m_f, w_lo, w_hi, **run)
         if span is not None:
             _sync(dev)
             record_chunk(n, time.perf_counter() - t_chunk, eta_live)
@@ -579,6 +598,7 @@ def solve(source, *, backend="auto", schedule="cyclic", p: int = 4,
                 key = _schedule_key(snap.key, sched)
                 resumed = int(snap.epochs_done)
                 history = list(snap.history)
+                outside = _outside_box(state, w_lo, w_hi)
             else:
                 state = init_state_data(loss_name, data, alpha0)
                 key = torch.Generator().manual_seed(int(seed))

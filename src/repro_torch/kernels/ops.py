@@ -15,7 +15,10 @@ Each wrapper counts its kernel launches in a plain int attribute,
     dso_sparse_block_step.launches    the folded block step (launch A and
                                       launch B in one cooperative launch
                                       per row tile), uniform block-ELL
-                                      grid
+                                      grid; with ``every_column`` launch A
+                                      alone (the "warp" kernel), one a
+                                      row tile, then launch B alone
+                                      (counted on ``dso_primal_update``)
     dso_bucketed_block_step.launches  the folded block step, flat chunk
                                       view, db past the shared budget: the
                                       hot route (the block's hottest
@@ -29,9 +32,10 @@ Each wrapper counts its kernel launches in a plain int attribute,
     _dso_tile_step_twopass.launches   the two-pass step's primal pass and
                                       its dual pass (two per step; listed
                                       as ``dso_tile_step_twopass``)
-    dso_primal_update.launches        launch B alone (the dense steps'
-                                      and the wrapper's own; the sparse
-                                      steps fold it in)
+    dso_primal_update.launches        launch B alone (the dense steps',
+                                      the wrapper's own and the sparse
+                                      steps' with ``every_column``; they
+                                      fold it in otherwise)
     sparse_probe.launches             the probe kernel
     swa_attention.launches            sliding-window attention, the
                                       packed route (bf16 with another Dh
@@ -278,7 +282,8 @@ def _give_acc(acc):
 def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
                           gw_grid, ga, tile_row_nnz_g, tile_col_nnz_g,
                           row_nnz_g, col_nnz, scalars, *, row_batches: int,
-                          loss_name: str, reg_name: str):
+                          loss_name: str, reg_name: str,
+                          every_column: bool = False):
     """All ``row_batches`` sequential tile steps of every processor's
     active block ``blk_ids[q]`` of the uniform block-ELL grid, in place on
     ``w_grid``, ``gw_grid``, ``alpha`` and ``ga``.
@@ -290,6 +295,9 @@ def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
     on each row's live slots and launch B on the columns the row tile
     holds; the others' w and gw stay as they are, which is the step's
     result for any w inside its box (every state the engine makes).
+    ``every_column`` (for a state that may hold w outside its box, which
+    the plain step clamps in every column): launch A alone, then launch B
+    on every column, per row tile.
     """
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
@@ -310,6 +318,18 @@ def dso_sparse_block_step(cols_g, vals_g, blk_ids, yg, w_grid, alpha,
         return
     _require_probe(yg.device, "sparse_jnp")
     rb = mb // row_batches
+    if every_column:
+        acc = _take_acc(w_grid)
+        for s in range(row_batches):
+            dso_sparse.launch_sparse_dual_scatter(
+                cols_g, vals_g, blk_ids, yg, w_grid, alpha, ga,
+                tile_row_nnz_g, row_nnz_g, acc, s * rb, rb, scal[0],
+                scal[2], loss_name, kernel="warp")
+            dso_sparse_block_step.launches += 1
+            _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
+                           col_nnz, s, scal, reg_name)
+        _give_acc(acc)
+        return
     acc = _take_acc(w_grid, dso_sparse.ELL_ACC_COPIES)
     for s in range(row_batches):
         dso_sparse.launch_sparse_block_step(
@@ -326,7 +346,8 @@ dso_sparse_block_step.launches = 0
 def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
                             yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
                             tile_col_nnz_g, row_nnz_g, col_nnz, scalars, *,
-                            row_batches: int, loss_name: str, reg_name: str):
+                            row_batches: int, loss_name: str, reg_name: str,
+                            every_column: bool = False):
     """The K-bucketed counterpart of ``dso_sparse_block_step`` on the flat
     chunk view: cols_fl/vals_fl (p, n_chunks, mb, K_CHUNK), chunk_lut
     (p, p, n_kc), chunk_cnt (p, p).  Each processor streams only the live
@@ -336,7 +357,9 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     fallback; each route makes one cooperative launch per row tile, as
     ``dso_sparse_block_step`` does, and counts its own launches.  The hot
     route's table is built on the first step of a grid and kept for its
-    later steps (``grid_hot_table``)."""
+    later steps (``grid_hot_table``).  ``every_column``: as
+    ``dso_sparse_block_step``'s, launch A alone on the route's kernel,
+    then launch B; counted as the route's step and ``dso_primal_update``."""
     p, mb = yg.shape
     _check_state(blk_ids, yg, w_grid, alpha, gw_grid, ga, tile_row_nnz_g,
                  tile_col_nnz_g, row_nnz_g, col_nnz, row_batches)
@@ -367,6 +390,17 @@ def dso_bucketed_block_step(cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids,
     rb = mb // row_batches
     acc = _take_acc(w_grid)
     for s in range(row_batches):
+        if every_column:
+            dso_sparse.launch_bucketed_dual_scatter(
+                cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg, w_grid,
+                alpha, ga, tile_row_nnz_g, row_nnz_g, acc, s * rb, rb,
+                scal[0], scal[2], loss_name, route=route, hot=hot)
+            counter = _dso_bucketed_block_step_shared \
+                if route == "shared" else dso_bucketed_block_step
+            counter.launches += 1
+            _launch_primal(blk_ids, w_grid, gw_grid, acc, tile_col_nnz_g,
+                           col_nnz, s, scal, reg_name)
+            continue
         args = (cols_fl, vals_fl, chunk_lut, chunk_cnt, blk_ids, yg, w_grid,
                 gw_grid, alpha, ga, tile_row_nnz_g, row_nnz_g,
                 tile_col_nnz_g, col_nnz, acc, s, rb, scal, loss_name,

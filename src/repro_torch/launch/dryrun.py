@@ -27,17 +27,23 @@ determine:
   uses, the SSD scan at 5 n dh per step and head (the operation count of
   its bound in ``PERF.md``), and a train step's backward at twice its
   forward.  ``cost.flops`` holds the total, as the reference's record;
-* ``collectives``: the port's sharded train step is data-parallel
-  (``training.train.make_sharded_train_step``), so a train step makes
-  one all-reduce of the gradients over the data group, priced at the
-  ring's 2 (n-1)/n of the gradient bytes.  Prefill and decode make none.
+* ``collectives``: what the port's sharded train step
+  (``training.train.make_sharded_train_step``) makes: one all-reduce of
+  each device's gradients over the data group, priced at the ring's
+  2 (n-1)/n of their bytes; and under ``model`` the tensor-parallel
+  step's all-gathers, reduce-scatters and all-reduces
+  (``tp_collectives``: counted from the shapes as
+  ``dist.tensor_parallel`` counts them, with ``remat``'s recomputed
+  forward), (n-1)/n of the whole tensors' bytes for a gather or a
+  scatter.  The ``moe`` and ``vlm`` archs have no tensor-parallel step
+  yet: their records list ``model_collectives`` under ``not_computed``.
+  Prefill and decode make none.
 
 It cannot compute what the reference reads from XLA: the compiled
-step's ``memory_analysis`` (temporaries included), the collectives that
-GSPMD inserts for tensor parallelism (the HLO parse of
-``benchmarks/report.py``), and lower and compile times.  Each record lists
-these under ``not_computed``.  Nothing runs on a device, and records are
-written only under ``--out``.
+step's ``memory_analysis`` (temporaries included), the HLO parse of the
+collectives (``benchmarks/report.py``), and lower and compile times.
+Each record lists these under ``not_computed``.  Nothing runs on a
+device, and records are written only under ``--out``.
 """
 
 from __future__ import annotations
@@ -47,11 +53,15 @@ import json
 import math
 import os
 
+import torch
+
 from repro_torch.configs.registry import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpm
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import torch_dtype
 
 NOT_COMPUTED = ("memory_analysis", "hlo_collectives", "lower_s",
                 "compile_s")
@@ -122,6 +132,89 @@ def forward_flops(cfg: ModelConfig, shape, params) -> dict:
                 ssd=ssd, forward=matmul + attn + cross + ssd)
 
 
+def _attn_gathers(cfg: ModelConfig, split, prefix: str, n: int,
+                  bt: int) -> list:
+    """Elements of each all-gather in one forward of an attention block
+    and its MLP (``models.attention.self_attention``, ``mlp_apply``): the
+    body's, and the block's output's (last)."""
+    hq, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    g = cfg.n_kv_heads or hq
+    out = []
+    if tpm.heads_split(n, hq, g):             # the rank's heads: o gathered
+        out.append(bt * hq * dh)
+    else:
+        out += [bt * cols for w, cols in (("wq", hq * dh), ("wk", g * dh),
+                                          ("wv", g * dh))
+                if split(f"{prefix}/attn/{w}")]
+    if split(f"{prefix}/attn/wo"):
+        out.append(bt * d)
+    if split(f"{prefix}/mlp/w_up"):
+        out.append(bt * cfg.d_ff)
+    return out, [bt * d] if split(f"{prefix}/mlp/w_down") else []
+
+
+def _mamba_gathers(cfg: ModelConfig, split, n: int, bt: int) -> list:
+    """... and of a Mamba2 block (``models.mamba2.mamba2_apply``): the
+    projections' outputs and the conv weights, y * silu(z) when the heads
+    split, the output."""
+    di, ns, h, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    if cfg.ssm_split_proj:
+        proj = (("in_z", di), ("in_x", di), ("in_B", ns), ("in_C", ns),
+                ("in_dt", h))
+        conv = (("conv_x", di), ("conv_B", ns), ("conv_C", ns))
+    else:
+        proj = (("in_proj", 2 * di + 2 * ns + h),)
+        conv = (("conv_w", di + 2 * ns),)
+    out = [bt * c for w, c in proj if split(f"layers/mamba/{w}")]
+    out += [k * c for w, c in conv if split(f"layers/mamba/{w}")]
+    if tpm.heads_split(n, h):
+        out.append(bt * di)
+    return out, [bt * cfg.d_model] if split("layers/mamba/out_proj") else []
+
+
+def tp_collectives(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int, *,
+                   remat: bool = True) -> dict:
+    """One tensor-parallel train step's collectives over ``model`` on one
+    device, by kind: count and whole-tensor bytes (an all-gather's result,
+    a reduce-scatter's input, an all-reduce's operand), as
+    ``dist.tensor_parallel.COUNTS`` records them, for ``rows`` sequences of
+    ``seq`` tokens on the device.  Every all-gather's backward is a
+    reduce-scatter of its size; with ``remat`` the blocks' forward gathers
+    run again in the backward, but for a block's last, its output's: the
+    recomputation stops at the last tensor the backward saved
+    (``torch.utils.checkpoint``'s early stop).  The loss makes three
+    all-reduces of (rows, seq - 1) float32 (the row max, the sum of
+    exponentials, the target's logit); the step one of the whole leaves'
+    float32 gradients and one of the norm's square sum."""
+    n = tpm.model_size(mesh)
+    specs = dict(shd.leaves_with_paths(p_specs))
+    split = lambda path: tpm.model_dim(specs[path]) is not None  # noqa
+    bt = rows * seq
+    e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    embed = [bt * cfg.d_model] if not cfg.inputs_embeds \
+        and split("embed/table") else []
+    runs = []                           # (body, output) per block run
+    if cfg.arch_type in ("dense", "audio"):
+        runs = [_attn_gathers(cfg, split, "layers", n, bt)] * cfg.n_layers
+    elif cfg.arch_type in ("ssm", "hybrid"):
+        runs = [_mamba_gathers(cfg, split, n, bt)] * cfg.n_layers
+        if cfg.arch_type == "hybrid":
+            runs += [_attn_gathers(cfg, split, "shared_attn", n, bt)] \
+                * (cfg.n_layers // cfg.shared_attn_every)
+    blocks = [x for body, out in runs for x in body + out]
+    again = [x for body, _ in runs for x in body] if remat else []
+    gathers = embed + blocks + again
+    whole = sum(t.numel() for path, t in shd.leaves_with_paths(
+        S.param_spec_tree(cfg)) if not split(path))
+    reduces = [rows * (seq - 1) * 4] * 3 + [4 * whole, 4]
+    return {"all-gather": dict(count=len(gathers),
+                               result_bytes=e * sum(gathers)),
+            "reduce-scatter": dict(count=len(embed + blocks),
+                                   result_bytes=e * sum(embed + blocks)),
+            "all-reduce": dict(count=len(reduces),
+                               result_bytes=sum(reduces))}
+
+
 def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
              out: str | None = None) -> dict:
     """The record of one pair, also written to ``out``/<tag>.json when
@@ -137,6 +230,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
     numel = sum(t.numel() for _, t in shd.leaves_with_paths(params))
     flops = forward_flops(cfg, shape, params)
     collectives = {}
+    not_computed = list(NOT_COMPUTED)
     if shape.kind == "decode":
         state = S.decode_state_specs(cfg, shape)
         nbytes["decode_cache"], per_dev["decode_cache"] = _sharded_bytes(
@@ -158,8 +252,19 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
         n = math.prod(mesh.shape[a] for a in axes) if axes else 1
         if n > 1:
             collectives["all-reduce"] = dict(
-                count=1, group=n, axes=list(axes), result_bytes=p_bytes,
-                wire_bytes=2.0 * p_bytes * (n - 1) / n)
+                count=1, group=n, axes=list(axes), result_bytes=p_dev,
+                wire_bytes=tpm.wire_bytes("all-reduce", p_dev, n))
+        n_model = mesh.shape["model"]
+        if cfg.arch_type in ("moe", "vlm"):
+            not_computed.append("model_collectives")
+        else:
+            collectives["model"] = {
+                kind: dict(rec, group=n_model, axes=["model"],
+                           wire_bytes=tpm.wire_bytes(
+                               kind, rec["result_bytes"], n_model))
+                for kind, rec in tp_collectives(
+                    cfg, mesh, p_specs, shape.global_batch // n,
+                    shape.seq_len).items()}
     total = flops["forward"] + flops.get("backward", 0)
     rec = dict(
         arch=arch, shape=shape_name,
@@ -168,7 +273,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
         param_numel=numel,
         bytes=nbytes, per_device_bytes=per_dev, flops=flops,
         cost={"flops": float(total)}, collectives=collectives,
-        not_computed=list(NOT_COMPUTED))
+        not_computed=not_computed)
     if out:
         os.makedirs(out, exist_ok=True)
         tag = f"{arch}__{shape_name}__{'multipod' if multi_pod else 'pod'}"

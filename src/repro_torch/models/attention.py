@@ -14,6 +14,14 @@ Cross-attention and one-token decode (full cache or a ring buffer of
 ``window`` slots) stay plain PyTorch: the reference computes them in jnp
 outside any Pallas kernel.  The decode caches are updated in place.
 
+Under tensor parallelism (``tp``, ``dist.tensor_parallel``) wq, wk and wv
+hold the rank's columns and wo its columns of d.  When the rank's columns
+fall on whole heads (Hq and Hkv both multiples of the group's size) the
+kernel runs on the rank's heads, made contiguous, and the heads are
+gathered for wo; otherwise q, k and v are gathered and every rank attends
+on every head (the reference's ``_constrain`` keeps few KV heads whole
+too).  The output's columns are gathered.
+
 Layout: activations (B, T, d); q heads grouped as (G kv groups, R
 repeats) in the plain paths.
 """
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.tensor_parallel import SINGLE
 from repro_torch.kernels.ops import swa_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamInit, _dense_init, apply_rope
@@ -45,29 +54,37 @@ def attn_init(init: ParamInit, cfg: ModelConfig, dtype, cross: bool = False):
     return p
 
 
-def _project_q(p, x, cfg: ModelConfig):
-    B, T, _ = x.shape
-    q = x @ p["wq"]
-    if "bq" in p:
-        q = q + p["bq"]
-    return q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+def _project(x, w, b, heads: int, dh: int, tp, split: bool):
+    """x @ w (+ b) as (B, T, heads, Dh): every head, gathered under ``tp``
+    if w is the rank's columns, or with ``split`` the rank's heads."""
+    full = heads * dh
+    if split:
+        y = x @ tp.part(w, full)
+        b = tp.part(b, full)
+    else:
+        y = tp.whole(x @ w, full)
+    if b is not None:
+        y = y + b
+    return y.reshape(*x.shape[:2], -1, dh)
 
 
-def _project_kv(p, x, cfg: ModelConfig):
-    B, T, _ = x.shape
+def _project_q(p, x, cfg: ModelConfig, tp=SINGLE, split=False):
+    return _project(x, p["wq"], p.get("bq"), cfg.n_heads, cfg.head_dim,
+                    tp, split)
+
+
+def _project_kv(p, x, cfg: ModelConfig, tp=SINGLE, split=False):
     g = cfg.n_kv_heads or cfg.n_heads
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, T, g, cfg.head_dim),
-            v.reshape(B, T, g, cfg.head_dim))
+    return (_project(x, p["wk"], p.get("bk"), g, cfg.head_dim, tp, split),
+            _project(x, p["wv"], p.get("bv"), g, cfg.head_dim, tp, split))
 
 
 def _constrain(t, cfg: ModelConfig):
     """The reference pins attention activations to a mesh layout
-    (``attn_shard``, ``attention.py:73-87``); on one device there is no
-    mesh, so every setting leaves ``t`` as it is."""
+    (``attn_shard``, ``attention.py:73-87``).  The port decides the layout
+    from the shapes (``self_attention``: the rank's heads when they divide,
+    else every head), which is what the knob's settings select, so every
+    setting leaves ``t`` as it is."""
     return t
 
 
@@ -87,24 +104,29 @@ def _grouped(q, g):
     return q.reshape(B, T, g, H // g, Dh)
 
 
-def _finish(p, o, dtype):
-    """o: (B, T, ..., Dh) heads -> (B, T, d) through ``wo``."""
+def _finish(p, o, cfg: ModelConfig, dtype, tp=SINGLE):
+    """o: (B, T, ..., Dh) heads -> (B, T, d) through ``wo``.  Under ``tp``
+    the rank's heads are gathered first, and the output's columns."""
     B, T = o.shape[:2]
-    return o.reshape(B, T, -1).to(dtype) @ p["wo"]
+    o = tp.whole(o.reshape(B, T, -1).to(dtype), cfg.n_heads * cfg.head_dim)
+    return tp.whole(o @ p["wo"], cfg.d_model)
 
 
 def self_attention(p, x, cfg: ModelConfig, *, positions=None,
-                   window: int | None = None, q_chunk: int = 2048):
+                   window: int | None = None, q_chunk: int = 2048,
+                   tp=SINGLE):
     """Causal self-attention over x (B, T, d): training / prefill.
 
     ``window`` None is full causal attention (the kernel's window is then
     T).  ``q_chunk`` selects among the reference's jnp paths and has no
-    effect here: one kernel call covers every T."""
+    effect here: one kernel call covers every T.  ``tp``: see the module
+    docstring."""
     B, T, _ = x.shape
     pos = positions if positions is not None else torch.arange(
         T, device=x.device)
-    q = _project_q(p, x, cfg)
-    k, v = _project_kv(p, x, cfg)
+    split = tp.splits(cfg.n_heads, cfg.n_kv_heads or cfg.n_heads)
+    q = _project_q(p, x, cfg, tp, split)
+    k, v = _project_kv(p, x, cfg, tp, split)
     if cfg.pos == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -112,7 +134,7 @@ def self_attention(p, x, cfg: ModelConfig, *, positions=None,
                for t in (q, k, v))
     o = swa_attention(q, k, v, window=T if window is None else window,
                       causal=True)
-    return _finish(p, o.transpose(1, 2), x.dtype)
+    return _finish(p, o.transpose(1, 2), cfg, x.dtype, tp)
 
 
 def cross_attention(p, x, kv_embeds, cfg: ModelConfig):
@@ -120,7 +142,7 @@ def cross_attention(p, x, kv_embeds, cfg: ModelConfig):
     g = cfg.n_kv_heads or cfg.n_heads
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, kv_embeds, cfg)
-    return _finish(p, _attend(_grouped(q, g), k, v, None), x.dtype)
+    return _finish(p, _attend(_grouped(q, g), k, v, None), cfg, x.dtype)
 
 
 # ------------------------------------------------------------------ decode --
@@ -164,4 +186,4 @@ def decode_self_attention(p, x, cache, pos: int, cfg: ModelConfig, *,
     else:
         valid = slots <= pos
     o = _attend(_grouped(q, g), cache["k"], cache["v"], valid[None, :])
-    return _finish(p, o, x.dtype), cache
+    return _finish(p, o, cfg, x.dtype), cache

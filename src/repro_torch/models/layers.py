@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tensor_parallel import SINGLE
+
 
 def torch_dtype(dtype) -> torch.dtype:
     """A ``torch.dtype`` from a config's dtype name or a dtype."""
@@ -125,12 +127,16 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, tp=SINGLE):
+    """x (B, T, d) whole.  Under tensor parallelism (``tp``) w_gate and
+    w_up hold the rank's columns of d_ff and w_down its columns of d, so h
+    is gathered for w_down, then the output."""
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
-    return h @ params["w_down"]
+    h = tp.whole(h, params["w_down"].shape[-2])
+    return tp.whole(h @ params["w_down"], x.shape[-1])
 
 
 # -------------------------------------------------------------- embedding --

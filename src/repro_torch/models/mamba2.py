@@ -14,6 +14,20 @@ not the model's path.
 x, B and C in that type (float32 by default) and accumulate in float32.
 For another type the model rounds x, B and C to it before the scan.
 
+Under tensor parallelism (``tp``, ``dist.tensor_parallel``) in_proj (or
+the split layout's projections) and conv_w hold the rank's columns, whose
+boundaries fall inside the z | x | B | C | dt parts (at zamba2-7b the
+14,576 columns split 3,644 a rank against d_inner 7,168).  The rank
+gathers the projection's output, not the weight: B T (2 di + 2 n + h)
+elements against d (2 di + 2 n + h), near each other at zamba2-7b's B T
+4,096 and d 3,584, and with the output's gather the product stays split
+n ways, where with the weight's every rank would compute every column.
+When the SSD heads divide the group, the rank takes its heads of x, z
+and dt (and of A_log, D and dt_bias, whole leaves whose gradients the
+step sums over the group), all of B and C, and runs the scan on them;
+y * silu(z) is gathered for the norm over all of d_inner and out_proj,
+and the output's columns after.
+
 Decode carries (conv ring buffer, SSD state), O(1) per token, updated in
 place.
 """
@@ -23,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tensor_parallel import SINGLE
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamInit, _dense_init, rmsnorm,
@@ -138,35 +153,51 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 128,
     return y.reshape(b, t, h, dh).to(x.dtype)
 
 
-def _in_proj(p, x, cfg: ModelConfig):
-    """(z, xBC before the conv, dt_raw, conv_w, conv_b) of either layout.
-    The conv is depthwise, so the split layout's parts convolved alone (the
-    reference's split path) give the same numbers as their concatenation."""
+def _in_proj(p, x, cfg: ModelConfig, tp=SINGLE):
+    """(z, xBC before the conv, dt_raw, conv_w, conv_b) of either layout,
+    each whole (gathered under ``tp``).  The conv is depthwise, so the
+    split layout's parts convolved alone (the reference's split path) give
+    the same numbers as their concatenation."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    lin = lambda w, full: tp.whole(x @ p[w], full)  # noqa: E731
+    conv = lambda w, full: tp.whole(p[w], full)     # noqa: E731
     if cfg.ssm_split_proj:
-        xbc = torch.cat([x @ p["in_x"], x @ p["in_B"], x @ p["in_C"]],
+        xbc = torch.cat([lin("in_x", di), lin("in_B", n), lin("in_C", n)],
                         dim=-1)
-        conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=1)
+        conv_w = torch.cat([conv("conv_x", di), conv("conv_B", n),
+                            conv("conv_C", n)], dim=1)
         conv_b = torch.cat([p["conv_x_b"], p["conv_B_b"], p["conv_C_b"]])
-        return x @ p["in_z"], xbc, x @ p["in_dt"], conv_w, conv_b
-    z, xbc, dt_raw = _split(cfg, x @ p["in_proj"])
-    return z, xbc, dt_raw, p["conv_w"], p["conv_b"]
+        return lin("in_z", di), xbc, lin("in_dt", h), conv_w, conv_b
+    z, xbc, dt_raw = _split(cfg, lin("in_proj", 2 * di + 2 * n + h))
+    return z, xbc, dt_raw, conv("conv_w", di + 2 * n), p["conv_b"]
 
 
-def _gate_out(p, y, z):
-    y = rmsnorm(p["norm"], y * F.silu(z.float()).to(y.dtype))
-    return y @ p["out_proj"]
+def _gate_out(p, y, z, cfg: ModelConfig, tp=SINGLE):
+    y = tp.whole(y * F.silu(z.float()).to(y.dtype), cfg.d_inner)
+    return tp.whole(rmsnorm(p["norm"], y) @ p["out_proj"], cfg.d_model)
 
 
-def mamba2_apply(p, x, cfg: ModelConfig, *, chunk: int = 128):
-    """x: (B, T, d) -> (B, T, d)."""
+def mamba2_apply(p, x, cfg: ModelConfig, *, chunk: int = 128, tp=SINGLE):
+    """x: (B, T, d) -> (B, T, d); ``tp``: see the module docstring."""
     Bsz, T, _ = x.shape
     di, n, h, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc, dt_raw, conv_w, conv_b = _in_proj(p, x, cfg)
+    z, xbc, dt_raw, conv_w, conv_b = _in_proj(p, x, cfg, tp)
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if tp.splits(h):                 # the rank's heads; B and C whole
+        h //= tp.n
+        own = slice(tp.coord * h * dh, (tp.coord + 1) * h * dh)
+        z, dt_raw = z[..., own], tp.part(dt_raw, cfg.ssm_heads)
+        xbc = torch.cat([xbc[..., own], xbc[..., di:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, own], conv_w[:, di:]], dim=1)
+        conv_b = torch.cat([conv_b[own], conv_b[di:]])
+        A_log, D, dt_bias = (tp.part(t, cfg.ssm_heads)
+                             for t in (A_log, D, dt_bias))
+        di = h * dh
     xbc = F.silu(_causal_conv(xbc, conv_w, conv_b))
     xs = xbc[..., :di].reshape(Bsz, T, h, dh).contiguous()
     Bc, Cc = xbc[..., di: di + n], xbc[..., di + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    A = -torch.exp(A_log)
     ck = min(chunk, T) if T % min(chunk, T) == 0 else T
     sd = torch_dtype(cfg.ssd_dtype)
     xin, Bin, Cin = xs, Bc, Cc
@@ -174,8 +205,8 @@ def mamba2_apply(p, x, cfg: ModelConfig, *, chunk: int = 128):
         xin = xs.to(sd).to(xs.dtype)
         Bin, Cin = Bc.to(sd).float(), Cc.to(sd).float()
     y = ssd_scan(xin, dt, A, Bin, Cin, chunk=ck)
-    y = y + p["D"][None, None, :, None].to(y.dtype) * xs
-    return _gate_out(p, y.reshape(Bsz, T, di), z)
+    y = y + D[None, None, :, None].to(y.dtype) * xs
+    return _gate_out(p, y.reshape(Bsz, T, di), z, cfg, tp)
 
 
 # ------------------------------------------------------------------ decode --
@@ -213,7 +244,7 @@ def mamba2_decode(p, x, cache, cfg: ModelConfig):
     state = cache["state"] * decay[..., None, None] + upd
     y = torch.einsum("bn,bhnd->bhd", Cc.float(), state)
     y = y + p["D"][None, :, None] * xs.float()
-    out = _gate_out(p, y.reshape(Bsz, 1, di).to(x.dtype), z)
+    out = _gate_out(p, y.reshape(Bsz, 1, di).to(x.dtype), z, cfg)
     cache["conv"].copy_(hist[:, 1:])
     cache["state"].copy_(state)
     return out, cache

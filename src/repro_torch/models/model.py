@@ -25,6 +25,12 @@ input.  ``cfg.remat_policy`` has no counterpart (every block is
 recomputed whole), and ``unroll`` and ``q_chunk`` change nothing: there is
 no scan to unroll, and one kernel call covers every T.
 
+``forward(..., tp=)`` runs under tensor parallelism over a mesh's
+``model`` axis (``dist.tensor_parallel``): the parameters are the rank's
+shards, the blocks take ``tp``, the embedding's columns are gathered and
+the logits are the rank's slice of the vocabulary.  The ``moe`` and
+``vlm`` blocks have no such form yet.
+
 Inputs (per arch family):
   dense/moe/ssm/hybrid: batch["tokens"]       (B, T) int
   vlm:   batch["tokens"] + batch["image_embeds"]  (B, n_img, d)
@@ -39,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.tensor_parallel import SINGLE
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
@@ -129,14 +136,15 @@ def param_specs(cfg: ModelConfig):
 # ================================================================ forward --
 
 
-def _attn_block_apply(p, x, cfg: ModelConfig, *, window, q_chunk=2048):
+def _attn_block_apply(p, x, cfg: ModelConfig, *, window, q_chunk=2048,
+                      tp=SINGLE):
     h = x + attn.self_attention(p["attn"], rmsnorm(p["ln1"], x), cfg,
-                                window=window, q_chunk=q_chunk)
+                                window=window, q_chunk=q_chunk, tp=tp)
     z = rmsnorm(p["ln2"], h)
     if cfg.is_moe and "moe" in p:
         y, aux = moe.moe_apply(p["moe"], z, cfg)
     else:
-        y, aux = mlp_apply(p["mlp"], z, cfg.mlp), 0.0
+        y, aux = mlp_apply(p["mlp"], z, cfg.mlp, tp), 0.0
     return h + y, aux
 
 
@@ -145,9 +153,9 @@ def _cross_block_apply(p, x, kv, cfg: ModelConfig):
     return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h), cfg.mlp)
 
 
-def _mamba_block_apply(p, x, cfg: ModelConfig):
+def _mamba_block_apply(p, x, cfg: ModelConfig, tp=SINGLE):
     return x + mamba2.mamba2_apply(p["mamba"], rmsnorm(p["ln"], x), cfg,
-                                   chunk=cfg.ssm_chunk)
+                                   chunk=cfg.ssm_chunk, tp=tp)
 
 
 def _window_for(cfg: ModelConfig, T: int):
@@ -177,15 +185,20 @@ def _run(block, remat: bool):
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
             q_chunk: int = 2048, last_only: bool = False,
-            unroll: bool = False):
+            unroll: bool = False, tp=SINGLE):
     """Returns (logits, aux dict), logits in ``cfg.logits_dtype``.
     ``last_only`` emits logits for the final position only — the prefill
     contract (next-token after the prompt) that avoids materializing
-    (B, T, vocab)."""
+    (B, T, vocab).  Under ``tp`` (a ``TensorParallel`` of more than one
+    rank) the logits are the rank's slice of the padded vocabulary."""
+    if tp.n > 1 and cfg.arch_type in ("moe", "vlm"):
+        raise NotImplementedError(
+            f"tensor parallelism of the {cfg.arch_type} blocks (expert "
+            f"parallelism, cross-attention) is a later slice of the port")
     if cfg.inputs_embeds:
         x = batch["embeds"]
     else:
-        x = embed(params["embed"], batch["tokens"])
+        x = tp.whole(embed(params["embed"], batch["tokens"]), cfg.d_model)
     T = x.shape[1]
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(torch.arange(T, device=x.device),
@@ -196,10 +209,10 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
 
     def attn_block(p, x):
         return _run(lambda: _attn_block_apply(p, x, cfg, window=window,
-                                              q_chunk=q_chunk), remat)
+                                              q_chunk=q_chunk, tp=tp), remat)
 
     def mamba_block(p, x):
-        return _run(lambda: _mamba_block_apply(p, x, cfg), remat)
+        return _run(lambda: _mamba_block_apply(p, x, cfg, tp), remat)
 
     def cross_block(p, x):
         return _run(lambda: _cross_block_apply(p, x, batch["image_embeds"],

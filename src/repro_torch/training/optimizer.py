@@ -87,14 +87,29 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, sharded=None, tp=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``.  Under tensor parallelism
+    ``sharded`` (a tree of bools like ``tree``) marks the leaves that are
+    this rank's slices: their squares are summed over ``tp``'s group with
+    one all-reduce, and the whole leaves (the same on every rank) count
+    once."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    if sharded is None:
+        return torch.sqrt(sum(sq))
+    flags = tree_leaves(sharded)
+    part = torch.stack([s for s, f in zip(sq, flags) if f]).sum()
+    rest = sum(s for s, f in zip(sq, flags) if not f)
+    return torch.sqrt(tp.all_reduce_(part) + rest)
 
 
-def apply(cfg: AdamWConfig, params, grads, state: OptState):
-    """Returns (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+def apply(cfg: AdamWConfig, params, grads, state: OptState, *,
+          gnorm=None):
+    """Returns (new_params, new_state, metrics); ``gnorm`` is the
+    gradients' ``global_norm`` when the caller has it (under tensor
+    parallelism)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     step = state.step + 1
     lr = schedule(cfg, state.step)

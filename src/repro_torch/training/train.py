@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpm
+from repro_torch.dist.tensor_parallel import SINGLE
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import optimizer as opt
@@ -30,13 +32,16 @@ class TrainState(NamedTuple):
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-            q_chunk: int = 2048, unroll: bool = False):
+            q_chunk: int = 2048, unroll: bool = False, tp=SINGLE):
     """Next-token cross entropy (+ MoE router aux loss): (total, {"loss",
-    "aux_loss"})."""
+    "aux_loss"}).  Under ``tp`` the logits are the rank's slice of the
+    vocabulary and the cross entropy is ``_vocab_parallel_nll``'s."""
     logits, aux = M.forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
-                            unroll=unroll)
+                            unroll=unroll, tp=tp)
     tgt = batch["targets"][:, 1:].long()[..., None]
-    if cfg.loss_impl == "lse":
+    if tp.n > 1:
+        nll = _vocab_parallel_nll(logits[:, :-1], tgt[..., 0], cfg, tp)
+    elif cfg.loss_impl == "lse":
         # pad columns enter the logsumexp and are trained down like any
         # never-target id (the reference's §Perf form)
         lg = logits[:, :-1]
@@ -59,10 +64,32 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     return total, {"loss": loss, "aux_loss": aux["aux_loss"]}
 
 
+def _vocab_parallel_nll(lg, tgt, cfg: ModelConfig, tp):
+    """-log softmax at ``tgt`` (B, T) from ``lg`` (B, T, V/n), this rank's
+    columns [c V/n, (c + 1) V/n) of the padded vocabulary: the row max and
+    the sum of exponentials all-reduced over the group, the target's logit
+    from the rank that holds its column.  In the "logsoftmax" form the pad
+    columns are masked by their global index; "lse" keeps them, as the
+    one-process loss does.  No rank holds the whole (B, T, V)."""
+    v = lg.shape[-1]
+    lo = tp.coord * v
+    lg = lg.float()
+    if cfg.loss_impl != "lse" and cfg.padded_vocab != cfg.vocab:
+        cols = torch.arange(lo, lo + v, device=lg.device)
+        lg = torch.where(cols < cfg.vocab, lg, -1e30)
+    m = tp.max(lg.amax(dim=-1))
+    lse = m + torch.log(tp.sum(torch.exp(lg - m[..., None]).sum(dim=-1)))
+    own = (tgt >= lo) & (tgt < lo + v)
+    pick = torch.gather(lg, -1, (tgt - lo).clamp(0, v - 1)[..., None])
+    return lse - tp.sum(torch.where(own, pick[..., 0], 0.0))
+
+
 def loss_and_grads(params, batch, cfg: ModelConfig, **kw):
     """(total, metrics, grads) of ``lm_loss`` at ``params``: the grads a
     tree like ``params``, each leaf in its parameter's type (zeros for a
-    parameter the loss does not reach, as ``jax.grad`` gives)."""
+    parameter the loss does not reach, as ``jax.grad`` gives).  Under
+    ``tp=`` each rank's: whole leaves' gradients are partial (their sum
+    over the group is the gradient)."""
     live = opt.tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         total, metrics = lm_loss(live, batch, cfg, **kw)
@@ -96,8 +123,10 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
 def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
                             batch_shapes: dict, *, remat: bool = True,
                             q_chunk: int = 2048):
-    """The data-parallel train step over ``mesh`` for this process's rank
-    of the default process group, which must have ``mesh.size`` ranks.
+    """The train step over ``mesh`` for this process's rank of the default
+    process group, which must have ``mesh.size`` ranks: data parallelism
+    over the batch's data axes and tensor parallelism over ``model``, the
+    reference's GSPMD step written by hand.
 
     ``batch_shapes`` maps each batch key to anything with a ``shape`` (a
     ``meta`` tensor).  Returns ``(step_fn, state_shardings,
@@ -106,20 +135,36 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
     take the parameters', the step ``()``), ``batch_shardings`` the
     batch specs (``data_specs``).
 
-    ``step_fn(state, batch)`` takes the whole batch and every parameter:
-    each rank keeps the rows of its place on the batch's data axes,
-    takes the gradient of its rows' loss, and averages the gradients and
-    the loss metrics over the ranks of its data group with one
-    all-reduce (a sum divided by the group's size; each rank's rows count
+    ``step_fn(state, batch)`` takes this rank's shards of the state
+    (``dist.tensor_parallel.shard_state``: each leaf's slice of the
+    dimension its spec puts on ``model``, the rest whole) and the whole
+    batch.  Each rank keeps the rows of its place on the data axes; the
+    ranks of one ``model`` group run the forward and backward together
+    (``models.model.forward(tp=)``: column-split projections with gathered
+    outputs, the SWA and SSD kernels on each rank's heads, the
+    vocabulary-split cross entropy).  The whole leaves' partial gradients
+    are summed over the model group with one all-reduce; then, as before,
+    the gradients and the loss metrics are averaged over the data group
+    with one all-reduce (a sum divided by its size; each rank's rows count
     equally, which is the whole batch's mean loss when no ``mask`` is
-    given).  Every rank then applies the same update to whole
-    parameters: the ``model`` axis is not split (tensor parallelism is not
-    ported), so the ranks of one data group along it compute the same
-    step.  Every rank must build the step, in the same order: it makes
-    the data groups (``torch.distributed.new_group``).
+    given).  The clip's norm sums the split leaves' squares over the model
+    group (``optimizer.global_norm``), and each rank updates its shards.
+    The result equals the one-process step's within float32 summation
+    noise.  On a mesh whose model axis is 1 the step is the data-parallel
+    one it was.  ``moe`` and ``vlm`` configs raise ``NotImplementedError``
+    on a model axis above 1.  Every rank must build the step, in the same
+    order: it makes the groups (``torch.distributed.new_group``).
+    ``step_fn.loss_and_grads(params, batch)`` is the step's
+    (total, metrics, grads) before the update.
     """
     import torch.distributed as dist
 
+    n_model = tpm.model_size(mesh)
+    if n_model > 1 and cfg.arch_type in ("moe", "vlm"):
+        raise NotImplementedError(
+            f"tensor parallelism over model ({n_model}) for a "
+            f"{cfg.arch_type} config (expert parallelism, the vlm's "
+            f"cross-attention) is a later slice of the port")
     if not dist.is_initialized() or dist.get_world_size() != mesh.size:
         raise RuntimeError(f"the sharded step needs a process group of "
                            f"{mesh.size} ranks for mesh {mesh.dims}")
@@ -131,18 +176,11 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
     rank = dist.get_rank()
     group, n_shards, shard = None, 1, 0
     if axes:
-        # the ranks that differ only on the data axes; every rank makes
-        # every group, in the same order
-        others = [a for a in mesh.axis_names if a not in axes]
-        groups: dict = {}
-        for r in range(mesh.size):
-            c = mesh.coords(r)
-            groups.setdefault(tuple(c[a] for a in others), []).append(r)
-        for key in sorted(groups):
-            g = dist.new_group(groups[key])
-            if rank in groups[key]:
-                group, n_shards = g, len(groups[key])
-                shard = groups[key].index(rank)
+        group, n_shards, shard = tpm.axis_group(mesh, axes, rank)
+    tp = SINGLE
+    if n_model > 1:
+        tp = tpm.TensorParallel(*tpm.axis_group(mesh, ("model",), rank))
+    sharded = opt.tree_map(lambda s: tpm.model_dim(s) is not None, p_sh)
 
     def local(batch):
         out = {}
@@ -154,11 +192,20 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
             out[k] = v
         return out
 
-    def sharded_step(state: TrainState, batch):
+    def grads_fn(params, batch):
         total, metrics, grads = loss_and_grads(
-            state.params, local(batch), cfg, remat=remat, q_chunk=q_chunk)
+            params, local(batch), cfg, remat=remat, q_chunk=q_chunk, tp=tp)
+        leaves = opt.tree_leaves(grads)
+        if tp.n > 1:        # the whole leaves' partial gradients
+            whole = [g for g, f in zip(leaves, opt.tree_leaves(sharded))
+                     if not f]
+            flat = tp.all_reduce_(torch.cat([g.reshape(-1).float()
+                                             for g in whole]))
+            summed = iter(flat.split([g.numel() for g in whole]))
+            leaves = [g if f else next(summed).view(g.shape).to(g.dtype)
+                      for g, f in zip(leaves, opt.tree_leaves(sharded))]
+            grads = opt.tree_unflatten(grads, leaves)
         if group is not None:
-            leaves = opt.tree_leaves(grads)
             scalars = [total, metrics["loss"], metrics["aux_loss"]]
             flat = torch.cat([t.reshape(-1).to(torch.float32)
                               for t in leaves + scalars])
@@ -169,12 +216,19 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
                 p.view(t.shape).to(t.dtype) for p, t in zip(parts, leaves)])
             total, loss, aux = (p.view(()) for p in parts[len(leaves):])
             metrics = {"loss": loss, "aux_loss": aux}
+        return total, metrics, grads
+
+    def sharded_step(state: TrainState, batch):
+        total, metrics, grads = grads_fn(state.params, batch)
         with torch.no_grad():
+            gnorm = opt.global_norm(grads, sharded, tp) if tp.n > 1 \
+                else None
             params, opt_state, om = opt.apply(ocfg, state.params, grads,
-                                              state.opt)
+                                              state.opt, gnorm=gnorm)
         return TrainState(params, opt_state), dict(metrics, total=total,
                                                    **om)
 
+    sharded_step.loss_and_grads = grads_fn
     return sharded_step, state_sh, d_sh
 
 

@@ -434,6 +434,64 @@ class _FailingLibrary:
         return entry
 
 
+class _RecordingLibrary:
+    """A kernel library whose every entry point records its name and
+    succeeds (returns 0) without computing anything."""
+
+    def __init__(self):
+        self.calls = []
+        self.lib = self
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("w_scale", [2.0, 0.5], ids=["outside", "inside"])
+@pytest.mark.parametrize("layout", ["sparse", "bucketed"])
+def test_entering_state_outside_the_box_steps_every_column_first(
+        monkeypatch, layout, w_scale):
+    """``solve(init=)`` on the card's route (the wrappers routed to a
+    recording library): a state with w at twice its box's edge runs its
+    first epoch as launch A alone then launch B on every column, per row
+    tile, and the folded step after; a state inside its box the folded
+    step from the start."""
+    from repro_torch.core.losses import w_bounds
+    from repro_torch.engine import init_state_data, solve
+    from repro_torch.runtime.snapshot import DSOSnapshot
+    rec = _RecordingLibrary()
+    monkeypatch.setattr(dso_sparse, "library", lambda: rec)
+    monkeypatch.setattr(dso_sparse, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops, "_route", lambda *t: True)
+    monkeypatch.setattr(ops, "_require_probe", lambda *a: None)
+    monkeypatch.setattr(ops, "shared_memory_limit", lambda dev: 232_448)
+    uni, buck = _grids(2)
+    grid = uni if layout == "sparse" else buck
+    lam = 1e-3
+    _, w_hi = w_bounds("hinge", lam)
+    fresh = init_state_data("hinge", grid, 0.1)
+    snap = DSOSnapshot(fresh._replace(w_grid=torch.full_like(
+        fresh.w_grid, w_scale * w_hi)), torch.Generator().manual_seed(0),
+        0, (), {})
+    solve(grid, backend={"sparse": "sparse_pallas",
+                         "bucketed": "sparse_bucketed_pallas"}[layout],
+          init=snap, epochs=2, row_batches=2, eta0=0.5, loss_name="hinge",
+          reg_name="l2", lam=lam, m=M_ROWS, d=D, device="cpu")
+    folded, alone = {"sparse": ("dso_sparse_block_step",
+                                "dso_sparse_dual_scatter"),
+                     "bucketed": ("dso_bucketed_block_step_shared",
+                                  "dso_bucketed_dual_scatter_shared")}[layout]
+    per_epoch = P * 2                       # inner iterations x row tiles
+    want = [folded] * per_epoch
+    if w_scale > 1:
+        want = [alone, "dso_primal_update"] * per_epoch + want
+    else:
+        want = want * 2
+    assert rec.calls == want
+
+
 @pytest.mark.parametrize("route", ["block-ELL", "shared", "hot"])
 def test_folded_launchers_raise_on_an_error_from_their_entry(monkeypatch,
                                                              route):

@@ -10,8 +10,9 @@ active parameters under 0.45 of its total; the SSM and hybrid long_500k
 decode per sequence under 10x decode_32k's; a multipod train step
 all-reduces over 32 ranks.  Two of its claims cannot be held: the port
 compiles nothing, so there is no ``compile_s`` to be positive, and its
-all-reduce is the one its data-parallel step makes, priced from the
-gradient bytes, not one parsed from HLO.
+collectives are the ones its sharded step makes, priced from the shapes
+(the data all-reduce from one device's gradient bytes), not parsed from
+HLO.
 """
 
 import json
@@ -115,7 +116,7 @@ def test_multipod_train_all_reduces_over_32_ranks(arch, records):
     rec = records[arch, "train_4k", True]
     ar = rec["collectives"]["all-reduce"]
     assert ar["group"] == 32 and ar["axes"] == ["pod", "data"]
-    grads = rec["bytes"]["grads"]
+    grads = rec["per_device_bytes"]["grads"]   # one device's, under TP
     assert ar["wire_bytes"] == pytest.approx(2 * grads * 31 / 32)
     assert records[arch, "train_4k", False]["collectives"][
         "all-reduce"]["group"] == 16

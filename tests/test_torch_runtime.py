@@ -475,6 +475,39 @@ def test_reshard_p4_to_p2_continues_on_retiled_data(tmp_path):
     assert torch.isfinite(res.w).all() and res.state.epoch == 8
 
 
+@pytest.mark.parametrize("layout", ["sparse", "bucketed"])
+def test_solve_from_w_outside_the_box_matches_reference(layout):
+    """``solve(init=)`` from a state whose w lies at twice its box's upper
+    edge: the port's plain steps (the CPU route) against the reference's,
+    3 epochs, within 1e-5 (on the card the first epoch's steps take
+    launch B on every column, ``TileBackend.clamp_step``)."""
+    from repro.runtime.snapshot import DSOSnapshot as JSnap
+    from repro_torch.core.losses import w_bounds
+    from repro_torch.runtime.snapshot import DSOSnapshot as TSnap
+    jg, tg = _grids(layout, 4)
+    lam = 1e-3
+    _, w_hi = w_bounds("hinge", lam)
+    backend = {"sparse": "sparse_jnp", "bucketed": "sparse_bucketed_jnp"}[
+        layout]
+    fresh = te.init_state_data("hinge", tg, 0.1)
+    state = fresh._replace(w_grid=torch.full_like(fresh.w_grid, 2 * w_hi))
+    arrs = [_np(getattr(state, f)) for f in ("w_grid", "gw_grid", "alpha",
+                                             "ga")]
+    kw = dict(backend=backend, p=4, epochs=3, eta0=0.5, loss_name="hinge",
+              reg_name="l2", lam=lam, m=SHAPE["m"], d=SHAPE["d"])
+    got = te.solve(tg, init=TSnap(TState(*map(torch.tensor, arrs), epoch=0),
+                                  torch.Generator().manual_seed(7), 0, (),
+                                  {}), device="cpu", **kw)
+    want = je.solve(jg, init=JSnap(
+        JState(*map(jax.numpy.asarray, arrs), epoch=jax.numpy.int32(0)),
+        jax.random.PRNGKey(7), 0, (), {}), **kw)
+    np.testing.assert_allclose(_np(got.w), np.asarray(want.w), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(got.alpha), np.asarray(want.alpha),
+                               rtol=1e-5, atol=1e-5)
+    assert float(_np(got.w).max()) <= w_hi
+
+
 # ------------------------------------------------------- in-place hazard --
 
 

@@ -10,9 +10,11 @@ make_sharded_train_step``) against the JAX reference on the CPU.
   two things it reads, ``axis_names`` and ``shape``;
 - batch and decode-cache specs likewise;
 - the sharded step on a 2 x 2 mesh of 4 gloo processes (a subprocess, as
-  the reference's test): loss within 1e-3 of the single-process step
-  (the reference's bound), parameters equal across ranks.  The step is
-  data-parallel only: tensor parallelism over ``model`` is not ported.
+  the reference's test), each rank holding its shards of the state
+  (``dist.tensor_parallel.shard_state``): loss within 1e-3 of the
+  single-process step (the reference's bound), the gathered parameters
+  equal across ranks.  ``tests/test_torch_tp.py`` holds the tensor-
+  parallel step to tighter bounds.
 """
 
 import os
@@ -148,6 +150,8 @@ SHARDED_TRAIN = textwrap.dedent("""
     def worker(rank, init, out):
         from repro_torch.configs.registry import get_smoke_config
         from repro_torch.dist.sharding import placements
+        from repro_torch.dist.tensor_parallel import (gather_tree,
+                                                      shard_state)
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.training import optimizer as opt
         from repro_torch.training.train import (
@@ -170,13 +174,15 @@ SHARDED_TRAIN = textwrap.dedent("""
         toks = torch.randint(0, cfg.vocab, (B, T), generator=g)
         batch = {"tokens": toks, "targets": toks}
         state = init_state(0, cfg, device="cpu")
-        state2, m = fn(state, batch)
+        local = shard_state(state, mesh, rank)
+        state2, m = fn(local, batch)
         state2, m2 = fn(state2, batch)
         _, ref = make_train_step(cfg, ocfg, remat=False)(
             init_state(0, cfg, device="cpu"), batch)
         d = abs(float(m["loss"]) - float(ref["loss"]))
         assert d < 1e-3, (float(m["loss"]), float(ref["loss"]))
-        leaves = opt.tree_leaves(state2.params)
+        leaves = opt.tree_leaves(gather_tree(state2.params, mesh,
+                                             state_sh.params))
         flat = torch.cat([t.reshape(-1) for t in leaves])
         every = [torch.empty_like(flat) for _ in range(4)]
         dist.all_gather(every, flat)
