@@ -131,7 +131,12 @@ Phases, one line per result:
    and launch B on every column (``TileBackend.clamp_step``; one each a
    row tile and inner iteration), the later ones the folded step; the
    folded step from the start, the route before the entering state was
-   checked, is printed beside it.
+   checked, is printed beside it.  Then (in 9r's pool, whose workers it
+   needs) the ring on the same three grids: ``ShardedDSO.restore`` of the
+   same state, 3 epochs, every worker's first epoch through
+   ``clamp_step`` (its launches per worker as above), w within 1e-5 of
+   ``solve(init=)``'s, alpha too on block-ELL and within the limit above
+   of the float64 plain twin on the bucketed routes.
    Phases 8r-8c run right after 5d, each run in its own launch-count
    window, which must hold the design's launches.
 3b. the baselines' epoch kernels (``csrc/baselines.cu``; they replace no
@@ -196,7 +201,8 @@ Phases, one line per result:
    decay; a phase-9t rank's heads: attention 8 heads of Dh 112, SSD 28
    heads (zamba2-7b's 112 over 4: the chunk gradients' groups of 8 and a
    tail of 4) and 8 heads at n 128 (mamba2-370m's 32 over 4), B and C
-   in the inputs' type;
+   in the inputs' type; a phase-9e rank's: 8 query and 2 KV heads of Dh
+   128 at T 4,096, causal;
    float32 runs the split-TF32 tensor-core kernel, bf16 with Dh a
    multiple of 8 (aligned) the bf16 tensor-core one in place, other bf16
    the same kernel on a packed copy, and each route's launch
@@ -356,6 +362,24 @@ Phases, one line per result:
    clock) and each kind of collective's calls, bytes and host-clock
    share are printed, with the batch's memory reckoning.  The ranks'
    launches add to the LM rows of the table.
+9e. expert parallelism and the vlm's cross-attention under 9t's
+   layout, 4 ranks on the one card as 9t's: phi3.5-moe at full width,
+   one layer (16 experts, 4 a rank), and llama-3.2-vision's first five
+   layers (a cross layer among them; 1,600 image tokens drawn from the
+   seed).  The one-process runs (the bf16 steps' update applied a leaf
+   at a time, ``lean_step``) come first and free the card; then one
+   spawn runs both models.  (t1) float32 B 1 x T 4,096 through
+   ``loss_and_grads``: the loss and the clip's norm within 1e-5, every
+   gradient leaf within 1e-3 relative L2; (t2) 3 bf16 steps (phi3.5 B
+   2, llama-vision B 1: at B 2 four ranks do not fit the card) within
+   0.007 mean |d| and the first step's leaves within 0.05; phi3.5's
+   routing (slots per expert, dropped slots) in float32 equal on every
+   rank and to the one-process run's; phi3.5 on a (2, 2) mesh (8
+   experts a rank, the routing over the data group) against the
+   one-process bf16 step on the whole batch within 0.007 and 0.05.  On
+   every rank the SWA forward and backward kernels launched, no plain
+   version called on the card and the collectives counted equal to
+   ``launch.dryrun.tp_collectives``.  The launches add to the LM rows.
 
 Prints the kernel table as one JSON line (the LM backward kernels' rows
 ``swa_attention_bwd``, ``swa_attention_bwd_packed``,
@@ -372,6 +396,7 @@ non-zero; without a CUDA card it exits 2 before printing any result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2433,6 +2458,49 @@ def phase_clamp(dev, ctx, cfg):
                 f"twin: w {e_w:.3e}")
     check(e_k64 <= lim_a, f"8c: alpha from outside the box is {e_k64:.3e} "
                           f"off the float64 plain twin (limit {lim_a:.3e})")
+    return dict(ctx=ctx, cfg=cfg, state=fresh._replace(
+        w_grid=torch.full_like(fresh.w_grid, 2 * w_hi)), kern=kern,
+        exact_alpha=exact.alpha, lim_a=lim_a)
+
+
+def ring_clamp(mesh, clamps, dev):
+    """Phase 8c's ring (run in 9r's pool, whose workers it needs): on each
+    of 8c's grids, ``ShardedDSO.restore`` of 8c's entering state (w at
+    twice its box's upper edge), ``CLAMP_EPOCHS`` epochs.  Every worker's
+    first epoch must take ``clamp_step`` (per worker 8c's launches: launch
+    A alone and launch B on every column per inner iteration, then the
+    folded step).  w must lie within 1e-5 of ``solve(init=)``'s from the
+    same state; alpha on the block-ELL route too, on the bucketed routes
+    within 8c's limit of the float64 plain twin."""
+    from repro_torch.core.dso_dist import ShardedDSO
+    for name, c in clamps.items():
+        ctx, cfg = c["ctx"], c["cfg"]
+        g = grid_kw(ctx, cfg, dev)
+        opt = ShardedDSO(ctx["grid"], mesh, impl="auto", alpha0=cfg.alpha0,
+                         seed=0, **{k: g[k] for k in ("loss_name", "reg_name",
+                                                      "lam", "m", "d")})
+        opt.restore(c["state"])
+        mesh.reset_launch_counts()
+        opt.run_epochs(CLAMP_EPOCHS, cfg.eta0)
+        opt.wait()
+        ring_counts("8c", mesh.launch_counts(),
+                    {ctx["counter"]: CLAMP_EPOCHS * P,
+                     "dso_primal_update": P})
+        w, alpha = opt.w_full(), opt.alpha_full()
+        e_w, ok_w = max_rel_err(w, c["kern"].w)
+        e_a, ok_a = max_rel_err(alpha, c["kern"].alpha)
+        e_64 = float((alpha.double() - c["exact_alpha"].reshape(-1)[
+            :alpha.numel()]).abs().max())
+        ell = ctx["layout"] == "sparse"
+        say("8c", f"{name} ({ctx['layout']}): the ring restored from w = 2 "
+                  f"w_hi, {CLAMP_EPOCHS} epochs, vs solve(init=) from the "
+                  f"same state: max|d| w {e_w:.3e} alpha {e_a:.3e}; alpha vs "
+                  f"the float64 plain twin {e_64:.3e} (limit "
+                  f"{c['lim_a']:.3e}); max w {float(w.max()):.4f}")
+        check(ok_w and (ok_a if ell else e_64 <= c["lim_a"]),
+              f"8c: the ring from outside the box is off: w {e_w:.3e}, "
+              f"alpha {e_a:.3e} (float64 twin {e_64:.3e})")
+        del opt
 
 
 def phase_reshard(dev, ctx, cfg, snap_store):
@@ -2619,7 +2687,7 @@ def ring_counts(phase, per_worker, design):
     return total
 
 
-def phase_ring(dev, cells):
+def phase_ring(dev, cells, clamps=None):
     """Phase 9r: the sharded ring (``core.dso_dist.ShardedDSO``) with
     ``RING_P`` worker processes on the one card, gloo with host-staged
     blocks, on phase 4's, 5n's and 5d's data at full width, 10 epochs.
@@ -2633,6 +2701,7 @@ def phase_ring(dev, cells):
     and a live reshard 4 -> 2 on svm-ocr with the duality gap falling.
     The kernel library is built (phase 2) before any worker starts; the
     workers load it.  The NCCL route runs only with a card per worker.
+    ``clamps`` (phase 8c's records) run ``ring_clamp`` in the same pool.
     Returns per cell the main ring run's launch counts over the
     workers."""
     import tempfile
@@ -2786,6 +2855,11 @@ def phase_ring(dev, cells):
                   f"the reshard did not continue with the gap falling: "
                   f"p={opt.p}, gaps {gaps}")
             del opt
+        if clamps:
+            t = time.perf_counter()
+            ring_clamp(mesh, clamps, dev)
+            say("8c", f"the ring's restore from outside the box on "
+                      f"{len(clamps)} grids: {time.perf_counter() - t:.1f} s")
         n_cards = torch.cuda.device_count()
         if n_cards >= RING_P:
             nccl = make_dso_mesh(RING_P, device=dev, transport="nccl",
@@ -2998,7 +3072,8 @@ SWA_CASES = [(1, 2, 2, 256, 256, 64, 128, True, 0),
              (1, 4, 1, 130, 190, 112, 50, False, 0),      # ragged Tq != Tk
              (1, 4, 1, 16, 32, 64, 4, True, 30),          # rows 5.. see no key
              (1, 2, 1, 77, 77, 36, 20, True, 0),          # Dh 36: packed
-             (1, 8, 8, 1024, 1024, 112, 1024, True, 0)]   # a 9t rank's heads
+             (1, 8, 8, 1024, 1024, 112, 1024, True, 0),   # a 9t rank's heads
+             (1, 8, 2, 4096, 4096, 128, 4096, True, 0)]   # a 9e rank's heads
 # float32 only: the edges of the split-TF32 kernel's tiling (128 queries
 # per CTA in warps of 16 rows, kv tiles of 32, depth padded to 16)
 SWA_F32_CASES = [(1, 2, 1, 141, 141, 112, 1000, True, 0),  # ragged warp
@@ -4776,31 +4851,6 @@ def _tp_rank(rank, init, job, dist, datetime, torch):
                    for _, t in leaves_with_paths(tree))
         return fn, specs, state, dict(held=held)
 
-    def rel_l2(grads, file):
-        """Each gradient leaf's relative L2 distance from the one-process
-        gradients in ``file`` (read through a memory map, this rank's
-        slices; a split leaf's sums taken over the ranks)."""
-        ref = torch.load(file, mmap=True, weights_only=True)["grads"]
-        d2, r2, split = [], [], []
-        for path, g in leaves_with_paths(grads):
-            r = ref[path]
-            i = tpm.model_dim(specs[path])
-            if i is not None:
-                s = r.shape[i] // TP_RANKS
-                r = r.narrow(i, rank * s, s)
-            r = r.to(dev).float()
-            d2.append(((g.float() - r) ** 2).sum())
-            r2.append((r ** 2).sum())
-            split.append(i is not None)
-        sums = torch.stack([torch.stack(d2), torch.stack(r2)], dim=1).cpu()
-        split = torch.tensor(split)[:, None]
-        part = sums * split              # the slices' sums over the ranks
-        dist.all_reduce(part)
-        sums = torch.where(split, part, sums)
-        return {p: float((d / r) ** 0.5) if r > 0 else float(d ** 0.5)
-                for (p, _), (d, r) in zip(leaves_with_paths(grads),
-                                          sums.tolist())}
-
     def run(fn):
         """(fn's result, its launches, plain calls on the card,
         collectives and host ms)."""
@@ -4825,7 +4875,7 @@ def _tp_rank(rank, init, job, dist, datetime, torch):
     batch = markov_batches(cfg, TP_F32_B, job["t"], 1, TP_F32_SEED, dev)[0]
     (total, met, grads), rec = run(lambda: fn.loss_and_grads(state.params,
                                                              batch))
-    rel = rel_l2(grads, job["ref"])
+    rel = rank_rel_l2(grads, job["ref"], specs, mesh, rank)
     del grads
     (_, m), step = run(lambda: fn(state, batch))
     res["f32"] = dict(rec, loss=float(met["loss"]),
@@ -4844,7 +4894,7 @@ def _tp_rank(rank, init, job, dist, datetime, torch):
                              dev)
     (_, _, grads), first = run(lambda: fn.loss_and_grads(state.params,
                                                          batches[0]))
-    first["rel"] = rel_l2(grads, job["ref2"])
+    first["rel"] = rank_rel_l2(grads, job["ref2"], specs, mesh, rank)
     del grads
     steps = []
     for batch in batches:
@@ -4855,6 +4905,40 @@ def _tp_rank(rank, init, job, dist, datetime, torch):
                        else 0)
     dist.destroy_process_group()
     return res
+
+
+def rank_rel_l2(grads, file, specs, mesh, rank):
+    """Each gradient leaf's relative L2 distance from the one-process
+    gradients in ``file`` (read through a memory map, this rank's slices
+    by ``specs``, the fitted spec of each leaf path, on ``mesh``; a split
+    leaf's sums taken over every rank of the default group: the data
+    ranks hold the same averaged gradients, so the ratio is the model
+    group's)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    ref = torch.load(file, mmap=True, weights_only=True)["grads"]
+    n, c = mesh.shape["model"], mesh.coords(rank)["model"]
+    d2, r2, split = [], [], []
+    for path, g in leaves_with_paths(grads):
+        r = ref[path]
+        i = tpm.model_dim(specs[path]) if n > 1 else None
+        if i is not None:
+            s = r.shape[i] // n
+            r = r.narrow(i, c * s, s)
+        r = r.to(g.device).float()
+        d2.append(((g.float() - r) ** 2).sum())
+        r2.append((r ** 2).sum())
+        split.append(i is not None)
+    sums = torch.stack([torch.stack(d2), torch.stack(r2)], dim=1).cpu()
+    split = torch.tensor(split)[:, None]
+    part = sums * split              # the slices' sums over the ranks
+    dist.all_reduce(part)
+    sums = torch.where(split, part, sums)
+    return {p: float((d / r) ** 0.5) if r > 0 else float(d ** 0.5)
+            for (p, _), (d, r) in zip(leaves_with_paths(grads),
+                                      sums.tolist())}
 
 
 def tp_reference(cfg, b, seed, dev, path):
@@ -4905,15 +4989,15 @@ def tp_losses(cfg, ocfg, b, dev, path):
     return out, counts
 
 
-def tp_spawn(job, tmp):
-    """Runs TP_RANKS ``tp_worker`` processes; returns their results by
-    rank.  Any rank's error, or one past TP_TIMEOUT, stops every rank and
-    fails the phase."""
+def tp_spawn(job, tmp, worker=None, phase="9t"):
+    """Runs TP_RANKS ``worker`` processes (``tp_worker``); returns their
+    results by rank.  Any rank's error, or one past TP_TIMEOUT, stops
+    every rank and fails the phase."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.SimpleQueue()
-    init = "file://" + os.path.join(tmp, "tp_store")
-    procs = [ctx.Process(target=tp_worker, args=(r, init, job, q))
+    init = "file://" + os.path.join(tmp, f"{phase}_store")
+    procs = [ctx.Process(target=worker or tp_worker, args=(r, init, job, q))
              for r in range(TP_RANKS)]
     for p in procs:
         p.start()
@@ -4922,13 +5006,13 @@ def tp_spawn(job, tmp):
         while len(got) < TP_RANKS:
             if not q.empty():
                 rank, res = q.get()
-                check(isinstance(res, dict), f"9t rank {rank}: {res}")
+                check(isinstance(res, dict), f"{phase} rank {rank}: {res}")
                 got[rank] = res
                 continue
             dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-            check(not dead, f"9t: a rank exited with {dead}")
+            check(not dead, f"{phase}: a rank exited with {dead}")
             check(time.perf_counter() - t0 < TP_TIMEOUT + 60,
-                  "9t: the ranks did not finish in time")
+                  f"{phase}: the ranks did not finish in time")
             time.sleep(0.2)
         for p in procs:
             p.join(60)
@@ -5098,6 +5182,488 @@ def phase_tp(dev, smi):
           f"(t2) the bf16 TP gradient of {order[0]} is {rel2[order[0]]:.3e} "
           f"off the one-process step's")
     say("9t", f"phase 9t passed in {time.perf_counter() - t0:.1f} s; "
+              f"launches (the ranks' and the one-process runs') {total}")
+    return total
+
+
+# phase 9e: expert parallelism and the vlm's cross-attention under tensor
+# parallelism over model, TP_RANKS ranks on the one card as 9t's; the
+# models at full width, depth cut: phi3.5-moe's one layer (16 experts, 4 a
+# rank) and llama-3.2-vision's first group (4 self layers and a cross
+# layer; the image tokens drawn from the seed)
+EP_MODELS = {"phi3.5": ("phi3.5-moe-42b-a6.6b", dict(n_layers=1)),
+             "vision": ("llama-3.2-vision-11b", dict(n_layers=5))}
+# SWA launches of one loss_and_grads (remat off): one forward and one
+# backward per self-attention layer
+EP_SELF_LAYERS = {"phi3.5": 1, "vision": 4}
+EP_DP = (2, 2)                       # phi3.5's step with routing over data
+# (t2)'s batch: llama-vision's at B 2 does not fit four ranks on one card
+# (a rank's forward reached 17.28 GiB, its vocabulary slice's float32
+# logits and their exponentials ~4 GiB of it, beside 5 GiB of parameters
+# and moments)
+EP_BF16_B = {"phi3.5": TP_BF16_B, "vision": 1}
+
+
+def ep_launches(model, kind):
+    n = EP_SELF_LAYERS[model]
+    if kind == "f32":
+        return {"swa_attention_tf32x3": n, "swa_attention_bwd_f32": n}
+    return {"swa_attention_tc": n, "swa_attention_bwd": n}
+
+
+def ep_batches(cfg, b, t, n, seed, dev):
+    """``markov_batches`` and, for the vlm, image tokens (B, n_image_tokens,
+    d) drawn from ``seed`` on the card in the model's type."""
+    import torch
+    from repro_torch.models.layers import torch_dtype
+    out = markov_batches(cfg, b, t, n, seed, dev)
+    if cfg.arch_type == "vlm":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for batch in out:
+            batch["image_embeds"] = torch.randn(
+                (b, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                device=dev).to(torch_dtype(cfg.dtype))
+    return out
+
+
+def ep_worker(rank, init, job, out):
+    """One rank of phase 9e (as ``tp_worker``; its allocator with
+    expandable segments, since four ranks share the card)."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import datetime
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        res = _ep_rank(rank, init, job, dist, datetime, torch)
+    except BaseException as e:           # the parent fails the phase
+        out.put((rank, f"{type(e).__name__}: {e}"))
+        raise
+    out.put((rank, res))
+
+
+def _ep_rank(rank, init, job, dist, datetime, torch):
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.library()                  # built by the parent: loaded
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", init_method=init, world_size=TP_RANKS,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    t, res = job["t"], {}
+    ocfg = opt.AdamWConfig(lr=LEARN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS)
+
+    def setup(cfg, dims, b, seed, moments):
+        mesh = make_host_mesh(*dims)
+        shapes = tp_shapes(b, t)
+        if cfg.arch_type == "vlm":
+            shapes["image_embeds"] = torch.empty(
+                (b, cfg.n_image_tokens, cfg.d_model), device="meta")
+        fn, ssh, _ = T.make_sharded_train_step(cfg, ocfg, mesh, shapes,
+                                               remat=False)
+        # the ranks draw the whole model in turns, each keeping its shards,
+        # so that one whole copy is on the card at a time
+        for r in range(TP_RANKS):
+            if r == rank:
+                whole = M.init_params(torch.Generator(
+                    device=dev).manual_seed(seed), cfg, device=dev)
+                params = tpm.shard_tree(whole, mesh, rank)
+                del whole
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        state = T.TrainState(params, opt.init(params)) if moments else \
+            T.TrainState(params, None)
+        held = sum(x.numel() * x.element_size()
+                   for tree in (state.params,) + ((state.opt.mu, state.opt.nu)
+                                                  if moments else ())
+                   for _, x in leaves_with_paths(tree))
+        want = dryrun.tp_collectives(cfg, mesh, ssh.params, b // dims[0], t,
+                                     remat=False)
+        return mesh, fn, dict(leaves_with_paths(ssh.params)), state, held, \
+            want
+
+    def run(fn):
+        """(fn's result, its launches, plain calls on the card, collectives,
+        the routing recorded, host ms)."""
+        ops.reset_launch_counts()
+        tpm.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        with plain_calls_on_card() as plain, moe.recording() as routes:
+            got = fn()
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        coll = {k: dict(count=v["calls"], result_bytes=v["bytes"])
+                for k, v in tpm.counts().items()}
+        return got, dict(launches={k: v for k, v in ops.launch_counts()
+                                   .items() if v},
+                         plain=dict(plain), collectives=coll,
+                         seconds={k: v["seconds"] for k, v in
+                                  tpm.counts().items()},
+                         routes=[(c.tolist(), d) for c, d in routes], ms=ms)
+
+    def grads_and_norm(fn, params, batch):
+        _, met, grads = fn.loss_and_grads(params, batch)
+        return met, grads, float(fn.grad_norm(grads))
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if cuda else 0
+
+    def model_runs(name, arch, over, ref, ref2, b):
+        out = {}
+        # (t1) float32, loss_and_grads (and the clip's norm) only
+        cfg = model_config(arch, dtype="float32", **over)
+        mesh, fn, specs, state, held, want = setup(
+            cfg, (1, TP_RANKS), TP_F32_B, TP_F32_SEED, False)
+        batch = ep_batches(cfg, TP_F32_B, t, 1, TP_F32_SEED, dev)[0]
+        (met, grads, gnorm), rec = run(
+            lambda: grads_and_norm(fn, state.params, batch))
+        out["f32"] = dict(rec, loss=float(met["loss"]), grad_norm=gnorm,
+                          rel=rank_rel_l2(grads, ref, specs, mesh, rank),
+                          held=held, want=want, peak=peak())
+        del fn, state, batch, grads
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (t2) bf16, TP_STEPS steps
+        cfg = model_config(arch, **over)
+        mesh, fn, specs, state, held, want = setup(cfg, (1, TP_RANKS),
+                                                   b, TP_SEED, True)
+        batches = ep_batches(cfg, b, t, TP_STEPS, TP_SEED, dev)
+        (met, grads, _), first = run(
+            lambda: grads_and_norm(fn, state.params, batches[0]))
+        first["rel"] = rank_rel_l2(grads, ref2, specs, mesh, rank)
+        del grads
+        steps = []
+        for batch in batches:
+            (state, m), rec = run(lambda: fn(state, batch))
+            steps.append(dict(rec, loss=float(m["loss"])))
+        out["bf16"] = dict(steps=steps, grads=first, held=held, want=want,
+                           peak=peak())
+        del fn, state
+        if cuda:
+            torch.cuda.empty_cache()
+        if name == "phi3.5":
+            # the whole batch over EP_DP: each data rank its row, E/2 experts
+            mesh, fn, specs, state, held, want = setup(cfg, EP_DP, b,
+                                                       TP_SEED, False)
+            (met, grads, _), rec = run(
+                lambda: grads_and_norm(fn, state.params, batches[0]))
+            out["dp"] = dict(rec, loss=float(met["loss"]), held=held,
+                             want=want, peak=peak(),
+                             rel=rank_rel_l2(grads, ref2, specs, mesh,
+                                             rank))
+            del fn, state, grads
+        del batches
+        return out
+
+    for name, arch, over, ref, ref2, b in job["models"]:
+        res[name] = model_runs(name, arch, over, ref, ref2, b)
+    dist.destroy_process_group()
+    return res
+
+
+def lean_step(cfg, ocfg, state, batch):
+    """``make_train_step``'s step (remat off) with the update applied a
+    leaf at a time: ``optimizer.apply`` on each leaf alone, with the whole
+    gradient's clip norm, so the arithmetic is the same, and each old leaf,
+    its moments and its gradient dropped as soon as its new ones exist.
+    The step then holds one leaf's temporaries in place of a second copy of
+    the state (a 2.1 B-parameter bf16 model with float32 moments does not
+    fit one card twice).  Takes over ``state``'s dicts; returns (state,
+    metrics)."""
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    _, met, grads = T.loss_and_grads(state.params, batch, cfg, remat=False)
+    params, mu, nu = state.params, state.opt.mu, state.opt.nu
+    with torch.no_grad():
+        gnorm = opt.global_norm(grads)
+        for path, _ in leaves_with_paths(params):
+            *up, k = path.split("/")
+            trees = [params, mu, nu, grads]
+            for key in up:
+                trees = [t[key] for t in trees]
+            p, m, v, g = trees
+            new_p, new_o, om = opt.apply(ocfg, {k: p[k]}, {k: g[k]},
+                                         opt.OptState({k: m[k]}, {k: v[k]},
+                                                      state.opt.step),
+                                         gnorm=gnorm)
+            p[k], m[k], v[k], g[k] = new_p[k], new_o.mu[k], new_o.nu[k], None
+    return T.TrainState(params, opt.OptState(mu, nu, new_o.step)), dict(
+        met, **om)
+
+
+def ep_one_process(cfg, b, dev, tmp):
+    """The one-process runs of one 9e model in this process: (t1) the
+    float32 loss_and_grads, its gradients written to a file; (t2) the first
+    bf16 step's gradients written to a file and TP_STEPS bf16 losses at
+    batch ``b`` (``lean_step``).
+    Returns a record of each (loss, norm, launch counts, routing) and the
+    files."""
+    import dataclasses
+    import torch
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ocfg = opt.AdamWConfig(lr=LEARN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS)
+    ref, ref2 = (os.path.join(tmp, f"{cfg.name}_{k}.pt")
+                 for k in ("t1", "t2"))
+    params = M.init_params(torch.Generator(device=dev).manual_seed(
+        TP_F32_SEED), cfg32, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = ep_batches(cfg32, TP_F32_B, TP_T, 1, TP_F32_SEED, dev)[0]
+    with moe.recording() as routes:
+        (_, met, grads), c1 = counted(
+            lambda: T.loss_and_grads(params, batch, cfg32, remat=False))
+    f32 = dict(loss=float(met["loss"]),
+               grad_norm=float(opt.global_norm(grads)), counts=c1,
+               routes=[(c.tolist(), d) for c, d in routes])
+    torch.save({"grads": {p: g.detach().cpu()
+                          for p, g in leaves_with_paths(grads)}}, ref)
+    f32["peak"] = torch.cuda.max_memory_allocated(dev)
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = ep_batches(cfg, b, TP_T, TP_STEPS, TP_SEED, dev)
+    state = T.init_state(torch.Generator(device=dev).manual_seed(TP_SEED),
+                         cfg, device=dev)
+    with moe.recording() as routes:
+        (_, met, grads), c0 = counted(lambda: T.loss_and_grads(
+            state.params, batches[0], cfg, remat=False))
+    torch.save({"grads": {p: g.detach().cpu()
+                          for p, g in leaves_with_paths(grads)}}, ref2)
+    del grads
+    losses, counts = [], [c0]
+    for b in batches:
+        (state, m), c = counted(lambda: lean_step(cfg, ocfg, state, b))
+        losses.append(float(m["loss"]))
+        counts.append(c)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return f32, dict(losses=losses, counts=counts, first_loss=float(
+        met["loss"]), routes=[(c.tolist(), d) for c, d in routes],
+        peak=peak), ref, ref2
+
+
+def phase_ep(dev, smi):
+    """Phase 9e: expert parallelism and the vlm's cross-attention in the
+    tensor-parallel train step (``make_sharded_train_step`` on a (1,
+    TP_RANKS) mesh; phi3.5 also on EP_DP with the routing over the data
+    group), TP_RANKS processes on the one card over gloo as 9t's, for
+    each of ``EP_MODELS`` at full width (depth cut).  The one-process
+    runs come first, in this process, and free the card.  Gates, as 9t's:
+    (t1) float32 B 1 x T 4,096 through ``loss_and_grads``: the loss within
+    1e-5 relative, every gradient leaf within gate (b)'s 1e-3 relative
+    L2, the clip's norm within 1e-5; (t2) bf16 at ``EP_BF16_B`` (phi3.5 B
+    2, llama-vision B 1), TP_STEPS steps within gate (d)'s mean loss
+    distance, the first step's gradient leaves within TP_BF16_GRAD_TOL;
+    phi3.5's routing (each layer's slots per expert and
+    dropped slots) in float32 equal on every rank and to the one-process
+    run's; phi3.5 on EP_DP, B 2 (a row a data rank, E/2 experts a rank),
+    the loss and gradients against the one-process bf16 step's on the
+    whole batch within gate (d)'s and TP_BF16_GRAD_TOL; on every rank the
+    SWA forward and backward kernels launched, no plain version called on
+    the card, and the collectives counted equal to
+    ``dryrun.tp_collectives``.  An out-of-memory error fails the phase.
+    Returns the launches by counter, the ranks' and the one-process
+    runs'."""
+    import tempfile
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v and k != "sparse_probe":
+                total[k] = total.get(k, 0) + v
+
+    one, jobs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (arch, over) in EP_MODELS.items():
+            t_model = time.perf_counter()
+            cfg16 = model_config(arch, **over)
+            tree = M.param_specs(cfg16)
+            fitted = dict(leaves_with_paths(shd.param_shardings(
+                make_host_mesh(1, TP_RANKS), tree)))
+            n_all = sum(x.numel() for _, x in leaves_with_paths(tree))
+            n_rank = sum(x.numel() // (TP_RANKS if tpm.model_dim(fitted[p])
+                                       is not None else 1)
+                         for p, x in leaves_with_paths(tree))
+            say("9e", f"{arch} ({cfg16.n_layers} layers, d {cfg16.d_model}"
+                      + (f", {cfg16.n_experts} experts top {cfg16.top_k}"
+                         if cfg16.is_moe else
+                         f", {cfg16.n_image_tokens} image tokens")
+                      + f"): {n_all:,} parameters, {n_rank:,} a rank of "
+                        f"{TP_RANKS}")
+            b16 = EP_BF16_B[name]
+            f32, bf, ref, ref2 = ep_one_process(cfg16, b16, dev, tmp)
+            check_counts("9e", f32["counts"], ep_launches(name, "f32"))
+            for c in bf["counts"]:
+                check_counts("9e", c, ep_launches(name, "bf16"))
+                add(c)
+            add(f32["counts"])
+            say("9e", f"{name} one-process runs: (t1) loss "
+                      f"{f32['loss']:.6f}, grad_norm {f32['grad_norm']:.6f}, "
+                      f"routing {f32['routes']}; (t2) losses "
+                      f"{bf['losses']}, the first step's routing "
+                      f"{bf['routes']}; peak {f32['peak'] / 2**30:.3f} GiB "
+                      f"(float32), {bf['peak'] / 2**30:.3f} GiB (bf16 "
+                      f"steps); {time.perf_counter() - t_model:.1f} s")
+            one[name] = (cfg16, b16, f32, bf)
+            jobs.append((name, arch, over, ref, ref2, b16))
+        say("9e", f"this process holds "
+                  f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
+                  f"({torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB "
+                  f"reserved) as the ranks start")
+        t_spawn = time.perf_counter()
+        every = tp_spawn(dict(device=str(dev), models=jobs, t=TP_T), tmp,
+                         ep_worker, "9e")
+    say("9e", f"{TP_RANKS} ranks ran both models in "
+              f"{time.perf_counter() - t_spawn:.1f} s (start-up included)")
+    for name, (cfg16, b16, f32, bf) in one.items():
+        got = {rank: every[rank][name] for rank in range(TP_RANKS)}
+        for rank in range(TP_RANKS):
+            r = got[rank]
+            runs = [("f32", r["f32"]), ("bf16 gradients", r["bf16"]["grads"])]
+            runs += [(f"bf16 step {i}", s)
+                     for i, s in enumerate(r["bf16"]["steps"])]
+            if "dp" in r:
+                runs.append((f"{EP_DP} gradients", r["dp"]))
+            for label, rec in runs:
+                kind = "f32" if label == "f32" else "bf16"
+                # a step, or loss_and_grads and the clip's norm: the same
+                want = r[label if label == "f32" else "bf16"
+                         if label.startswith("bf16") else "dp"]["want"]
+                check(rec["launches"] == ep_launches(name, kind)
+                      and not any(rec["plain"].values()),
+                      f"9e {name} rank {rank} {label}: launches "
+                      f"{rec['launches']} != {ep_launches(name, kind)}, "
+                      f"plain calls on the card {rec['plain']}")
+                check(rec["collectives"] == want,
+                      f"9e {name} rank {rank} {label}: collectives "
+                      f"{rec['collectives']} != the dry run's {want}")
+                add(rec["launches"])
+            bfs = r["bf16"]["steps"]
+            ms = [x["ms"] for x in bfs]
+            coll = bfs[-1]["collectives"]
+            share = sum(bfs[-1]["seconds"].values()) * 1e3 / ms[-1]
+            say("9e", f"{name} rank {rank}: launches per bf16 step "
+                      f"{bfs[-1]['launches']}, float32 {r['f32']['launches']};"
+                      f" plain calls on the card {bfs[-1]['plain']}; held "
+                      f"{r['bf16']['held'] / 2**30:.3f} GiB (bf16 parameters "
+                      f"and moments), {r['f32']['held'] / 2**30:.3f} GiB "
+                      f"(float32 parameters); peak "
+                      f"{r['bf16']['peak'] / 2**30:.3f} GiB (bf16, B "
+                      f"{b16}), {r['f32']['peak'] / 2**30:.3f} GiB "
+                      f"(float32, B {TP_F32_B}); ms per bf16 step (host "
+                      f"clock) {', '.join(f'{x:.1f}' for x in ms)}, float32 "
+                      f"gradients {r['f32']['ms']:.1f}; collectives of the "
+                      f"last bf16 step (= the dry run's): "
+                      + ", ".join(f"{k} {v['count']} calls "
+                                  f"{v['result_bytes']:,} B "
+                                  f"{bfs[-1]['seconds'][k] * 1e3:.1f} ms"
+                                  for k, v in coll.items())
+                      + f" (host-clock share {share:.3f}); {smi}")
+            if "dp" in r:
+                say("9e", f"{name} rank {rank} on {EP_DP}: held "
+                          f"{r['dp']['held'] / 2**30:.3f} GiB, peak "
+                          f"{r['dp']['peak'] / 2**30:.3f} GiB, "
+                          f"{r['dp']['ms']:.1f} ms, collectives "
+                          f"{r['dp']['collectives']}, routing "
+                          f"{r['dp']['routes']}")
+        one = got[0]["f32"]
+        d_loss = abs(one["loss"] - f32["loss"]) / abs(f32["loss"])
+        d_norm = abs(one["grad_norm"] - f32["grad_norm"]) / f32["grad_norm"]
+        worst = max(one["rel"], key=one["rel"].get)
+        say("9e", f"{name} (t1) float32 B {TP_F32_B} x T {TP_T}: loss "
+                  f"{one['loss']:.6f} vs one process {f32['loss']:.6f} "
+                  f"({d_loss:.3e} relative, bound {TP_LOSS_TOL}); grad_norm "
+                  f"{one['grad_norm']:.6f} vs {f32['grad_norm']:.6f} "
+                  f"({d_norm:.3e}, bound {TP_NORM_TOL}); worst gradient leaf "
+                  f"{worst} {one['rel'][worst]:.3e} relative L2 (bound "
+                  f"{F32_GRAD_TOL}) over {len(one['rel'])} leaves")
+        check(d_loss <= TP_LOSS_TOL and d_norm <= TP_NORM_TOL
+              and one["rel"][worst] <= F32_GRAD_TOL,
+              f"9e {name} (t1): the float32 TP step is off the one-process "
+              f"step: loss {d_loss:.3e}, grad_norm {d_norm:.3e}, {worst} "
+              f"{one['rel'][worst]:.3e}")
+        if cfg16.is_moe:
+            routes = [got[r]["f32"]["routes"] for r in range(TP_RANKS)]
+            dropped = [d for _, d in f32["routes"]]
+            say("9e", f"{name} routing, float32: slots per expert and "
+                      f"dropped per layer {f32['routes']} (one process); "
+                      f"equal on every rank: "
+                      f"{all(x == f32['routes'] for x in routes)}; bf16 "
+                      f"first step: one process {bf['routes']}, rank 0 "
+                      f"{got[0]['bf16']['grads']['routes']}")
+            check(all(x == f32["routes"] for x in routes),
+                  f"9e {name}: the ranks' routing {routes} is not the "
+                  f"one-process run's {f32['routes']}")
+        losses = [[s["loss"] for s in got[r]["bf16"]["steps"]]
+                  for r in range(TP_RANKS)]
+        check(all(x == losses[0] for x in losses),
+              f"9e {name} (t2): the ranks' losses differ: {losses}")
+        dist = sum(abs(a - b) for a, b in zip(losses[0], bf["losses"])) \
+            / TP_STEPS
+        rel2 = got[0]["bf16"]["grads"]["rel"]
+        order = sorted(rel2, key=rel2.get, reverse=True)
+        say("9e", f"{name} (t2) bf16 B {b16} x T {TP_T}, {TP_STEPS} "
+                  f"steps of seed {TP_SEED} at lr {LEARN_LR:g}: losses "
+                  f"{losses[0]}, one process {bf['losses']}; mean |d| "
+                  f"{dist:.4f} (gate <= {TRACK_TOL}); the first step's "
+                  f"gradients, relative L2 over {len(rel2)} leaves: worst "
+                  + ", ".join(f"{p} {rel2[p]:.3e}" for p in order[:3])
+                  + f"; median {rel2[order[len(order) // 2]]:.3e} (bound "
+                  f"{TP_BF16_GRAD_TOL})")
+        check(dist <= TRACK_TOL and rel2[order[0]] <= TP_BF16_GRAD_TOL,
+              f"9e {name} (t2): losses {dist:.4f} apart, the gradient of "
+              f"{order[0]} {rel2[order[0]]:.3e} off the one-process step's")
+        if "dp" in got[0]:
+            dp = got[0]["dp"]
+            rel = dp["rel"]
+            w = max(rel, key=rel.get)
+            d_dp = abs(dp["loss"] - bf["first_loss"])
+            say("9e", f"{name} on {EP_DP}, bf16 B {b16}: loss "
+                      f"{dp['loss']:.6f} vs the one-process step on the "
+                      f"whole batch {bf['first_loss']:.6f} (|d| {d_dp:.4f}, "
+                      f"gate {TRACK_TOL}); worst gradient leaf {w} "
+                      f"{rel[w]:.3e} (bound {TP_BF16_GRAD_TOL}); routing "
+                      f"{dp['routes']} vs one process {bf['routes']}")
+            check(d_dp <= TRACK_TOL and rel[w] <= TP_BF16_GRAD_TOL,
+                  f"9e {name} on {EP_DP}: loss {d_dp:.4f} apart, {w} "
+                  f"{rel[w]:.3e}")
+    say("9e", f"phase 9e passed in {time.perf_counter() - t0:.1f} s; "
               f"launches (the ranks' and the one-process runs') {total}")
     return total
 
@@ -5701,9 +6267,10 @@ def main() -> int:
                   runtime["svm-real-sim"]["store"])
     phase_obs(dev, buck, CONFIGS["logistic-real-sim"])
     phase_switch(dev, buck, CONFIGS["logistic-real-sim"])
-    for ctx, name in ((uni, "svm-real-sim"), (buck, "logistic-real-sim"),
-                      (news, "logistic-news20")):
-        phase_clamp(dev, ctx, CONFIGS[name])
+    clamps = {name: phase_clamp(dev, ctx, CONFIGS[name])
+              for ctx, name in ((uni, "svm-real-sim"),
+                                (buck, "logistic-real-sim"),
+                                (news, "logistic-news20"))}
     say(8, f"phases 8r, 8h, 8s, 8o, 8w, 8c passed in "
            f"{time.perf_counter() - t8:.1f} s")
     t10 = time.perf_counter()
@@ -5721,7 +6288,9 @@ def main() -> int:
                             {news["counter"]: per_worker}, None),
         "svm-ocr": (dense, CONFIGS["svm-ocr"],
                     {"dso_block_step": per_worker,
-                     "dso_primal_update": per_worker}, dense["prob"])})
+                     "dso_primal_update": per_worker}, dense["prob"])},
+        clamps)
+    del clamps
 
     s_step, s_primal = phase_times(uni)
     b_step, b_primal = phase_times(buck)
@@ -5744,6 +6313,7 @@ def main() -> int:
             del ctx[k]
     torch.cuda.empty_cache()
     tp = phase_tp(dev, smi)
+    ep = phase_ep(dev, smi)
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -5798,7 +6368,8 @@ def main() -> int:
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
                             if k == counter) + model.get(counter, 0) \
-            + train.get(counter, 0) + tp.get(counter, 0)
+            + train.get(counter, 0) + tp.get(counter, 0) \
+            + ep.get(counter, 0)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))
@@ -5818,7 +6389,7 @@ def main() -> int:
         r.pop("device_ms")
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
                             if k == counter) + train.get(counter, 0) \
-            + tp.get(counter, 0)
+            + tp.get(counter, 0) + ep.get(counter, 0)
         lm_rows.append(dict(name=counter, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=None, **r))

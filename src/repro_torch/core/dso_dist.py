@@ -18,6 +18,13 @@ processor through the backend's ``block_step`` (the slicing of
 ``engine.backends._make_switch_block_step``): on the card each step is a
 launch of the port's block-step kernels, on the CPU their plain versions.
 
+A state that enters with w outside its box (``ShardedDSO.restore``, or
+an initial state) runs its first epoch through the backend's
+``clamp_step`` on every worker, as ``solve`` does
+(``engine.backends.TileBackend.clamp_step``): the CUDA sparse steps
+leave a column their row tile does not hold as it was, where the plain
+step clamps every column.
+
 The controller draws each chunk's permutations and step sizes exactly as
 ``engine.driver.solve`` does (the same ``torch.Generator`` stream, the
 same ``eta_schedule``) and sends them to the workers, which run the chunk's
@@ -81,7 +88,8 @@ from repro_torch.engine.backends import get_backend, resolve_backend_for_layout
 from repro_torch.engine.data import (DSOState, TileData, as_tile_data,
                                      check_tile_stats, eta_schedule,
                                      init_state_data, prob_meta, tile_dims)
-from repro_torch.engine.driver import (TELEMETRY_FIELDS, _schedule_key,
+from repro_torch.engine.driver import (TELEMETRY_FIELDS, _outside_box,
+                                       _schedule_key,
                                        resolve_backend_and_build,
                                        telemetry_row, warn_ragged_eval)
 from repro_torch.engine.schedules import get_schedule
@@ -527,17 +535,20 @@ class _Shard:
         return tuple(t.detach().cpu().numpy().reshape(-1)
                      for t in (buf[0], buf[1], self.alpha, self.ga))
 
-    def step(self, b: int, eta: float, telemetry: bool):
-        """Inner iteration on block ``b``, in place on the current buffer.
-        Returns ``note(row)``, which writes the iteration's telemetry row
-        into ``row`` (a no-op without telemetry)."""
+    def step(self, b: int, eta: float, telemetry: bool, clamp: bool = False):
+        """Inner iteration on block ``b``, in place on the current buffer
+        (through the backend's ``clamp_step`` with ``clamp``, where it has
+        one).  Returns ``note(row)``, which writes the iteration's
+        telemetry row into ``row`` (a no-op without telemetry)."""
         buf = self.bufs[self.cur]
         if telemetry:
             w_old, a_old = buf[0:1].clone(), self.alpha.clone()
         state = DSOState(w_grid=buf[0:1], gw_grid=buf[1:2], alpha=self.alpha,
                          ga=self.ga, epoch=0)
-        self.be.block_step(self.meta, self.tiles[b], state, self.blk, eta,
-                           self.row_batches)
+        step = self.be.clamp_step if clamp and self.be.clamp_step \
+            else self.be.block_step
+        step(self.meta, self.tiles[b], state, self.blk, eta,
+             self.row_batches)
         if not telemetry:
             return lambda row: None
 
@@ -596,9 +607,11 @@ class _Shard:
         self.bufs[self.cur].copy_(got[int(inv[want])])
         self.comm_s += time.perf_counter() - t
 
-    def run(self, etas, perms, mode: str, telemetry: bool):
-        """``len(etas)`` epochs; returns the telemetry rows (n, p, F) or
-        None, the chunk's seconds and the seconds spent moving blocks."""
+    def run(self, etas, perms, mode: str, telemetry: bool,
+            clamp: bool = False):
+        """``len(etas)`` epochs, the first through ``clamp_step`` with
+        ``clamp``; returns the telemetry rows (n, p, F) or None, the
+        chunk's seconds and the seconds spent moving blocks."""
         n, p, q = len(etas), self.p, self.q
         left, right = (q - 1) % p, (q + 1) % p
         tel = (torch.zeros((n, p, len(TELEMETRY_FIELDS)),
@@ -619,7 +632,7 @@ class _Shard:
                     else:
                         self._fetch(perms[e], r)
                     b = int(perms[e][r, q])
-                note = self.step(b, eta, telemetry)
+                note = self.step(b, eta, telemetry, clamp and e == 0)
                 if mode == "ring_overlap" and p > 1:
                     wait = self._move(left, right)   # one stacked move
                     note(row)                        # runs under the move
@@ -657,8 +670,8 @@ class _Worker:
                                   data["alpha"], data["ga"])
         g.sync()
 
-    def run(self, sid, etas, perms, mode, telemetry):
-        return self.shards[sid].run(etas, perms, mode, telemetry)
+    def run(self, sid, etas, perms, mode, telemetry, clamp=False):
+        return self.shards[sid].run(etas, perms, mode, telemetry, clamp)
 
     def get(self, sid):
         return self.shards[sid].get()
@@ -786,6 +799,8 @@ class ShardedDSO:
         tile = as_tile_data(data, bucketed_payload=self.backend.payload)
         _, self.mb, self.db = tile_dims(tile)
         state = init_state_data(self.loss_name, data, alpha0)
+        # the next run's first epoch steps every column (module docstring)
+        self._outside = _outside_box(state, self.w_lo, self.w_hi)
         self.use_adagrad = use_adagrad
         self.row_batches = row_batches
         self.eta0_record = None
@@ -851,7 +866,8 @@ class ShardedDSO:
 
         self.mesh.pool.post(
             "run", [(self._sid, etas, None if self.schedule.ring else perms,
-                     self.mode, tel)] * self.p, done)
+                     self.mode, tel, self._outside)] * self.p, done)
+        self._outside = False
         self.epochs_done += n
         if tel:
             self.wait()
@@ -899,7 +915,8 @@ class ShardedDSO:
     def restore(self, state: DSOState, key=None, epochs_done=None):
         """Adopt a checkpointed (or resharded) state: send each worker its
         rows and reset the schedule key and epoch cursor, so the next
-        ``run_epochs`` continues the stored trajectory."""
+        ``run_epochs`` continues the stored trajectory (its first epoch
+        through ``clamp_step`` if any w lies outside its box)."""
         if tuple(state.w_grid.shape) != (self.p, self.db):
             raise ValueError(
                 f"state has w grid {tuple(state.w_grid.shape)}, this mesh "
@@ -911,6 +928,8 @@ class ShardedDSO:
                           state.ga)]
         self.mesh.call("set", [(self._sid,) + tuple(a[q] for a in host)
                                for q in range(self.p)])
+        w = host[0]
+        self._outside = bool(((w < self.w_lo) | (w > self.w_hi)).any())
         if key is not None:
             self.key = _schedule_key(key, self.schedule)
         self.epochs_done = (int(state.epoch) if epochs_done is None

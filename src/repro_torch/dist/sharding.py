@@ -27,9 +27,9 @@ Rules (in order):
 The port's sharded train step (``training.train.make_sharded_train_step``)
 splits the batch by ``data_specs`` and, over ``model``, the parameters by
 ``param_shardings``: each rank holds its slice of every leaf whose fitted
-spec names ``model`` (``dist.tensor_parallel``), for the dense, audio,
-ssm and hybrid archs; the MoE expert stacks (rule 2) and the vlm's
-cross-attention wait for a later slice.  The dry run prices the layout.
+spec names ``model`` (``dist.tensor_parallel``), for every arch: the MoE
+expert stacks (rule 2) as E/n whole experts a rank (``models.moe``).
+The dry run prices the layout.
 """
 
 from __future__ import annotations

@@ -24,11 +24,29 @@ no collective (the input's gradient is the rank's part of the sum), and
   * ``sum`` (all-reduce) has the identity for its backward.  It serves the
     loss's sums over the vocabulary, after which every rank computes the
     same scalar from the same values, so the gradients there are whole;
+  * ``reduce`` (all-reduce) has an all-reduce for its backward: it sums
+    the ranks' partial results into a whole activation (the MoE combine
+    under expert parallelism, a router whose rows of d are split), whose
+    gradient is partial on each rank, so the whole gradient of the
+    ranks' parts is that sum again;
+  * ``share`` passes on 1/n of the gradient of a value every rank
+    computes alike from whole activations (the MoE aux loss): that
+    gradient is whole on every rank, and the group's sums (a
+    reduce-scatter, the whole leaves' all-reduce) must count it once;
   * a parameter held whole gets a partial gradient, which the train step
     sums over the group (one all-reduce of all such leaves).
 
 Megatron's identity-with-an-all-reduce-backward is its form of the first
 rule for whole gradients; under partial gradients it is not needed.
+
+**The data group.**  The same class serves the ranks that differ only on
+the data axes, for the sums a statistic of the whole batch needs (the
+MoE routing, the masked loss; ``training.train``).  The step averages
+the data ranks' gradients, so the objective is the mean over the group
+of per-rank objectives that each hold such a statistic whole: the
+adjoint of its all-reduce is an all-reduce too (``reduce``), and
+``exclusive_sum`` (one all-gather, outside autograd) gives a rank the
+counts of the ranks before it.
 
 **Transport.** The collectives run over a ``torch.distributed`` group of
 the ranks that differ only on ``model``.  Under gloo, tensors on the card
@@ -81,8 +99,9 @@ def heads_split(n: int, *heads: int) -> bool:
 
 
 class TensorParallel:
-    """This rank's ``model`` group: ``n`` ranks, this one at ``coord``.
-    ``SINGLE`` (n 1) is one process: every method returns its input."""
+    """This rank's ``model`` group (or its data group): ``n`` ranks, this
+    one at ``coord``.  ``SINGLE`` (n 1) is one process: every method
+    returns its input."""
 
     def __init__(self, group, n: int, coord: int):
         self.group, self.n, self.coord = group, n, coord
@@ -153,6 +172,24 @@ class TensorParallel:
         whose consumers every rank computes alike)."""
         return _Sum.apply(t, self) if self.n > 1 else t
 
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group; backward: the gradients summed over
+        the group too (for the ranks' parts of a whole activation)."""
+        return _Reduce.apply(t, self) if self.n > 1 else t
+
+    def share(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself; backward: 1/n of the gradient (for a value every
+        rank computes alike from whole activations)."""
+        return _Share.apply(t, self.n) if self.n > 1 else t
+
+    def exclusive_sum(self, t: torch.Tensor):
+        """(the sum of ``t`` over the ranks before this one, its sum over
+        the group), outside autograd: one all-gather."""
+        if self.n == 1:
+            return torch.zeros_like(t), t
+        every = self._all_gather(t.detach()[None], 0)
+        return every[:self.coord].sum(0), every.sum(0)
+
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The group's elementwise maximum of ``t``, outside autograd."""
         if self.n == 1:
@@ -203,6 +240,28 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return tp.all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce_(g.clone()), None
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 SINGLE = TensorParallel(None, 1, 0)

@@ -34,10 +34,11 @@ determine:
   step's all-gathers, reduce-scatters and all-reduces
   (``tp_collectives``: counted from the shapes as
   ``dist.tensor_parallel`` counts them, with ``remat``'s recomputed
-  forward), (n-1)/n of the whole tensors' bytes for a gather or a
-  scatter.  The ``moe`` and ``vlm`` archs have no tensor-parallel step
-  yet: their records list ``model_collectives`` under ``not_computed``.
-  Prefill and decode make none.
+  forward; for ``moe`` the router's logits, the combine of the experts
+  split over ``model`` or the gathers of their d_ff columns, and the
+  routing's few bytes over the data group; for ``vlm`` the cross
+  layers' heads), (n-1)/n of the whole tensors' bytes for a gather or a
+  scatter.  Prefill and decode make none.
 
 It cannot compute what the reference reads from XLA: the compiled
 step's ``memory_analysis`` (temporaries included), the HLO parse of the
@@ -132,31 +133,79 @@ def forward_flops(cfg: ModelConfig, shape, params) -> dict:
                 ssd=ssd, forward=matmul + attn + cross + ssd)
 
 
-def _attn_gathers(cfg: ModelConfig, split, prefix: str, n: int,
-                  bt: int) -> list:
-    """Elements of each all-gather in one forward of an attention block
-    and its MLP (``models.attention.self_attention``, ``mlp_apply``): the
-    body's, and the block's output's (last)."""
+def _gather(nbytes: int) -> tuple:
+    """An all-gather of a whole tensor of ``nbytes`` (``TensorParallel.
+    gather``), a reduce-scatter of its size in the backward."""
+    return ("all-gather", nbytes, "reduce-scatter")
+
+
+def _reduce(nbytes: int) -> tuple:
+    """An all-reduce whose backward is one too (``TensorParallel.reduce``)."""
+    return ("all-reduce", nbytes, "all-reduce")
+
+
+def _attn_part(cfg: ModelConfig, split, prefix: str, n: int, bt: int,
+               e: int, kv_rows: int = 0) -> list:
+    """The collectives of one forward of an attention (``models.attention.
+    self_attention``, or ``cross_attention`` over ``kv_rows`` image tokens
+    when given): the heads' (or the projections') gathers, then the
+    output's."""
     hq, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
     g = cfg.n_kv_heads or hq
+    kv = kv_rows or bt
     out = []
     if tpm.heads_split(n, hq, g):             # the rank's heads: o gathered
-        out.append(bt * hq * dh)
+        out.append(_gather(e * bt * hq * dh))
     else:
-        out += [bt * cols for w, cols in (("wq", hq * dh), ("wk", g * dh),
-                                          ("wv", g * dh))
-                if split(f"{prefix}/attn/{w}")]
+        out += [_gather(e * rows * cols) for w, rows, cols in (
+            ("wq", bt, hq * dh), ("wk", kv, g * dh), ("wv", kv, g * dh))
+            if split(f"{prefix}/attn/{w}")]
     if split(f"{prefix}/attn/wo"):
-        out.append(bt * d)
-    if split(f"{prefix}/mlp/w_up"):
-        out.append(bt * cfg.d_ff)
-    return out, [bt * d] if split(f"{prefix}/mlp/w_down") else []
+        out.append(_gather(e * bt * d))
+    return out
 
 
-def _mamba_gathers(cfg: ModelConfig, split, n: int, bt: int) -> list:
-    """... and of a Mamba2 block (``models.mamba2.mamba2_apply``): the
-    projections' outputs and the conv weights, y * silu(z) when the heads
-    split, the output."""
+def _mlp_part(cfg: ModelConfig, split, prefix: str, bt: int,
+              e: int) -> tuple:
+    """(body, output) of a dense MLP (``layers.mlp_apply``): h's gather,
+    then the output's."""
+    body = [_gather(e * bt * cfg.d_ff)] if split(f"{prefix}/mlp/w_up") \
+        else []
+    return body, [_gather(e * bt * cfg.d_model)] \
+        if split(f"{prefix}/mlp/w_down") else []
+
+
+def _moe_part(cfg: ModelConfig, dim, n_data: int, bt: int, e: int) -> tuple:
+    """(body, output) of an MoE layer (``models.moe.moe_apply``): the
+    router's logits made whole ((N, E) float32: its expert columns
+    gathered, or its rows of d summed), the data group's slot counts (an
+    all-gather of (D, E) int64) and probability sums ((E,) float32), then
+    the experts: split over ``model``, the (N, d) float32 combine summed
+    (the output); or their d_ff columns split, h and each expert's output
+    gathered ((E, C, ...) at the whole batch's capacity C)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    C = int(max(1, round(bt * n_data * cfg.top_k * 1.25 / E)))
+    body = []
+    router = dim("layers/moe/router")
+    if router == 2:
+        body.append(_gather(4 * bt * E))
+    elif router == 1:
+        body.append(_reduce(4 * bt * E))
+    if n_data > 1:
+        body += [("all-gather", 8 * n_data * E, None), _reduce(4 * E)]
+    if dim("layers/moe/w_up") == 1:           # E/n whole experts a rank
+        return body, [_reduce(4 * bt * d)]
+    if dim("layers/moe/w_up") is not None:
+        body.append(_gather(e * E * C * f))
+    if dim("layers/moe/w_down") is not None:
+        body.append(_gather(e * E * C * d))
+    return body, []
+
+
+def _mamba_part(cfg: ModelConfig, split, n: int, bt: int, e: int) -> tuple:
+    """(body, output) of a Mamba2 block (``models.mamba2.mamba2_apply``):
+    the projections' outputs and the conv weights, y * silu(z) when the
+    heads split, the output."""
     di, ns, h, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
     if cfg.ssm_split_proj:
         proj = (("in_z", di), ("in_x", di), ("in_B", ns), ("in_C", ns),
@@ -165,54 +214,81 @@ def _mamba_gathers(cfg: ModelConfig, split, n: int, bt: int) -> list:
     else:
         proj = (("in_proj", 2 * di + 2 * ns + h),)
         conv = (("conv_w", di + 2 * ns),)
-    out = [bt * c for w, c in proj if split(f"layers/mamba/{w}")]
-    out += [k * c for w, c in conv if split(f"layers/mamba/{w}")]
+    out = [_gather(e * bt * c) for w, c in proj if split(f"layers/mamba/{w}")]
+    out += [_gather(e * k * c) for w, c in conv
+            if split(f"layers/mamba/{w}")]
     if tpm.heads_split(n, h):
-        out.append(bt * di)
-    return out, [bt * cfg.d_model] if split("layers/mamba/out_proj") else []
+        out.append(_gather(e * bt * di))
+    return out, [_gather(e * bt * cfg.d_model)] \
+        if split("layers/mamba/out_proj") else []
 
 
 def tp_collectives(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int, *,
-                   remat: bool = True) -> dict:
-    """One tensor-parallel train step's collectives over ``model`` on one
-    device, by kind: count and whole-tensor bytes (an all-gather's result,
-    a reduce-scatter's input, an all-reduce's operand), as
-    ``dist.tensor_parallel.COUNTS`` records them, for ``rows`` sequences of
-    ``seq`` tokens on the device.  Every all-gather's backward is a
-    reduce-scatter of its size; with ``remat`` the blocks' forward gathers
-    run again in the backward, but for a block's last, its output's: the
+                   remat: bool = True, n_data: int | None = None) -> dict:
+    """One sharded train step's collectives on one device, by kind: count
+    and whole-tensor bytes (an all-gather's result, a reduce-scatter's
+    input, an all-reduce's operand), as ``dist.tensor_parallel.COUNTS``
+    records them, for ``rows`` sequences of ``seq`` tokens on the device
+    and a data group of ``n_data`` ranks (default: the mesh's axes other
+    than ``model``; a batch without a ``mask``).  Over ``model``: every
+    all-gather's backward is a reduce-scatter of its size, every
+    ``reduce``'s an all-reduce; with ``remat`` a block's forward
+    collectives run again in the backward, but for its output's: the
     recomputation stops at the last tensor the backward saved
     (``torch.utils.checkpoint``'s early stop).  The loss makes three
     all-reduces of (rows, seq - 1) float32 (the row max, the sum of
     exponentials, the target's logit); the step one of the whole leaves'
-    float32 gradients and one of the norm's square sum."""
+    float32 gradients and one of the norm's square sum.  Over the data
+    group, each MoE layer's slot counts and probability sums (the step's
+    all-reduce of the gradients over it is priced apart, by
+    ``run_pair``)."""
     n = tpm.model_size(mesh)
+    if n_data is None:
+        n_data = math.prod(v for a, v in mesh.shape.items() if a != "model")
     specs = dict(shd.leaves_with_paths(p_specs))
-    split = lambda path: tpm.model_dim(specs[path]) is not None  # noqa
+    dim = lambda path: tpm.model_dim(specs[path]) if n > 1 else None  # noqa
+    split = lambda path: dim(path) is not None  # noqa: E731
     bt = rows * seq
     e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
-    embed = [bt * cfg.d_model] if not cfg.inputs_embeds \
+    embed = [_gather(e * bt * cfg.d_model)] if not cfg.inputs_embeds \
         and split("embed/table") else []
+
+    def attn_block(prefix, kv_rows=0):
+        body, out = _mlp_part(cfg, split, prefix, bt, e)
+        return _attn_part(cfg, split, prefix, n, bt, e, kv_rows) + body, out
+
     runs = []                           # (body, output) per block run
     if cfg.arch_type in ("dense", "audio"):
-        runs = [_attn_gathers(cfg, split, "layers", n, bt)] * cfg.n_layers
+        runs = [attn_block("layers")] * cfg.n_layers
+    elif cfg.arch_type == "moe":
+        body, out = _moe_part(cfg, dim, n_data, bt, e)
+        runs = [(_attn_part(cfg, split, "layers", n, bt, e) + body, out)] \
+            * cfg.n_layers
     elif cfg.arch_type in ("ssm", "hybrid"):
-        runs = [_mamba_gathers(cfg, split, n, bt)] * cfg.n_layers
+        runs = [_mamba_part(cfg, split, n, bt, e)] * cfg.n_layers
         if cfg.arch_type == "hybrid":
-            runs += [_attn_gathers(cfg, split, "shared_attn", n, bt)] \
+            runs += [attn_block("shared_attn")] \
                 * (cfg.n_layers // cfg.shared_attn_every)
-    blocks = [x for body, out in runs for x in body + out]
+    elif cfg.arch_type == "vlm":        # groups of ce - 1 self, 1 cross
+        groups = cfg.n_layers // cfg.cross_attn_every
+        runs = [attn_block("layers")] * (groups * (cfg.cross_attn_every - 1)
+                                         ) + [attn_block(
+                                             "cross_layers",
+                                             rows * cfg.n_image_tokens)] \
+            * groups
+    forward = embed + [x for body, out in runs for x in body + out]
     again = [x for body, _ in runs for x in body] if remat else []
-    gathers = embed + blocks + again
+    backward = [(bwd, nbytes, None) for _, nbytes, bwd in forward if bwd]
     whole = sum(t.numel() for path, t in shd.leaves_with_paths(
         S.param_spec_tree(cfg)) if not split(path))
-    reduces = [rows * (seq - 1) * 4] * 3 + [4 * whole, 4]
-    return {"all-gather": dict(count=len(gathers),
-                               result_bytes=e * sum(gathers)),
-            "reduce-scatter": dict(count=len(embed + blocks),
-                                   result_bytes=e * sum(embed + blocks)),
-            "all-reduce": dict(count=len(reduces),
-                               result_bytes=sum(reduces))}
+    step = [("all-reduce", b, None) for b in
+            [rows * (seq - 1) * 4] * 3 + [4 * whole, 4]] if n > 1 else []
+    out = {}
+    for kind in ("all-gather", "reduce-scatter", "all-reduce"):
+        got = [b for k, b, _ in forward + again + backward + step
+               if k == kind]
+        out[kind] = dict(count=len(got), result_bytes=sum(got))
+    return out
 
 
 def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
@@ -255,16 +331,13 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
                 count=1, group=n, axes=list(axes), result_bytes=p_dev,
                 wire_bytes=tpm.wire_bytes("all-reduce", p_dev, n))
         n_model = mesh.shape["model"]
-        if cfg.arch_type in ("moe", "vlm"):
-            not_computed.append("model_collectives")
-        else:
-            collectives["model"] = {
-                kind: dict(rec, group=n_model, axes=["model"],
-                           wire_bytes=tpm.wire_bytes(
-                               kind, rec["result_bytes"], n_model))
-                for kind, rec in tp_collectives(
-                    cfg, mesh, p_specs, shape.global_batch // n,
-                    shape.seq_len).items()}
+        collectives["model"] = {
+            kind: dict(rec, group=n_model, axes=["model"],
+                       wire_bytes=tpm.wire_bytes(
+                           kind, rec["result_bytes"], n_model))
+            for kind, rec in tp_collectives(
+                cfg, mesh, p_specs, shape.global_batch // n,
+                shape.seq_len, n_data=n).items()}
     total = flops["forward"] + flops.get("backward", 0)
     rec = dict(
         arch=arch, shape=shape_name,

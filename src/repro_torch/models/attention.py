@@ -12,7 +12,8 @@ version; on CUDA tensors it launches the kernel or raises.
 
 Cross-attention and one-token decode (full cache or a ring buffer of
 ``window`` slots) stay plain PyTorch: the reference computes them in jnp
-outside any Pallas kernel.  The decode caches are updated in place.
+outside any Pallas kernel.  Cross-attention takes ``tp`` as
+self-attention does.  The decode caches are updated in place.
 
 Under tensor parallelism (``tp``, ``dist.tensor_parallel``) wq, wk and wv
 hold the rank's columns and wo its columns of d.  When the rank's columns
@@ -137,12 +138,18 @@ def self_attention(p, x, cfg: ModelConfig, *, positions=None,
     return _finish(p, o.transpose(1, 2), cfg, x.dtype, tp)
 
 
-def cross_attention(p, x, kv_embeds, cfg: ModelConfig):
-    """x (B,T,d) attends to kv_embeds (B,S,d): no mask, no rope on kv."""
+def cross_attention(p, x, kv_embeds, cfg: ModelConfig, tp=SINGLE):
+    """x (B,T,d) attends to kv_embeds (B,S,d): no mask, no rope on kv.
+    Under ``tp`` as ``self_attention``: the rank's query and KV heads when
+    they divide (the image tokens' K and V from the rank's columns of wk,
+    wv), else every head from gathered projections; the plain
+    ``_attend`` either way."""
     g = cfg.n_kv_heads or cfg.n_heads
-    q = _project_q(p, x, cfg)
-    k, v = _project_kv(p, kv_embeds, cfg)
-    return _finish(p, _attend(_grouped(q, g), k, v, None), cfg, x.dtype)
+    split = tp.splits(cfg.n_heads, g)
+    q = _project_q(p, x, cfg, tp, split)
+    k, v = _project_kv(p, kv_embeds, cfg, tp, split)
+    o = _attend(_grouped(q, k.shape[2]), k, v, None)
+    return _finish(p, o, cfg, x.dtype, tp)
 
 
 # ------------------------------------------------------------------ decode --

@@ -27,9 +27,12 @@ no scan to unroll, and one kernel call covers every T.
 
 ``forward(..., tp=)`` runs under tensor parallelism over a mesh's
 ``model`` axis (``dist.tensor_parallel``): the parameters are the rank's
-shards, the blocks take ``tp``, the embedding's columns are gathered and
-the logits are the rank's slice of the vocabulary.  The ``moe`` and
-``vlm`` blocks have no such form yet.
+shards, the blocks take ``tp`` (the MoE layer's experts split or their
+d_ff columns, ``models.moe``; the vlm's cross-attention on the rank's
+heads), the embedding's columns are gathered and the logits are the
+rank's slice of the vocabulary.  ``dp=`` is the data group of the
+sharded train step: the MoE routing's statistics are the whole batch's
+over it.
 
 Inputs (per arch family):
   dense/moe/ssm/hybrid: batch["tokens"]       (B, T) int
@@ -137,20 +140,21 @@ def param_specs(cfg: ModelConfig):
 
 
 def _attn_block_apply(p, x, cfg: ModelConfig, *, window, q_chunk=2048,
-                      tp=SINGLE):
+                      tp=SINGLE, dp=SINGLE):
     h = x + attn.self_attention(p["attn"], rmsnorm(p["ln1"], x), cfg,
                                 window=window, q_chunk=q_chunk, tp=tp)
     z = rmsnorm(p["ln2"], h)
     if cfg.is_moe and "moe" in p:
-        y, aux = moe.moe_apply(p["moe"], z, cfg)
+        y, aux = moe.moe_apply(p["moe"], z, cfg, tp=tp, dp=dp)
     else:
         y, aux = mlp_apply(p["mlp"], z, cfg.mlp, tp), 0.0
     return h + y, aux
 
 
-def _cross_block_apply(p, x, kv, cfg: ModelConfig):
-    h = x + attn.cross_attention(p["attn"], rmsnorm(p["ln1"], x), kv, cfg)
-    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h), cfg.mlp)
+def _cross_block_apply(p, x, kv, cfg: ModelConfig, tp=SINGLE):
+    h = x + attn.cross_attention(p["attn"], rmsnorm(p["ln1"], x), kv, cfg,
+                                 tp)
+    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h), cfg.mlp, tp)
 
 
 def _mamba_block_apply(p, x, cfg: ModelConfig, tp=SINGLE):
@@ -185,16 +189,13 @@ def _run(block, remat: bool):
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
             q_chunk: int = 2048, last_only: bool = False,
-            unroll: bool = False, tp=SINGLE):
+            unroll: bool = False, tp=SINGLE, dp=SINGLE):
     """Returns (logits, aux dict), logits in ``cfg.logits_dtype``.
     ``last_only`` emits logits for the final position only — the prefill
     contract (next-token after the prompt) that avoids materializing
     (B, T, vocab).  Under ``tp`` (a ``TensorParallel`` of more than one
-    rank) the logits are the rank's slice of the padded vocabulary."""
-    if tp.n > 1 and cfg.arch_type in ("moe", "vlm"):
-        raise NotImplementedError(
-            f"tensor parallelism of the {cfg.arch_type} blocks (expert "
-            f"parallelism, cross-attention) is a later slice of the port")
+    rank) the logits are the rank's slice of the padded vocabulary;
+    ``dp`` is the data group the batch's rows are split over."""
     if cfg.inputs_embeds:
         x = batch["embeds"]
     else:
@@ -209,14 +210,15 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
 
     def attn_block(p, x):
         return _run(lambda: _attn_block_apply(p, x, cfg, window=window,
-                                              q_chunk=q_chunk, tp=tp), remat)
+                                              q_chunk=q_chunk, tp=tp, dp=dp),
+                    remat)
 
     def mamba_block(p, x):
         return _run(lambda: _mamba_block_apply(p, x, cfg, tp), remat)
 
     def cross_block(p, x):
         return _run(lambda: _cross_block_apply(p, x, batch["image_embeds"],
-                                               cfg), remat)
+                                               cfg, tp), remat)
 
     if cfg.arch_type in ("dense", "moe", "audio"):
         for i in range(cfg.n_layers):

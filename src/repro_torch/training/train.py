@@ -32,12 +32,18 @@ class TrainState(NamedTuple):
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-            q_chunk: int = 2048, unroll: bool = False, tp=SINGLE):
+            q_chunk: int = 2048, unroll: bool = False, tp=SINGLE,
+            dp=SINGLE):
     """Next-token cross entropy (+ MoE router aux loss): (total, {"loss",
     "aux_loss"}).  Under ``tp`` the logits are the rank's slice of the
-    vocabulary and the cross entropy is ``_vocab_parallel_nll``'s."""
+    vocabulary and the cross entropy is ``_vocab_parallel_nll``'s.  Under
+    ``dp`` (the data group the batch's rows are split over) the loss is
+    this rank's part of the whole batch's, so that the mean over the group
+    is the whole batch's loss: its mean over its rows, or with a ``mask``
+    the group's size times its masked sum over the whole batch's mask
+    sum; the aux loss is the whole batch's on every rank."""
     logits, aux = M.forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
-                            unroll=unroll, tp=tp)
+                            unroll=unroll, tp=tp, dp=dp)
     tgt = batch["targets"][:, 1:].long()[..., None]
     if tp.n > 1:
         nll = _vocab_parallel_nll(logits[:, :-1], tgt[..., 0], cfg, tp)
@@ -57,7 +63,8 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:]
-        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        loss = dp.n * (nll * mask).sum() / torch.clamp_min(
+            dp.sum(mask.sum()), 1.0)
     else:
         loss = nll.mean()
     total = loss + cfg.router_aux_weight * aux["aux_loss"]
@@ -145,26 +152,24 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
     vocabulary-split cross entropy).  The whole leaves' partial gradients
     are summed over the model group with one all-reduce; then, as before,
     the gradients and the loss metrics are averaged over the data group
-    with one all-reduce (a sum divided by its size; each rank's rows count
-    equally, which is the whole batch's mean loss when no ``mask`` is
-    given).  The clip's norm sums the split leaves' squares over the model
-    group (``optimizer.global_norm``), and each rank updates its shards.
-    The result equals the one-process step's within float32 summation
-    noise.  On a mesh whose model axis is 1 the step is the data-parallel
-    one it was.  ``moe`` and ``vlm`` configs raise ``NotImplementedError``
-    on a model axis above 1.  Every rank must build the step, in the same
-    order: it makes the groups (``torch.distributed.new_group``).
+    with one all-reduce (a sum divided by its size).  The loss is the whole
+    batch's (``lm_loss(dp=)``: a ``mask``'s sum is taken over the data
+    group), and so is the MoE routing (``models.moe``: capacity, slot
+    ranks and aux loss over the data group).  The clip's norm sums the
+    split leaves' squares over the model group (``optimizer.global_norm``),
+    and each rank updates its shards.  The result equals the one-process
+    step's within float32 summation noise, for every arch: the MoE
+    layer's experts split over ``model`` (or their d_ff columns), the
+    vlm's cross-attention on each rank's heads.  Every rank must build
+    the step, in the same order: it makes the groups
+    (``torch.distributed.new_group``).
     ``step_fn.loss_and_grads(params, batch)`` is the step's
-    (total, metrics, grads) before the update.
+    (total, metrics, grads) before the update, ``step_fn.grad_norm(grads)``
+    their norm (the clip's).
     """
     import torch.distributed as dist
 
     n_model = tpm.model_size(mesh)
-    if n_model > 1 and cfg.arch_type in ("moe", "vlm"):
-        raise NotImplementedError(
-            f"tensor parallelism over model ({n_model}) for a "
-            f"{cfg.arch_type} config (expert parallelism, the vlm's "
-            f"cross-attention) is a later slice of the port")
     if not dist.is_initialized() or dist.get_world_size() != mesh.size:
         raise RuntimeError(f"the sharded step needs a process group of "
                            f"{mesh.size} ranks for mesh {mesh.dims}")
@@ -177,6 +182,8 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
     group, n_shards, shard = None, 1, 0
     if axes:
         group, n_shards, shard = tpm.axis_group(mesh, axes, rank)
+    dp = SINGLE if group is None else tpm.TensorParallel(group, n_shards,
+                                                         shard)
     tp = SINGLE
     if n_model > 1:
         tp = tpm.TensorParallel(*tpm.axis_group(mesh, ("model",), rank))
@@ -194,7 +201,8 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
 
     def grads_fn(params, batch):
         total, metrics, grads = loss_and_grads(
-            params, local(batch), cfg, remat=remat, q_chunk=q_chunk, tp=tp)
+            params, local(batch), cfg, remat=remat, q_chunk=q_chunk, tp=tp,
+            dp=dp)
         leaves = opt.tree_leaves(grads)
         if tp.n > 1:        # the whole leaves' partial gradients
             whole = [g for g, f in zip(leaves, opt.tree_leaves(sharded))
@@ -218,17 +226,21 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
             metrics = {"loss": loss, "aux_loss": aux}
         return total, metrics, grads
 
+    def grad_norm(grads):
+        return opt.global_norm(grads, sharded, tp) if tp.n > 1 \
+            else opt.global_norm(grads)
+
     def sharded_step(state: TrainState, batch):
         total, metrics, grads = grads_fn(state.params, batch)
         with torch.no_grad():
-            gnorm = opt.global_norm(grads, sharded, tp) if tp.n > 1 \
-                else None
             params, opt_state, om = opt.apply(ocfg, state.params, grads,
-                                              state.opt, gnorm=gnorm)
+                                              state.opt,
+                                              gnorm=grad_norm(grads))
         return TrainState(params, opt_state), dict(metrics, total=total,
                                                    **om)
 
     sharded_step.loss_and_grads = grads_fn
+    sharded_step.grad_norm = grad_norm
     return sharded_step, state_sh, d_sh
 
 

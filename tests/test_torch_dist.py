@@ -14,9 +14,10 @@ One pool of 4 gloo worker processes serves the whole module.
      ``tests/test_overlap.py``); ``_p2p_routes`` equal to the reference's;
   4. the telemetry lane, slot for slot against the grid's
      ``run_epochs_telemetry`` buffers;
-  5. the seams (state, restore, config, metrics into obs gauges) and the
-     pool's failure path (a worker's error kills the pool, no process
-     outlives it).
+  5. the seams (state, restore, config, metrics into obs gauges), a
+     restored state outside its box (its first epoch through the
+     backend's ``clamp_step``) and the pool's failure path (a worker's
+     error kills the pool, no process outlives it).
 """
 
 import json
@@ -224,6 +225,60 @@ def test_seams(mesh, tmp_path):
     assert [h["epoch"] for h in hist] == [2, 4]
     for h, r in zip(hist, ref.history):
         assert h["primal"] == pytest.approx(r["primal"], rel=1e-5)
+
+
+class _OneWorker:
+    """The group of a ring of one worker (no moves)."""
+    device, rank, size = torch.device("cpu"), 0, 1
+
+    def sync(self):
+        pass
+
+
+@pytest.mark.parametrize("w_scale", [2.0, 0.5], ids=["outside", "inside"])
+def test_restore_outside_the_box_clamps_the_first_epoch(mesh, monkeypatch,
+                                                        w_scale):
+    """``ShardedDSO.restore`` of a state whose w lies at twice its box's
+    upper edge posts its next run with the first epoch through the
+    backend's ``clamp_step`` (one reduction, in the controller), and no
+    run after it; a state inside its box never does.  A worker's run
+    (``_Shard.run``, here with recording steps) takes ``clamp_step`` for
+    that epoch's inner iterations and ``block_step`` after, as
+    ``solve(init=)`` does; and the ring from the restored state equals
+    ``solve(init=)`` from it within 1e-5."""
+    from repro_torch.engine.backends import TileBackend
+    from repro_torch.runtime.snapshot import DSOSnapshot
+    prob = _prob("sparse_jnp", seed=2)
+    opt = tdist.ShardedDSO(prob, mesh, impl="sparse_jnp", seed=0)
+    st = opt.solver_state()
+    st = st._replace(w_grid=torch.full_like(st.w_grid, w_scale * opt.w_hi))
+    posted = []
+    post = mesh.pool.post
+
+    def record(op, args, done=None):
+        if op == "run":
+            posted.append(args[0][-1])
+        return post(op, args, done)
+    monkeypatch.setattr(mesh.pool, "post", record)
+    opt.restore(st)
+    opt.run_epochs(2, 0.5)
+    opt.run_epochs(1, 0.5)
+    assert posted == [w_scale > 1, False]
+    ref = te.solve(prob, backend="sparse_jnp", p=4, epochs=3, eta0=0.5,
+                   init=DSOSnapshot(st, torch.Generator().manual_seed(0),
+                                    0, (), {}), device="cpu")
+    torch.testing.assert_close(opt.w_full(), ref.w, **TOL)
+
+    calls = []
+    shard = tdist._Shard(_OneWorker(), "sparse_jnp", (), 1, [None],
+                         *(torch.zeros(n) for n in (3, 3, 2, 2)))
+    shard.be = TileBackend("recording", "sparse",
+                           lambda *a: calls.append("block_step"),
+                           clamp_step=lambda *a: calls.append("clamp_step"))
+    shard.run([0.5, 0.4, 0.3], None, "ring_overlap", False,
+              clamp=w_scale > 1)
+    first = "clamp_step" if w_scale > 1 else "block_step"
+    assert calls == [first, "block_step", "block_step"]
 
 
 def test_grid_source_retiles_to_the_mesh(mesh):

@@ -25,10 +25,12 @@ from them equals the next step from the live shards.
 Without processes: the dry run's all-gathers, reduce-scatters and the
 loss's all-reduces equal what the model's forward and backward make at
 full width (meta tensors, a group that only counts) for every arch the
-step splits; shard shapes against the fitted specs for every leaf
-of the ten full configs' ``meta`` trees on (1, 4), (2, 2) and (16, 16);
-shards concatenated back to the whole state bit for bit; ``moe`` and
-``vlm`` refuse a model axis above 1; the axis must divide 16.
+step splits (every arch: the MoE layers' router, combine and expert
+gathers, the vlm's cross layers too); shard shapes against the fitted
+specs for every leaf of the ten full configs' ``meta`` trees on (1, 4),
+(2, 2) and (16, 16); shards concatenated back to the whole state bit for
+bit; the axis must divide 16.  ``tests/test_torch_ep.py`` holds the
+``moe`` and ``vlm`` steps.
 """
 
 import ast
@@ -242,8 +244,7 @@ def _shape_ssd(x, dt, A, B, C, **kw):
     return x + 0 * (dt.sum() + A.sum() + B.sum() + C.sum()).to(x.dtype)
 
 
-TP_ARCHS = [a for a in treg.ARCH_IDS
-            if treg.get_config(a).arch_type not in ("moe", "vlm")]
+TP_ARCHS = list(treg.ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", TP_ARCHS)
@@ -252,15 +253,18 @@ def test_dry_run_prices_the_models_collectives(monkeypatch, arch):
     ``loss_and_grads`` makes under tensor parallelism, at the full
     config's widths (depth cut; meta tensors; the kernels replaced by
     shape-only stand-ins): all-gathers and reduce-scatters, count and
-    bytes, and the loss's three all-reduces, on (1, 4) and (1, 16),
-    ``remat`` on and off.  The step's two further all-reduces (the whole
-    leaves' gradients, the norm) are held by
+    bytes, and the all-reduces (the loss's three, and the MoE layers'
+    router sums and combines), on (1, 4) and (1, 16), ``remat`` on and
+    off, and on (2, 4) with a data group that counts too (the MoE
+    routing's sums over it).  The step's two further all-reduces (the
+    whole leaves' gradients, the norm) are held by
     ``test_tp_step_matches_one_process``."""
     monkeypatch.setattr(attention, "swa_attention", _shape_swa)
     monkeypatch.setattr(mamba2, "ssd_scan", _shape_ssd)
     cfg = treg.get_config(arch)
-    cfg = dataclasses.replace(cfg, n_layers=2 * (
-        cfg.shared_attn_every if cfg.arch_type == "hybrid" else 1))
+    cfg = dataclasses.replace(cfg, n_layers={
+        "hybrid": 2 * cfg.shared_attn_every,
+        "vlm": cfg.cross_attn_every}.get(cfg.arch_type, 2))
     rows, seq = 1, 256
     tokens = torch.zeros((rows, seq), dtype=torch.int64, device="meta")
     batch = {"tokens": tokens, "targets": tokens}
@@ -268,20 +272,33 @@ def test_dry_run_prices_the_models_collectives(monkeypatch, arch):
         batch["embeds"] = torch.zeros((rows, seq, cfg.d_model),
                                       dtype=torch_dtype(cfg.dtype),
                                       device="meta")
-    for dims, remat in (((1, 4), True), ((1, 16), True), ((1, 4), False)):
+    if cfg.arch_type == "vlm":
+        batch["image_embeds"] = torch.zeros(
+            (rows, cfg.n_image_tokens, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device="meta")
+    for dims, remat in (((1, 4), True), ((1, 16), True), ((1, 4), False),
+                        ((2, 4), True)):
         mesh = make_host_mesh(*dims)
         params = tpm.shard_tree(M.param_specs(cfg), mesh, 0)
         tpm.reset_counts()
         T.loss_and_grads(params, batch, cfg, remat=remat,
-                         tp=_ShapeTP(None, dims[1], 0))
+                         tp=_ShapeTP(None, dims[1], 0),
+                         dp=_ShapeTP(None, dims[0], 0))
         got = {k: dict(count=v["calls"], result_bytes=v["bytes"])
                for k, v in tpm.counts().items()}
-        want = dryrun.tp_collectives(
-            cfg, mesh, shd.param_shardings(mesh, M.param_specs(cfg)), rows,
-            seq, remat=remat)
+        p_specs = shd.param_shardings(mesh, M.param_specs(cfg))
+        want = dryrun.tp_collectives(cfg, mesh, p_specs, rows, seq,
+                                     remat=remat)
         ar, got_ar = want.pop("all-reduce"), got.pop("all-reduce")
-        assert got_ar == dict(count=3, result_bytes=3 * rows * (seq - 1) * 4)
-        assert ar["count"] == got_ar["count"] + 2, ar
+        loss = 3 * rows * (seq - 1) * 4
+        if cfg.arch_type != "moe":
+            assert got_ar == dict(count=3, result_bytes=loss)
+        whole = sum(t.numel() for p, t in shd.leaves_with_paths(
+            M.param_specs(cfg)) if tpm.model_dim(dict(
+                shd.leaves_with_paths(p_specs))[p]) is None)
+        assert ar == dict(count=got_ar["count"] + 2,
+                          result_bytes=got_ar["result_bytes"] + 4 * whole
+                          + 4), (ar, got_ar)
         assert got == want, (dims, remat, got, want)
 
 
@@ -325,22 +342,6 @@ def test_shards_concatenate_to_the_state(arch):
         assert torch.equal(whole, t), path
         if i is not None:
             assert all(p.is_contiguous() for p in pieces)
-
-
-@pytest.mark.parametrize("arch", ["dbrx-132b", "llama-3.2-vision-11b"])
-def test_moe_and_vlm_refuse_the_model_axis(arch):
-    cfg = treg.get_smoke_config(arch)
-    meta = torch.empty((2, 8), dtype=torch.int64, device="meta")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.make_sharded_train_step(cfg, opt.AdamWConfig(), make_host_mesh(
-            1, 4), {"tokens": meta, "targets": meta})
-    params = M.init_params(0, cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
-    if cfg.arch_type == "vlm":
-        batch["image_embeds"] = torch.zeros((1, cfg.n_image_tokens,
-                                             cfg.d_model))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        M.forward(params, batch, cfg, tp=tpm.TensorParallel(None, 2, 0))
 
 
 def test_model_axis_must_divide_16():

@@ -366,3 +366,118 @@ def test_bf16_checkpoint_members_byte_identical_to_reference(tmp_path):
     for a, b in zip(_state_leaves(tstate),
                     _state_leaves(restored)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+MASKED_MESHES = ((4, 1), (2, 2))
+
+MASKED = """
+import os, pickle, sys, tempfile
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+def worker(rank, init, path, out):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=4,
+                            rank=rank)
+    with open(path, "rb") as f:
+        rec = pickle.load(f)
+    cfg = get_smoke_config("granite-3-8b")
+    params = params_from_reference(rec["params"], cfg, device="cpu")
+    data = {k: torch.from_numpy(v) for k, v in rec["batch"].items()}
+    for k in ("tokens", "targets"):
+        data[k] = data[k].long()
+    _, met, grads = T.loss_and_grads(params, data, cfg, remat=False)
+    res = {}
+    for dims in %(meshes)r:
+        mesh = make_host_mesh(*dims)
+        meta = {k: torch.empty(v.shape, device="meta")
+                for k, v in data.items()}
+        fn, ssh, _ = T.make_sharded_train_step(cfg, opt.AdamWConfig(), mesh,
+                                               meta, remat=False)
+        _, met_dp, g_dp = fn.loss_and_grads(
+            tpm.shard_tree(params, mesh, rank), data)
+        whole = tpm.gather_tree(g_dp, mesh, ssh.params)
+        worst = max(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(opt.tree_leaves(whole),
+                                    opt.tree_leaves(grads)))
+        res[dims] = (float(met_dp["loss"]), float(met["loss"]), worst)
+    dist.destroy_process_group()
+    if rank == 0:
+        out.put(res)
+
+if __name__ == "__main__":
+    ctx = mp.get_context("spawn")
+    q = ctx.SimpleQueue()
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "store")
+        procs = [ctx.Process(target=worker, args=(r, init, sys.argv[1], q))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        assert [p.exitcode for p in procs] == [0, 0, 0, 0]
+        print("MASKED", repr(q.get()))
+""" % dict(meshes=MASKED_MESHES)
+
+
+@pytest.fixture(scope="module")
+def masked_runs(tmp_path_factory):
+    """The reference's one-process masked loss on granite-3-8b's smoke
+    config, and the port's data-parallel step on each of
+    ``MASKED_MESHES`` (one spawn of 4 gloo processes), from the same
+    parameters and a batch whose mask keeps 32, 9, 20 and 5 tokens of its
+    four rows."""
+    import ast
+    import pickle
+    import subprocess
+    import sys
+    jcfg = jreg.get_smoke_config("granite-3-8b")
+    params = jtrain.init_state(KEY, jcfg).params
+    rng = np.random.default_rng(7)
+    b, t = 4, 32
+    batch = {k: rng.integers(0, jcfg.vocab, (b, t)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    batch["mask"] = (np.arange(t)[None, :] < np.array([32, 9, 20, 5])[
+        :, None]).astype(np.float32)
+    _, metrics = jtrain.lm_loss(params, batch, jcfg, remat=False)
+    d = tmp_path_factory.mktemp("masked")
+    path = d / "run.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(dict(params=jax.tree.map(np.asarray, params),
+                         batch=batch), f)
+    (d / "masked.py").write_text(MASKED)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    out = subprocess.run([sys.executable, str(d / "masked.py"), str(path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [x for x in out.stdout.splitlines() if x.startswith("MASKED")]
+    assert line, out.stdout[-2000:]
+    return float(metrics["loss"]), ast.literal_eval(line[0][len("MASKED "):])
+
+
+@pytest.mark.parametrize("dims", MASKED_MESHES, ids=["4x1", "2x2"])
+def test_masked_loss_is_the_whole_batchs_over_the_data_group(masked_runs,
+                                                            dims):
+    """The data-parallel step's loss with a ``mask`` whose sums differ
+    between the data ranks is the whole batch's masked mean, sum(nll
+    mask) / sum(mask), not the mean of the ranks' means: within 1e-5 of
+    the reference's one-process loss and of the port's, and every
+    gradient leaf, gathered, within 1e-5 max|g| of the one-process
+    step's."""
+    ref_loss, runs = masked_runs
+    loss_dp, loss_one, worst = runs[dims]
+    assert abs(loss_dp - ref_loss) <= 1e-5 * abs(ref_loss), (loss_dp,
+                                                             ref_loss)
+    assert abs(loss_dp - loss_one) <= 1e-5 * abs(loss_one)
+    assert worst <= 1e-5, worst
