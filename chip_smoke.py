@@ -380,6 +380,27 @@ Phases, one line per result:
    every rank the SWA forward and backward kernels launched, no plain
    version called on the card and the collectives counted equal to
    ``launch.dryrun.tp_collectives``.  The launches add to the LM rows.
+9s. serving under 9t's layout, 4 ranks on the one card as 9t's:
+   zamba2-7b's first group at full width on (1, 4), float32 and bf16
+   (one-process runs first).  (s1) ``make_sharded_prefill`` at B 1 x T
+   4,096 (the SWA and SSD kernels on each rank's heads): the last
+   position's logits, float32 and bf16, within 1e-5 relative L2 of the
+   one-process ``forward(last_only=True)`` made in the ranks' blocks
+   (``rank_blocked``: the same products and kernel calls, so the same
+   cuBLAS kernels), printed beside the plain one-process forward's
+   distance, that run's own spread (input noise, the row twice, the
+   plain versions) and, in float32, both runs' distances to a float64
+   forward.  (s2) ``DecodeEngine(mesh=)`` at phase 7m's requests: every
+   rank the same tokens and cache bits, float32's greedy tokens the
+   one-process engine's.  (s3) on every rank the SWA and SSD forward
+   kernels launched in the prefill, no plain version called on the
+   card, and the prefill's and a decode step's collectives equal
+   ``launch.dryrun.serve_collectives``; ms per decode step and the
+   collectives' host share printed.  Every gate
+   is printed before the phase fails on any.  phi3.5-moe's layer in float32 on a
+   (2, 2) mesh decodes the requests greedily: tokens and routing equal
+   on every rank and to the one-process engine's.  The prefills'
+   launches add to the LM rows.
 
 Prints the kernel table as one JSON line (the LM backward kernels' rows
 ``swa_attention_bwd``, ``swa_attention_bwd_packed``,
@@ -4039,20 +4060,23 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def engine_run(cfg, params, dev, seed=3):
+def engine_run(cfg, params, dev, seed=3, mesh=None, sampled=True):
     """Four requests through ``DecodeEngine`` (batch 4, seq_len
-    ``ENGINE_SEQ``), two greedy and two at temperature 0.8: (requests,
-    host s, the recorder)."""
+    ``ENGINE_SEQ``; over ``mesh`` when given, ``params`` then this rank's
+    shards), two greedy and two at temperature 0.8 (all greedy without
+    ``sampled``): (requests, host s, the recorder, the engine)."""
     import torch
     from repro_torch.obs import RunRecorder
     from repro_torch.serving.engine import DecodeEngine, Request
     g = torch.Generator().manual_seed(5)
     rec = RunRecorder()
     eng = DecodeEngine(cfg, params, batch=len(ENGINE_PROMPTS),
-                       seq_len=ENGINE_SEQ, seed=seed, obs=rec, device=dev)
+                       seq_len=ENGINE_SEQ, seed=seed, obs=rec, device=dev,
+                       mesh=mesh)
     reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,),
                                          generator=g).tolist(),
-                    max_new=ENGINE_NEW, temperature=0.8 * (i % 2))
+                    max_new=ENGINE_NEW,
+                    temperature=0.8 * (i % 2) if sampled else 0.0)
             for i, n in enumerate(ENGINE_PROMPTS)]
     t = time.perf_counter()
     done = eng.run(reqs)
@@ -5668,6 +5692,451 @@ def phase_ep(dev, smi):
     return total
 
 
+# phase 9s: serving under tensor parallelism over model (the sharded prefill,
+# the sharded serve step and DecodeEngine over a mesh), TP_RANKS ranks on
+# the one card as 9t's: zamba2-7b's first group at full width on (1, 4),
+# phi3.5-moe's one layer (9e's) on SERVE_DP
+SERVE_SEED = 91
+# (s1) last-position logits in either type, relative L2 to the
+# one-process forward with its products and kernels in the ranks' blocks
+# (``rank_blocked``); printed beside the plain one-process forward's
+# distance, that run's own spread and (float32) both runs' distances to
+# a float64 forward
+SERVE_TOL = 1e-5
+SERVE_DP = (2, 2)          # phi3.5's decode: routing over the data group
+# relative input noise of the printed spread: about one rounding
+SERVE_NOISE = {"float32": 2.0 ** -24, "bfloat16": SENS_NOISE}
+SERVE_DTYPES = ("float32", "bfloat16")
+SERVE_LAUNCHES = {"float32": {"swa_attention_tf32x3": 1, "ssd_scan": 6},
+                  "bfloat16": {"swa_attention_tc": 1, "ssd_scan": 6}}
+
+
+@contextlib.contextmanager
+def float64_kept():
+    """Within the ``with``: ``Tensor.float()`` leaves a float64 tensor as
+    it is, so the model's float32 casts keep a float64 forward float64
+    (phase 9s's witness)."""
+    import torch
+    orig = torch.Tensor.float
+
+    def keep(self, *a, **k):
+        return self if self.dtype == torch.float64 else orig(self, *a, **k)
+    torch.Tensor.float = keep
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+@contextlib.contextmanager
+def rank_blocked(params, mesh):
+    """Within the ``with``: a one-process forward of ``params`` makes its
+    products and kernel calls in the blocks that the ranks of ``mesh``'s
+    ``model`` group make them in: each product with a weight whose
+    columns the ranks split (``tensor_parallel.shard_tree``), block by
+    block, each block of the weight a contiguous copy as a rank's shard
+    is; the SWA and SSD kernels head block by head block where the ranks
+    take their heads; the blocks concatenated.  The same sums, in the
+    same order and through the same cuBLAS kernels (chosen by shape), as
+    the sharded prefill's ranks make."""
+    import torch
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.sharding import leaves_with_paths
+    from repro_torch.models import attention, mamba2
+    n = tpm.model_size(mesh)
+    mine = dict(leaves_with_paths(tpm.shard_tree(params, mesh, 0)))
+    split = set()
+    for path, w in leaves_with_paths(params):
+        if w.dim() in (2, 3) and mine[path].shape[:-1] == w.shape[:-1] \
+                and mine[path].shape[-1] != w.shape[-1]:
+            for i in range(w.shape[0] if w.dim() == 3 else 1):
+                v = w[i] if w.dim() == 3 else w
+                split.add((v.data_ptr(), tuple(v.shape)))
+    del mine
+    matmul, swa, ssd = (torch.Tensor.__matmul__, attention.swa_attention,
+                        mamba2.ssd_scan)
+
+    def blocks(t, dim, k):
+        c = t.shape[dim] // k
+        return [t.narrow(dim, r * c, c).contiguous() for r in range(k)]
+
+    def blocked_matmul(a, b):
+        if not (isinstance(b, torch.Tensor) and b.dim() == 2
+                and (b.data_ptr(), tuple(b.shape)) in split):
+            return matmul(a, b)
+        return torch.cat([matmul(a, w) for w in blocks(b, 1, n)], dim=-1)
+
+    def blocked_swa(q, k, v, **kw):
+        if not tpm.heads_split(n, q.shape[1], k.shape[1]):
+            return swa(q, k, v, **kw)
+        return torch.cat([swa(*qkv, **kw) for qkv in zip(
+            blocks(q, 1, n), blocks(k, 1, n), blocks(v, 1, n))], dim=1)
+
+    def blocked_ssd(x, dt, A, B, C, **kw):
+        if not tpm.heads_split(n, x.shape[2]):
+            return ssd(x, dt, A, B, C, **kw)
+        return torch.cat([ssd(xr, dr, ar, B, C, **kw) for xr, dr, ar in zip(
+            blocks(x, 2, n), blocks(dt, 2, n), blocks(A, 0, n))], dim=2)
+    torch.Tensor.__matmul__ = blocked_matmul
+    attention.swa_attention, mamba2.ssd_scan = blocked_swa, blocked_ssd
+    try:
+        yield
+    finally:
+        torch.Tensor.__matmul__ = matmul
+        attention.swa_attention, mamba2.ssd_scan = swa, ssd
+
+
+def cache_digest(state):
+    """sha256 of a decode state's bytes, leaf by leaf in order."""
+    import hashlib
+    import torch
+    from repro_torch.training import optimizer as opt
+    h = hashlib.sha256()
+    for t in opt.tree_leaves(state):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def serve_worker(rank, init, job, out):
+    """One rank of phase 9s (as ``ep_worker``)."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import datetime
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        res = _serve_rank(rank, init, job, dist, datetime, torch)
+    except BaseException as e:           # the parent fails the phase
+        out.put((rank, f"{type(e).__name__}: {e}"))
+        raise
+    out.put((rank, res))
+
+
+def _serve_rank(rank, init, job, dist, datetime, torch):
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import make_sharded_prefill
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.library()                  # built by the parent: loaded
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("gloo", init_method=init, world_size=TP_RANKS,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    res = {}
+
+    def shards(cfg, mesh, seed):
+        whole = M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, device=dev)
+        local = tpm.shard_tree(whole, mesh, rank)
+        del whole
+        if cuda:
+            torch.cuda.empty_cache()
+        return local
+
+    def run(fn):
+        """(fn's result, its launches, plain calls on the card, collectives
+        and their host seconds, the routing recorded, host ms)."""
+        ops.reset_launch_counts()
+        tpm.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        with plain_calls_on_card() as plain, moe.recording() as routes:
+            got = fn()
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return got, dict(launches={k: v for k, v in ops.launch_counts()
+                                   .items() if v},
+                         plain=dict(plain),
+                         collectives={k: dict(count=v["calls"],
+                                              result_bytes=v["bytes"])
+                                      for k, v in tpm.counts().items()},
+                         seconds=sum(v["seconds"] for v in
+                                     tpm.counts().values()),
+                         routes=[(c.tolist(), d) for c, d in routes], ms=ms)
+
+    def engine(cfg, local, mesh, sampled):
+        """(s2): the engine over ``mesh``, then one counted serve step."""
+        (done, secs, _, eng), rec = run(lambda: engine_run(
+            cfg, local, dev, mesh=mesh, sampled=sampled))
+        rec.update(tokens=[r.out for r in done], secs=secs,
+                   digest=cache_digest(eng.state), obs=eng.obs is not None)
+        tok = torch.zeros((len(ENGINE_PROMPTS), 1), dtype=torch.int64,
+                          device=dev)
+        steps = max(ENGINE_PROMPTS) - 1 + ENGINE_NEW
+        _, one = run(lambda: eng.step_fn(eng.params, eng.state, tok, steps))
+        p_sh = shd.param_shardings(mesh, M.param_specs(cfg))
+        rows = len(ENGINE_PROMPTS) // eng.dp.n
+        rec.update(step=one, step_want=dryrun.serve_collectives(
+            cfg, mesh, p_sh, rows, ENGINE_SEQ, decode=True))
+        return rec
+
+    mesh = make_host_mesh(1, TP_RANKS)
+    for dt in SERVE_DTYPES:
+        cfg = model_config("zamba2-7b", dtype=dt, **job["group"])
+        local = shards(cfg, mesh, SERVE_SEED)
+        tokens = markov_batches(cfg, 1, job["t"], 1, SERVE_SEED,
+                                dev)[0]["tokens"]
+        pre, p_sh, _ = make_sharded_prefill(cfg, mesh, {"tokens": tokens})
+        lg, rec = run(lambda: pre(local, {"tokens": tokens}))
+        rec.update(logits=lg.float().cpu().numpy(),
+                   want=dryrun.serve_collectives(
+            cfg, mesh, p_sh, 1, job["t"], decode=False))
+        res[dt] = dict(prefill=rec, engine=engine(cfg, local, mesh, True))
+        del local, pre
+        if cuda:
+            torch.cuda.empty_cache()
+    arch, over = job["phi3.5"]
+    cfg = model_config(arch, dtype="float32", **over)
+    mesh = make_host_mesh(*SERVE_DP)
+    res["phi3.5"] = engine(cfg, shards(cfg, mesh, SERVE_SEED + 1), mesh,
+                           False)
+    dist.destroy_process_group()
+    return res
+
+
+def serve_one_process(dev):
+    """The one-process runs of phase 9s in this process: per dtype the
+    zamba2-7b group's counted prefill ``forward(last_only=True)`` (its
+    logits), the same forward in the ranks' blocks (``rank_blocked``,
+    not counted), the spread (the same prefill with its embedded input
+    perturbed by about one rounding, ``block_gate``'s noise), and the
+    engine's tokens; in float32 the witness: the same forward in float64
+    (every parameter widened, the plain versions, ``float64_kept``);
+    phi3.5's greedy engine and its routing."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.training import optimizer as opt
+    out = {}
+    for dt in SERVE_DTYPES:
+        cfg = model_config("zamba2-7b", dtype=dt, **TP_GROUP)
+        params = M.init_params(torch.Generator(device=dev).manual_seed(
+            SERVE_SEED), cfg, device=dev)
+        tokens = markov_batches(cfg, 1, TP_T, 1, SERVE_SEED,
+                                dev)[0]["tokens"]
+        with torch.no_grad():
+            logits, counts = counted(lambda: M.forward(
+                params, {"tokens": tokens}, cfg, remat=False,
+                last_only=True)[0])
+            check_counts("9s", counts, SERVE_LAUNCHES[dt])
+            x0 = M.embed(params["embed"], tokens)
+            gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+            noise = torch.randn(x0.shape, generator=gen, device=dev)
+            x1 = (x0.float() * (1 + SERVE_NOISE[dt] * noise)).to(x0.dtype)
+            spread = rel_l2(hybrid_walk(params, cfg, x1)[:, -1],
+                            logits[:, -1])
+            # the same function in another order of sums: the row twice
+            # (B 2: other GEMM shapes), and the plain versions
+            twice = rel_l2(M.forward(params, {"tokens": tokens.repeat(
+                2, 1)}, cfg, remat=False, last_only=True)[0][:1, -1],
+                logits[:, -1])
+            with plain_kernels():
+                plain = rel_l2(M.forward(params, {"tokens": tokens}, cfg,
+                                         remat=False,
+                                         last_only=True)[0][:, -1],
+                               logits[:, -1])
+            with rank_blocked(params, make_host_mesh(1, TP_RANKS)):
+                blocked = M.forward(params, {"tokens": tokens}, cfg,
+                                    remat=False, last_only=True)[0]
+            exact = None
+            if dt == "float32":
+                p64 = opt.tree_map(lambda t: t.double()
+                                   if t.is_floating_point() else t, params)
+                cfg64 = model_config("zamba2-7b", dtype="float64",
+                                     logits_dtype="float64", **TP_GROUP)
+                with plain_kernels(), float64_kept():
+                    exact = M.forward(p64, {"tokens": tokens}, cfg64,
+                                      remat=False, last_only=True)[0].cpu()
+                del p64
+        (done, secs, _, _), c = counted(lambda: engine_run(cfg, params,
+                                                           dev))
+        check_counts("9s", c, {})
+        out[dt] = dict(logits=logits.float().cpu(), counts=counts,
+                       blocked=blocked.float().cpu(), exact=exact,
+                       spread=spread, twice=twice, plain=plain,
+                       tokens=[r.out for r in done], secs=secs)
+        del params
+        torch.cuda.empty_cache()
+    arch, over = EP_MODELS["phi3.5"]
+    cfg = model_config(arch, dtype="float32", **over)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(
+        SERVE_SEED + 1), cfg, device=dev)
+    with moe.recording() as routes:
+        done, secs, _, _ = engine_run(cfg, params, dev, sampled=False)
+    out["phi3.5"] = dict(tokens=[r.out for r in done], secs=secs,
+                         routes=[(c.tolist(), d) for c, d in routes])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(dev, smi):
+    """Phase 9s: serving under tensor parallelism over ``model``
+    (``serving.engine.make_sharded_prefill``, ``make_sharded_serve_step``
+    through ``DecodeEngine(mesh=)``), TP_RANKS processes on the one card
+    over gloo as 9t's, after the one-process runs in this process.
+    zamba2-7b's first group at full width on (1, TP_RANKS), float32 and
+    bf16: (s1) the prefill B 1 x T 4,096 (the SWA and SSD kernels on each
+    rank's heads), its last position's logits within SERVE_TOL
+    relative L2 of the one-process ``forward(last_only=True)``'s made in
+    the ranks' blocks (``rank_blocked``), beside the plain one-process
+    forward's distance and its own spread; (s2) ``DecodeEngine`` over the mesh (ENGINE_PROMPTS,
+    ENGINE_SEQ, ENGINE_NEW): every rank the same tokens and the same
+    cache bits after the run, the greedy tokens in float32 the
+    one-process engine's, ``obs`` on rank 0 only; (s3) on every rank
+    the prefill launched the SWA and SSD forward kernels, no plain
+    version was called on the card, and the prefill's and a decode
+    step's collectives equal ``launch.dryrun.serve_collectives``.
+    phi3.5-moe's one layer in float32 on SERVE_DP decodes
+    ENGINE_PROMPTS greedily: its tokens and its routing (slots per
+    expert and dropped, each step's) equal on every rank and to the
+    one-process engine's.  Beside (s1) the one-process run's own spread
+    is printed: under one rounding of input noise, with the row twice
+    (B 2: other GEMM shapes) and with the plain versions.  Every gate is
+    evaluated and printed before the phase fails on any.  Returns the
+    launches by counter, the ranks' and the one-process runs'."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    failures = []
+
+    def gate(cond, msg):
+        """Every gate is evaluated and printed; the phase fails after."""
+        if not cond:
+            failures.append(msg)
+            say("9s", f"FAILED: {msg}")
+
+    one = serve_one_process(dev)
+    total = {}
+    for dt in SERVE_DTYPES:
+        for k, v in one[dt]["counts"].items():
+            if v and k != "sparse_probe":
+                total[k] = total.get(k, 0) + v
+    say("9s", f"one-process runs: zamba2-7b group engine "
+              f"{one['float32']['secs']:.2f} s (float32), "
+              f"{one['bfloat16']['secs']:.2f} s (bf16); phi3.5 routing "
+              f"{one['phi3.5']['routes'][:2]}...; "
+              f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.perf_counter()
+        got = tp_spawn(dict(device=str(dev), group=TP_GROUP, t=TP_T,
+                            **{"phi3.5": EP_MODELS["phi3.5"]}), tmp,
+                       serve_worker, "9s")
+    say("9s", f"{TP_RANKS} ranks ran in {time.perf_counter() - t_spawn:.1f} "
+              f"s (start-up included)")
+    steps = max(ENGINE_PROMPTS) - 1 + ENGINE_NEW
+    for dt in SERVE_DTYPES:
+        want = one[dt]
+        for rank in range(TP_RANKS):
+            pre, eng = got[rank][dt]["prefill"], got[rank][dt]["engine"]
+            gate(pre["launches"] == SERVE_LAUNCHES[dt]
+                  and not any(pre["plain"].values()),
+                  f"(s3) 9s rank {rank} {dt} prefill: launches "
+                  f"{pre['launches']} != {SERVE_LAUNCHES[dt]}, plain calls "
+                  f"on the card {pre['plain']}")
+            gate(not eng["launches"] and not any(eng["plain"].values()),
+                  f"9s rank {rank} {dt} engine: launches {eng['launches']}"
+                  f", plain calls on the card {eng['plain']}")
+            gate(pre["collectives"] == pre["want"]
+                  and eng["step"]["collectives"] == eng["step_want"],
+                  f"(s3) 9s rank {rank} {dt}: collectives "
+                  f"{pre['collectives']} / {eng['step']['collectives']} != "
+                  f"the dry run's {pre['want']} / {eng['step_want']}")
+            for k, v in pre["launches"].items():
+                total[k] = total.get(k, 0) + v
+            mine = torch.from_numpy(pre["logits"])
+            rel = rel_l2(mine, want["logits"])
+            rel_b = rel_l2(mine, want["blocked"])
+            witness = ""
+            if want["exact"] is not None:
+                witness = (f"; against the float64 forward: this rank "
+                           f"{rel_l2(mine, want['exact']):.3e}, the "
+                           f"one-process forward "
+                           f"{rel_l2(want['logits'], want['exact']):.3e}")
+            coll = ", ".join(f"{k} {v['count']} calls {v['result_bytes']:,}"
+                             f" B" for k, v in pre["collectives"].items()
+                             if v["count"])
+            step_coll = ", ".join(
+                f"{k} {v['count']} calls {v['result_bytes']:,} B"
+                for k, v in eng["step"]["collectives"].items() if v["count"])
+            say("9s", f"rank {rank} {dt} (s1) prefill B 1 x T {TP_T}: "
+                      f"{pre['ms']:.1f} ms (host clock), launches "
+                      f"{pre['launches']}, plain calls on the card "
+                      f"{pre['plain']}; collectives (= the dry run's) "
+                      f"{coll}, host share "
+                      f"{pre['seconds'] * 1e3 / pre['ms']:.3f}; last "
+                      f"position's logits, relative L2: from the "
+                      f"one-process prefill in the ranks' blocks "
+                      f"{rel_b:.3e}, from the one-process prefill "
+                      f"{rel:.3e} (bound {SERVE_TOL} on the first; the "
+                      f"one-process run's own spread: under one rounding "
+                      f"of input noise {want['spread']:.3e}, the same row "
+                      f"twice (B 2) {want['twice']:.3e}, the plain "
+                      f"versions {want['plain']:.3e}){witness}; {smi}")
+            gate(rel_b <= SERVE_TOL, f"(s1) 9s rank {rank} {dt}: the "
+                                     f"sharded prefill's logits are "
+                                     f"{rel_b:.3e} off")
+            say("9s", f"rank {rank} {dt} (s2) DecodeEngine on (1, "
+                      f"{TP_RANKS}): {eng['secs'] / steps * 1e3:.1f} ms per "
+                      f"decode step over {steps} steps (host clock; one "
+                      f"process {want['secs'] / steps * 1e3:.1f}); "
+                      f"collectives' host share "
+                      f"{eng['seconds'] * 1e3 / eng['ms']:.3f}; a step's "
+                      f"collectives (= the dry run's) {step_coll}; tokens "
+                      f"{[t[:4] for t in eng['tokens']]}...; {smi}")
+            gate(eng["tokens"] == got[0][dt]["engine"]["tokens"]
+                  and eng["digest"] == got[0][dt]["engine"]["digest"],
+                  f"(s2) 9s {dt}: rank {rank}'s tokens or cache bits differ "
+                  f"from rank 0's")
+            gate(eng["obs"] == (rank == 0),
+                  f"(s2) 9s rank {rank}: obs recorded {eng['obs']}")
+        if dt == "float32":
+            mine = got[0][dt]["engine"]["tokens"]
+            gate(all(mine[i] == want["tokens"][i] for i in (0, 2)),
+                  f"(s2) 9s float32: the greedy tokens {mine} are not the "
+                  f"one-process engine's {want['tokens']}")
+    p35 = one["phi3.5"]
+    for rank in range(TP_RANKS):
+        eng = got[rank]["phi3.5"]
+        gate(eng["tokens"] == p35["tokens"]
+              and eng["routes"] == p35["routes"],
+              f"9s phi3.5 on {SERVE_DP} rank {rank}: tokens {eng['tokens']}"
+              f" or routing differ from the one-process engine's")
+        gate(eng["step"]["collectives"] == eng["step_want"]
+              and not eng["launches"] and not any(eng["plain"].values()),
+              f"9s phi3.5 rank {rank}: collectives "
+              f"{eng['step']['collectives']} != {eng['step_want']}, or "
+              f"launches {eng['launches']}, plain {eng['plain']}")
+    eng = got[0]["phi3.5"]
+    dropped = sum(d for _, d in p35["routes"])
+    say("9s", f"phi3.5-moe one layer float32 on {SERVE_DP}: "
+              f"{eng['secs'] / steps * 1e3:.1f} ms per decode step (one "
+              f"process {p35['secs'] / steps * 1e3:.1f}), a step's "
+              f"collectives (= the dry run's) {eng['step']['collectives']};"
+              f" greedy tokens and routing equal on every rank and to one "
+              f"process ({len(p35['routes'])} steps, {dropped} slots "
+              f"dropped); {smi}")
+    say("9s", f"phase 9s took {time.perf_counter() - t0:.1f} s; launches "
+              f"(the ranks' and the one-process runs') {total}; "
+              f"{len(failures)} gates failed")
+    for msg in failures:
+        check(False, msg)
+    return total
+
+
 def phase_twopass_times(ctx):
     """Phase 7, row 6: the two-pass tile step at svm-ocr's tile (processor
     0's active block of phase 5d, row-strided), driven once with the
@@ -6314,6 +6783,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = phase_tp(dev, smi)
     ep = phase_ep(dev, smi)
+    serve = phase_serve(dev, smi)
     probe = probe_times(dev)
     primal = dict(name="dso_primal_update", route="cuda",
                   source="src/repro_torch/csrc/dso_sparse.cu",
@@ -6369,7 +6839,7 @@ def main() -> int:
         r["launches"] = sum(v["launches"] for (k, _), v in lm.items()
                             if k == counter) + model.get(counter, 0) \
             + train.get(counter, 0) + tp.get(counter, 0) \
-            + ep.get(counter, 0)
+            + ep.get(counter, 0) + serve.get(counter, 0)
         lm_rows.append(dict(name=name, route="cuda",
                             source=f"src/repro_torch/csrc/{src}",
                             replaces=f"src/repro/kernels/{ref}", **r))

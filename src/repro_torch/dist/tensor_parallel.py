@@ -290,6 +290,35 @@ def axis_group(mesh, axes, rank: int):
     return mine
 
 
+def mesh_groups(mesh, rows: int):
+    """(dp, tp) of this process's rank of the default process group, which
+    must have ``mesh.size`` ranks: its data group (the ranks that differ
+    only on the data axes that split a batch of ``rows``,
+    ``dist.sharding.data_axes``) and its ``model`` group, each a
+    ``TensorParallel`` (``SINGLE`` where the axes span one rank).  Every
+    rank must call it, in the same order: it makes the groups."""
+    n_model = model_size(mesh)
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+        raise RuntimeError(f"a step over mesh {mesh.dims} needs a process "
+                           f"group of {mesh.size} ranks")
+    rank = dist.get_rank()
+    dp = tp = SINGLE
+    axes = shd.data_axes(mesh, rows)
+    if axes:
+        group, n, coord = axis_group(mesh, axes, rank)
+        if group is not None:
+            dp = TensorParallel(group, n, coord)
+    if n_model > 1:
+        tp = TensorParallel(*axis_group(mesh, ("model",), rank))
+    return dp, tp
+
+
+def local_rows(batch: dict, dp) -> dict:
+    """This rank's rows of each of ``batch``'s tensors under its data group
+    ``dp`` (views; the whole batch when ``dp`` is one rank)."""
+    return {k: dp.part(v, v.shape[0], 0) for k, v in batch.items()}
+
+
 def model_size(mesh) -> int:
     """The mesh's ``model`` axis size (1 without one); it must divide
     16, the size the specs assume."""

@@ -38,7 +38,11 @@ determine:
   split over ``model`` or the gathers of their d_ff columns, and the
   routing's few bytes over the data group; for ``vlm`` the cross
   layers' heads), (n-1)/n of the whole tensors' bytes for a gather or a
-  scatter.  Prefill and decode make none.
+  scatter.  A prefill or decode record has no data all-reduce (there is
+  no gradient) and, under ``model``, the sharded serving steps'
+  collectives (``serve_collectives``: ``serving.engine.
+  make_sharded_prefill`` and ``make_sharded_serve_step``, one forward
+  and the logits' gather over the vocabulary).
 
 It cannot compute what the reference reads from XLA: the compiled
 step's ``memory_analysis`` (temporaries included), the HLO parse of the
@@ -145,21 +149,24 @@ def _reduce(nbytes: int) -> tuple:
 
 
 def _attn_part(cfg: ModelConfig, split, prefix: str, n: int, bt: int,
-               e: int, kv_rows: int = 0) -> list:
+               e: int, kv_rows: int = 0, decode: bool = False) -> list:
     """The collectives of one forward of an attention (``models.attention.
     self_attention``, or ``cross_attention`` over ``kv_rows`` image tokens
-    when given): the heads' (or the projections') gathers, then the
-    output's."""
+    when given, or with ``decode`` one token of ``decode_self_attention``,
+    whose new key and value are gathered for the whole cache): the heads'
+    (or the projections') gathers, then the output's."""
     hq, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
     g = cfg.n_kv_heads or hq
     kv = kv_rows or bt
-    out = []
-    if tpm.heads_split(n, hq, g):             # the rank's heads: o gathered
+    heads = tpm.heads_split(n, hq, g)
+    # the projections gathered: all three unless the rank runs its heads;
+    # in a decode step the new key and value always
+    out = [_gather(e * rows * cols) for w, rows, cols in (
+        ("wq", bt, hq * dh), ("wk", kv, g * dh), ("wv", kv, g * dh))
+        if (not heads or (decode and w != "wq"))
+        and split(f"{prefix}/attn/{w}")]
+    if heads:                                 # the rank's heads: o gathered
         out.append(_gather(e * bt * hq * dh))
-    else:
-        out += [_gather(e * rows * cols) for w, rows, cols in (
-            ("wq", bt, hq * dh), ("wk", kv, g * dh), ("wv", kv, g * dh))
-            if split(f"{prefix}/attn/{w}")]
     if split(f"{prefix}/attn/wo"):
         out.append(_gather(e * bt * d))
     return out
@@ -202,10 +209,12 @@ def _moe_part(cfg: ModelConfig, dim, n_data: int, bt: int, e: int) -> tuple:
     return body, []
 
 
-def _mamba_part(cfg: ModelConfig, split, n: int, bt: int, e: int) -> tuple:
+def _mamba_part(cfg: ModelConfig, split, n: int, bt: int, e: int,
+                decode: bool = False) -> tuple:
     """(body, output) of a Mamba2 block (``models.mamba2.mamba2_apply``):
     the projections' outputs and the conv weights, y * silu(z) when the
-    heads split, the output."""
+    heads split (not in a ``decode`` step, ``mamba2_decode``, which
+    updates the whole state), the output."""
     di, ns, h, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
     if cfg.ssm_split_proj:
         proj = (("in_z", di), ("in_x", di), ("in_B", ns), ("in_C", ns),
@@ -217,10 +226,63 @@ def _mamba_part(cfg: ModelConfig, split, n: int, bt: int, e: int) -> tuple:
     out = [_gather(e * bt * c) for w, c in proj if split(f"layers/mamba/{w}")]
     out += [_gather(e * k * c) for w, c in conv
             if split(f"layers/mamba/{w}")]
-    if tpm.heads_split(n, h):
+    if tpm.heads_split(n, h) and not decode:
         out.append(_gather(e * bt * di))
     return out, [_gather(e * bt * cfg.d_model)] \
         if split("layers/mamba/out_proj") else []
+
+
+def _forward_parts(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int,
+                   n_data: int | None, decode: bool = False) -> tuple:
+    """(n, the split test, the embedding's collectives, [(body, output)
+    per block run]) of one forward of ``rows`` sequences of ``seq``
+    tokens on a device (``decode``: one token against the caches), the
+    data group ``n_data`` ranks (default: the mesh's axes other than
+    ``model``)."""
+    n = tpm.model_size(mesh)
+    if n_data is None:
+        n_data = math.prod(v for a, v in mesh.shape.items() if a != "model")
+    specs = dict(shd.leaves_with_paths(p_specs))
+    dim = lambda path: tpm.model_dim(specs[path]) if n > 1 else None  # noqa
+    split = lambda path: dim(path) is not None  # noqa: E731
+    bt = rows * seq
+    e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    embed = [_gather(e * bt * cfg.d_model)] if not cfg.inputs_embeds \
+        and split("embed/table") else []
+
+    def attn_block(prefix, kv_rows=0):
+        body, out = _mlp_part(cfg, split, prefix, bt, e)
+        return _attn_part(cfg, split, prefix, n, bt, e, kv_rows,
+                          decode and not kv_rows) + body, out
+
+    runs = []                           # (body, output) per block run
+    if cfg.arch_type in ("dense", "audio"):
+        runs = [attn_block("layers")] * cfg.n_layers
+    elif cfg.arch_type == "moe":
+        body, out = _moe_part(cfg, dim, n_data, bt, e)
+        runs = [(_attn_part(cfg, split, "layers", n, bt, e, decode=decode)
+                 + body, out)] * cfg.n_layers
+    elif cfg.arch_type in ("ssm", "hybrid"):
+        runs = [_mamba_part(cfg, split, n, bt, e, decode)] * cfg.n_layers
+        if cfg.arch_type == "hybrid":
+            runs += [attn_block("shared_attn")] \
+                * (cfg.n_layers // cfg.shared_attn_every)
+    elif cfg.arch_type == "vlm":        # groups of ce - 1 self, 1 cross
+        groups = cfg.n_layers // cfg.cross_attn_every
+        runs = [attn_block("layers")] * (groups * (cfg.cross_attn_every - 1)
+                                         ) + [attn_block(
+                                             "cross_layers",
+                                             rows * cfg.n_image_tokens)] \
+            * groups
+    return n, split, embed, runs
+
+
+def _by_kind(ops) -> dict:
+    out = {}
+    for kind in ("all-gather", "reduce-scatter", "all-reduce"):
+        got = [b for k, b, _ in ops if k == kind]
+        out[kind] = dict(count=len(got), result_bytes=sum(got))
+    return out
 
 
 def tp_collectives(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int, *,
@@ -242,40 +304,8 @@ def tp_collectives(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int, *,
     group, each MoE layer's slot counts and probability sums (the step's
     all-reduce of the gradients over it is priced apart, by
     ``run_pair``)."""
-    n = tpm.model_size(mesh)
-    if n_data is None:
-        n_data = math.prod(v for a, v in mesh.shape.items() if a != "model")
-    specs = dict(shd.leaves_with_paths(p_specs))
-    dim = lambda path: tpm.model_dim(specs[path]) if n > 1 else None  # noqa
-    split = lambda path: dim(path) is not None  # noqa: E731
-    bt = rows * seq
-    e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
-    embed = [_gather(e * bt * cfg.d_model)] if not cfg.inputs_embeds \
-        and split("embed/table") else []
-
-    def attn_block(prefix, kv_rows=0):
-        body, out = _mlp_part(cfg, split, prefix, bt, e)
-        return _attn_part(cfg, split, prefix, n, bt, e, kv_rows) + body, out
-
-    runs = []                           # (body, output) per block run
-    if cfg.arch_type in ("dense", "audio"):
-        runs = [attn_block("layers")] * cfg.n_layers
-    elif cfg.arch_type == "moe":
-        body, out = _moe_part(cfg, dim, n_data, bt, e)
-        runs = [(_attn_part(cfg, split, "layers", n, bt, e) + body, out)] \
-            * cfg.n_layers
-    elif cfg.arch_type in ("ssm", "hybrid"):
-        runs = [_mamba_part(cfg, split, n, bt, e)] * cfg.n_layers
-        if cfg.arch_type == "hybrid":
-            runs += [attn_block("shared_attn")] \
-                * (cfg.n_layers // cfg.shared_attn_every)
-    elif cfg.arch_type == "vlm":        # groups of ce - 1 self, 1 cross
-        groups = cfg.n_layers // cfg.cross_attn_every
-        runs = [attn_block("layers")] * (groups * (cfg.cross_attn_every - 1)
-                                         ) + [attn_block(
-                                             "cross_layers",
-                                             rows * cfg.n_image_tokens)] \
-            * groups
+    n, split, embed, runs = _forward_parts(cfg, mesh, p_specs, rows, seq,
+                                           n_data)
     forward = embed + [x for body, out in runs for x in body + out]
     again = [x for body, _ in runs for x in body] if remat else []
     backward = [(bwd, nbytes, None) for _, nbytes, bwd in forward if bwd]
@@ -283,12 +313,29 @@ def tp_collectives(cfg: ModelConfig, mesh, p_specs, rows: int, seq: int, *,
         S.param_spec_tree(cfg)) if not split(path))
     step = [("all-reduce", b, None) for b in
             [rows * (seq - 1) * 4] * 3 + [4 * whole, 4]] if n > 1 else []
-    out = {}
-    for kind in ("all-gather", "reduce-scatter", "all-reduce"):
-        got = [b for k, b, _ in forward + again + backward + step
-               if k == kind]
-        out[kind] = dict(count=len(got), result_bytes=sum(got))
-    return out
+    return _by_kind(forward + again + backward + step)
+
+
+def serve_collectives(cfg: ModelConfig, mesh, p_specs, rows: int,
+                      seq: int, *, decode: bool,
+                      n_data: int | None = None) -> dict:
+    """The collectives of one call of the sharded prefill
+    (``serving.engine.make_sharded_prefill``: ``rows`` sequences of
+    ``seq`` tokens on the device) or, with ``decode``, of one step of the
+    sharded serve step (``make_sharded_serve_step``: ``rows`` tokens),
+    by kind as ``tp_collectives`` gives them: the forward's (the decode
+    attention's new key and value gathered for the whole caches, the
+    Mamba2 state updated whole) and the gather of the last position's
+    logits over the padded vocabulary; no backward and no step."""
+    n, split, embed, runs = _forward_parts(cfg, mesh, p_specs, rows,
+                                           1 if decode else seq, n_data,
+                                           decode)
+    ops = embed + [x for body, out in runs for x in body + out]
+    if split("unembed/w"):
+        itemsize = 4 if decode else torch.empty(
+            (), dtype=torch_dtype(cfg.logits_dtype)).element_size()
+        ops.append(_gather(itemsize * rows * cfg.padded_vocab))
+    return _by_kind(ops)
 
 
 def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
@@ -317,6 +364,9 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
         batch = S.batch_specs(cfg, shape)
     nbytes["batch"], per_dev["batch"] = _sharded_bytes(
         mesh, batch, shd.data_specs(mesh, batch))
+    axes = shd.data_axes(mesh, shape.global_batch)
+    n = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    rows = shape.global_batch // n          # a device's batch rows
     if shape.kind == "train":
         nbytes["grads"], per_dev["grads"] = p_bytes, p_dev
         # mu and nu in float32 on the parameters' specs, the int32 step
@@ -324,20 +374,21 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
         nbytes["opt_state"], per_dev["opt_state"] = 2 * m_bytes + 4, \
             2 * m_dev + 4
         flops["backward"] = 2 * flops["forward"]
-        axes = shd.data_axes(mesh, shape.global_batch)
-        n = math.prod(mesh.shape[a] for a in axes) if axes else 1
         if n > 1:
             collectives["all-reduce"] = dict(
                 count=1, group=n, axes=list(axes), result_bytes=p_dev,
                 wire_bytes=tpm.wire_bytes("all-reduce", p_dev, n))
-        n_model = mesh.shape["model"]
-        collectives["model"] = {
-            kind: dict(rec, group=n_model, axes=["model"],
-                       wire_bytes=tpm.wire_bytes(
-                           kind, rec["result_bytes"], n_model))
-            for kind, rec in tp_collectives(
-                cfg, mesh, p_specs, shape.global_batch // n,
-                shape.seq_len, n_data=n).items()}
+        model = tp_collectives(cfg, mesh, p_specs, rows, shape.seq_len,
+                               n_data=n)
+    else:
+        model = serve_collectives(cfg, mesh, p_specs, rows, shape.seq_len,
+                                  decode=shape.kind == "decode", n_data=n)
+    n_model = mesh.shape["model"]
+    collectives["model"] = {
+        kind: dict(rec, group=n_model, axes=["model"],
+                   wire_bytes=tpm.wire_bytes(kind, rec["result_bytes"],
+                                             n_model))
+        for kind, rec in model.items()}
     total = flops["forward"] + flops.get("backward", 0)
     rec = dict(
         arch=arch, shape=shape_name,

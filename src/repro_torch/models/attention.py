@@ -13,7 +13,8 @@ version; on CUDA tensors it launches the kernel or raises.
 Cross-attention and one-token decode (full cache or a ring buffer of
 ``window`` slots) stay plain PyTorch: the reference computes them in jnp
 outside any Pallas kernel.  Cross-attention takes ``tp`` as
-self-attention does.  The decode caches are updated in place.
+self-attention does, and so does decode, on a cache that every rank of
+the group holds whole.  The decode caches are updated in place.
 
 Under tensor parallelism (``tp``, ``dist.tensor_parallel``) wq, wk and wv
 hold the rank's columns and wo its columns of d.  When the rank's columns
@@ -168,17 +169,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
 
 
 def decode_self_attention(p, x, cache, pos: int, cfg: ModelConfig, *,
-                          seq_len: int):
+                          seq_len: int, tp=SINGLE):
     """One-token decode. x: (B, 1, d); pos: the current position.
 
     Writes the new key and value into ``cache`` in place and returns
     (out (B,1,d), cache).  The cache is a ring buffer when seq_len >
-    cfg.full_attn_max (slot = pos % window)."""
+    cfg.full_attn_max (slot = pos % window).  Under ``tp`` every rank
+    holds the whole cache of its rows: the new key and value come from
+    gathered projections, so every rank writes the same row; the query
+    is the rank's heads when they divide (attending on its KV heads of
+    the cache), else gathered, and ``_finish`` gathers as in the
+    prefill."""
     g = cfg.n_kv_heads or cfg.n_heads
     S = cache["k"].shape[1]
     windowed = seq_len > cfg.full_attn_max
-    q = _project_q(p, x, cfg)
-    k, v = _project_kv(p, x, cfg)
+    split = tp.splits(cfg.n_heads, g)
+    q = _project_q(p, x, cfg, tp, split)
+    k, v = _project_kv(p, x, cfg, tp)
     if cfg.pos == "rope":
         pvec = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         q = apply_rope(q, pvec, cfg.rope_theta)
@@ -192,5 +199,8 @@ def decode_self_attention(p, x, cache, pos: int, cfg: ModelConfig, *,
         valid = pos - torch.remainder(pos - slots, S) >= 0
     else:
         valid = slots <= pos
-    o = _attend(_grouped(q, g), cache["k"], cache["v"], valid[None, :])
-    return _finish(p, o, cfg, x.dtype), cache
+    ck, cv = cache["k"], cache["v"]
+    if split:                        # the rank's KV heads of the cache
+        ck, cv = tp.part(ck, g, 2), tp.part(cv, g, 2)
+    o = _attend(_grouped(q, ck.shape[2]), ck, cv, valid[None, :])
+    return _finish(p, o, cfg, x.dtype, tp), cache

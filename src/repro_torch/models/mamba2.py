@@ -29,7 +29,7 @@ y * silu(z) is gathered for the norm over all of d_inner and out_proj,
 and the output's columns after.
 
 Decode carries (conv ring buffer, SSD state), O(1) per token, updated in
-place.
+place; under ``tp`` both are whole on every rank of the group.
 """
 
 from __future__ import annotations
@@ -224,12 +224,15 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, device,
     }
 
 
-def mamba2_decode(p, x, cache, cfg: ModelConfig):
+def mamba2_decode(p, x, cache, cfg: ModelConfig, tp=SINGLE):
     """One-token step. x: (B, 1, d).  Updates ``cache`` in place and
-    returns (out (B,1,d), cache)."""
+    returns (out (B,1,d), cache).  Under ``tp`` every rank holds the
+    whole conv and SSM states of its rows and updates them alike from
+    ``_in_proj``'s gathered outputs; the output's columns are
+    gathered."""
     Bsz = x.shape[0]
     di, n, h, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc, dt_raw, conv_w, conv_b = _in_proj(p, x, cfg)
+    z, xbc, dt_raw, conv_w, conv_b = _in_proj(p, x, cfg, tp)
     # conv ring: window = cfg.ssm_conv, cache holds the K-1 previous inputs
     hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], dim=1)
     conv_out = (hist * conv_w[None]).sum(dim=1, keepdim=True)
@@ -244,7 +247,7 @@ def mamba2_decode(p, x, cache, cfg: ModelConfig):
     state = cache["state"] * decay[..., None, None] + upd
     y = torch.einsum("bn,bhnd->bhd", Cc.float(), state)
     y = y + p["D"][None, :, None] * xs.float()
-    out = _gate_out(p, y.reshape(Bsz, 1, di).to(x.dtype), z, cfg)
+    out = _gate_out(p, y.reshape(Bsz, 1, di).to(x.dtype), z, cfg, tp)
     cache["conv"].copy_(hist[:, 1:])
     cache["state"].copy_(state)
     return out, cache

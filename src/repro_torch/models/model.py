@@ -32,7 +32,9 @@ d_ff columns, ``models.moe``; the vlm's cross-attention on the rank's
 heads), the embedding's columns are gathered and the logits are the
 rank's slice of the vocabulary.  ``dp=`` is the data group of the
 sharded train step: the MoE routing's statistics are the whole batch's
-over it.
+over it.  ``decode_step(..., tp=, dp=)`` is the sharded serve step's
+(``serving.engine.make_sharded_serve_step``): every rank of a ``model``
+group holds the whole caches of its rows, and the logits are gathered.
 
 Inputs (per arch family):
   dense/moe/ssm/hybrid: batch["tokens"]       (B, T) int
@@ -256,7 +258,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
                       device="cuda"):
     """Zeroed caches on ``device`` (default the card), stacked per layer as
-    the reference's are."""
+    the reference's are (a rank of the sharded serve step: its rows)."""
     return _decode_state(cfg, batch, seq_len, resolve_device(device))
 
 
@@ -285,14 +287,20 @@ def _decode_state(cfg: ModelConfig, batch: int, seq_len: int, dev):
 
 
 def decode_step(params, state, inp, pos, cfg: ModelConfig, *, seq_len: int,
-                image_embeds=None, unroll: bool = False):
+                image_embeds=None, unroll: bool = False, tp=SINGLE,
+                dp=SINGLE):
     """One decode step. inp: tokens (B, 1) or embeds (B, 1, d); pos: the
     position (an int or a 0-d tensor).
 
     Updates the caches of ``state`` in place and returns (logits float32
-    (B, 1, vocab), state)."""
+    (B, 1, vocab), state).  Under ``tp`` the parameters are the rank's
+    shards and the caches whole on every rank of the group (each block
+    takes ``tp`` as in ``forward``); the logits are the whole padded
+    vocabulary, gathered.  ``dp`` is the data group the batch's rows are
+    split over: the MoE routing's statistics are the whole batch's."""
     pos = int(pos)
-    x = inp if cfg.inputs_embeds else embed(params["embed"], inp)
+    x = inp if cfg.inputs_embeds else tp.whole(embed(params["embed"], inp),
+                                               cfg.d_model)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(torch.full((1,), pos, device=x.device),
                                cfg.d_model).to(x.dtype)
@@ -300,18 +308,19 @@ def decode_step(params, state, inp, pos, cfg: ModelConfig, *, seq_len: int,
     def attn_step(x, layer_p, cache):
         h, _ = attn.decode_self_attention(
             layer_p["attn"], rmsnorm(layer_p["ln1"], x), cache, pos, cfg,
-            seq_len=seq_len)
+            seq_len=seq_len, tp=tp)
         h = x + h
         z = rmsnorm(layer_p["ln2"], h)
         if cfg.is_moe and "moe" in layer_p:
-            y, _ = moe.moe_apply(layer_p["moe"], z, cfg)
+            y, _ = moe.moe_apply(layer_p["moe"], z, cfg, tp=tp, dp=dp)
         else:
-            y = mlp_apply(layer_p["mlp"], z, cfg.mlp)
+            y = mlp_apply(layer_p["mlp"], z, cfg.mlp, tp)
         return h + y
 
     def mamba_step(x, layer_p, cache):
         h, _ = mamba2.mamba2_decode(layer_p["mamba"],
-                                    rmsnorm(layer_p["ln"], x), cache, cfg)
+                                    rmsnorm(layer_p["ln"], x), cache, cfg,
+                                    tp)
         return x + h
 
     layers, caches = params["layers"], state["layers"]
@@ -335,9 +344,9 @@ def decode_step(params, state, inp, pos, cfg: ModelConfig, *, seq_len: int,
                 i = g * (ce - 1) + j
                 x = attn_step(x, layer(layers, i), layer(caches, i))
             x = _cross_block_apply(layer(params["cross_layers"], g), x,
-                                   image_embeds, cfg)
+                                   image_embeds, cfg, tp)
     else:
         raise ValueError(cfg.arch_type)
 
     x = rmsnorm(params["final_norm"], x)
-    return unembed(params["unembed"], x), state
+    return tp.whole(unembed(params["unembed"], x), cfg.padded_vocab), state

@@ -169,40 +169,18 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
     """
     import torch.distributed as dist
 
-    n_model = tpm.model_size(mesh)
-    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
-        raise RuntimeError(f"the sharded step needs a process group of "
-                           f"{mesh.size} ranks for mesh {mesh.dims}")
     p_sh = shd.param_shardings(mesh, M.param_specs(cfg))
     state_sh = TrainState(params=p_sh,
                           opt=opt.OptState(mu=p_sh, nu=p_sh, step=()))
     d_sh = shd.data_specs(mesh, batch_shapes)
-    axes = shd.data_axes(mesh, next(iter(batch_shapes.values())).shape[0])
-    rank = dist.get_rank()
-    group, n_shards, shard = None, 1, 0
-    if axes:
-        group, n_shards, shard = tpm.axis_group(mesh, axes, rank)
-    dp = SINGLE if group is None else tpm.TensorParallel(group, n_shards,
-                                                         shard)
-    tp = SINGLE
-    if n_model > 1:
-        tp = tpm.TensorParallel(*tpm.axis_group(mesh, ("model",), rank))
+    dp, tp = tpm.mesh_groups(mesh,
+                             next(iter(batch_shapes.values())).shape[0])
     sharded = opt.tree_map(lambda s: tpm.model_dim(s) is not None, p_sh)
-
-    def local(batch):
-        out = {}
-        for k, v in batch.items():
-            spec = d_sh[k]
-            if spec and spec[0] is not None:
-                rows = v.shape[0] // n_shards
-                v = v[shard * rows:(shard + 1) * rows]
-            out[k] = v
-        return out
 
     def grads_fn(params, batch):
         total, metrics, grads = loss_and_grads(
-            params, local(batch), cfg, remat=remat, q_chunk=q_chunk, tp=tp,
-            dp=dp)
+            params, tpm.local_rows(batch, dp), cfg, remat=remat,
+            q_chunk=q_chunk, tp=tp, dp=dp)
         leaves = opt.tree_leaves(grads)
         if tp.n > 1:        # the whole leaves' partial gradients
             whole = [g for g, f in zip(leaves, opt.tree_leaves(sharded))
@@ -213,12 +191,12 @@ def make_sharded_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh,
             leaves = [g if f else next(summed).view(g.shape).to(g.dtype)
                       for g, f in zip(leaves, opt.tree_leaves(sharded))]
             grads = opt.tree_unflatten(grads, leaves)
-        if group is not None:
+        if dp.n > 1:
             scalars = [total, metrics["loss"], metrics["aux_loss"]]
             flat = torch.cat([t.reshape(-1).to(torch.float32)
                               for t in leaves + scalars])
-            dist.all_reduce(flat, group=group)
-            flat /= n_shards
+            dist.all_reduce(flat, group=dp.group)
+            flat /= dp.n
             parts = flat.split([t.numel() for t in leaves + scalars])
             grads = opt.tree_unflatten(grads, [
                 p.view(t.shape).to(t.dtype) for p, t in zip(parts, leaves)])

@@ -27,6 +27,7 @@ from repro.launch import specs as jspecs
 from repro_torch.configs import registry as treg
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as tspecs
+from test_torch_serve_tp import meta_serve_counts
 
 SHAPES = list(jreg.INPUT_SHAPES)
 TOKEN_KEYS = ("tokens", "targets", "inp", "pos")
@@ -120,7 +121,12 @@ def test_multipod_train_all_reduces_over_32_ranks(arch, records):
     assert ar["wire_bytes"] == pytest.approx(2 * grads * 31 / 32)
     assert records[arch, "train_4k", False]["collectives"][
         "all-reduce"]["group"] == 16
-    assert records[arch, "decode_32k", True]["collectives"] == {}
+    dec = records[arch, "decode_32k", True]["collectives"]
+    assert "all-reduce" not in dec          # no gradient, no data all-reduce
+    step = meta_serve_counts(treg.get_config(arch), (32, 16), 128 // 32,
+                             treg.INPUT_SHAPES["decode_32k"].seq_len, True)
+    assert {k: dict(count=v["count"], result_bytes=v["result_bytes"])
+            for k, v in dec["model"].items()} == step
 
 
 @pytest.mark.parametrize("arch", treg.ARCH_IDS)
